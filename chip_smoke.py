@@ -1,10 +1,10 @@
-"""Drive honours_tpu_torch's main path on one CUDA card and check it.
+"""Drive honours_tpu_torch's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py [--seed 0]
 
 1. Prints the card, builds the CUDA kernels (csrc/) and times the build.
 2. Holds every kernel against its plain PyTorch version at the main
-   path's shapes (a bucket of 256 synthetic reads at L = 65536): the
+   paths' shapes (a bucket of 256 synthetic reads at L = 65536): the
    outputs are integers and must be equal.  Times each with CUDA events,
    beside its plain version, a one-call PyTorch yardstick where one
    exists, and its bound (bytes over 3.35 TB/s or integer operations
@@ -12,9 +12,13 @@
 3. Presses and depresses ~1,028 reads (1,024 synthetic reads with
    log-uniform lengths in [4,000, 250,000] samples plus edge reads, two
    of which overflow the exception cap) through
-   honours_tpu_torch.engine.runner on the card, asserts every read comes
-   back bit for bit and every kernel was launched, and checks the card's
-   streams of a few reads against the CPU path's.
+   honours_tpu_torch.engine.runner on the card, once per codec
+   (drans_vbbe21_zd, svb12_zd, svb12, srans3_vbbe21_zd).  Each path
+   starts with every launch count at 0; it asserts every read comes back
+   bit for bit, that its own kernels were launched and that the
+   overflow reads took the one-row path, prints its ratio and encode and
+   decode rates, and checks the card's streams of a few reads against
+   the CPU path's.  Every kernel must be launched by some path.
 4. Prints one {"kernels": [...]} line, then {"ok": true, "device": ...}.
 
 Exits non-zero, with no result line, when CUDA is unavailable or any
@@ -93,17 +97,28 @@ def make_bucket(seed: int, B: int = 256, L: int = 1 << 16):
 
 def kernel_cases(seed: int):
     """(name, kernel call, plain call, bytes, ops, library call) at the
-    main path's shapes, from one bucket run through the port's stages."""
+    main path's shapes, from one bucket run through the port's stages,
+    and the untimed (name, kernel call, plain call) checks of options the
+    timed cases leave out."""
     from honours_tpu_torch.engine import drans as D
     from honours_tpu_torch.engine import permute_cuda as P
     from honours_tpu_torch.engine import rans_encode_cuda as E
+    from honours_tpu_torch.engine import rans_n4_cuda as N4
     from honours_tpu_torch.engine import rans_o1_cuda as O
-    from honours_tpu_torch.engine.entropy_o1 import _lane_grid
+    from honours_tpu_torch.engine import svb16_cuda as SV
+    from honours_tpu_torch.engine.bits import read_u32le
+    from honours_tpu_torch.engine.entropy_o1 import _lane_grid, _rd_states
     from honours_tpu_torch.engine.pipeline import (
         _zd_parts,
         canned_o1_device_tables,
+        canned_o1n_device_tables,
+        press_srans3_batch,
     )
-    from honours_tpu_torch.engine.vbbe21 import vbbe21_parts_batch
+    from honours_tpu_torch.engine.vbbe21 import (
+        vbbe21_parse_batch,
+        vbbe21_parts_batch,
+        wrap_i32,
+    )
     from honours_tpu_torch.kernels.rans import K_SHARED as K
     from honours_tpu_torch.tables.drans import PREFIX_DEN
 
@@ -163,7 +178,21 @@ def kernel_cases(seed: int):
     ex_vals = torch.where(ex_valid, eidx + 300, 0).to(torch.int32)
     ex_shift = torch.where(ex_valid, ex_pos - eidx, 0).to(torch.int32)
 
+    # svb16 on the raw bucket; srans3's v4 body, parsed for kernel 8
+    svb, svb_len = SV.svb16_encode(sig, n, True)
+    ntabs = canned_o1n_device_tables(dev)
+    nt = (ntabs["cmap"], ntabs["lo_assign"], ntabs["fcH"], ntabs["fcL"])
+    st3, sl3 = press_srans3_batch(sig, n, ntabs, emax)
+    p3 = vbbe21_parse_batch(st3, torch.full_like(n64, 2), n64 - 1, L, emax)
+    off3 = p3["end_off"]
+    args8 = (st3, _rd_states(st3, off3, K),
+             (n64 - 1 - p3["nex"]).to(torch.int32),
+             wrap_i32(read_u32le(st3, off3)).to(torch.int32),
+             (off3 + 4 + 4 * K).to(torch.int32), *nt)
+    body3 = int((sl3 - off3 - 4 - 4 * K).sum())
+
     BL = B * L
+    nsum = int(n64.sum())
     flat_fc = tabs["fc"][tabs["cmap"].to(torch.int64)].reshape(-1)
     flat_idx = ctx.to(torch.int64) * 256 + sym
     cases = [
@@ -192,8 +221,31 @@ def kernel_cases(seed: int):
          lambda: (O.o1_decode_plain(*args1), O.o1_decode_plain(*args2)),
          consumed + B * K * (T1 + T2) + 4 * 4 * B * K,
          40 * B * K * (T1 + T2), None),
+        # samples < n read (2 B), the whole stream row written
+        ("svb16_encode", lambda: SV.svb16_encode(sig, n, True),
+         lambda: SV.svb16_encode_plain(sig, n, True),
+         2 * nsum + svb.numel() + 8 * B, 12 * nsum, None),
+        # each row's stream up to its length read, [B, L] int16 written
+        ("svb16_decode", lambda: SV.svb16_decode(svb, n, L, True),
+         lambda: SV.svb16_decode_plain(svb, n, L, True),
+         int(svb_len.sum()) + 2 * BL + 4 * B, 16 * nsum, None),
+        ("o1n_fc", lambda: N4.o1n_fc(sym, ctx, *nt),
+         lambda: N4.o1n_fc_plain(sym, ctx, *nt),
+         16 * sym.numel(), 8 * sym.numel(), None),
+        # the v4 bodies consumed, states in, the lane grid out
+        ("n4_decode", lambda: N4.n4_decode(*args8, Smax),
+         lambda: N4.n4_decode_plain(*args8, Smax),
+         body3 + 4 * B * K + 12 * B + B * K * Smax,
+         60 * B * K * Smax, None),
     ]
-    return cases
+    svb_raw, _ = SV.svb16_encode(sig, n, False)
+    untimed = [
+        ("svb16_encode zd=False", lambda: SV.svb16_encode(sig, n, False),
+         lambda: SV.svb16_encode_plain(sig, n, False)),
+        ("svb16_decode zd=False", lambda: SV.svb16_decode(svb_raw, n, L, False),
+         lambda: SV.svb16_decode_plain(svb_raw, n, L, False)),
+    ]
+    return cases, untimed
 
 
 def flatten(x):
@@ -211,14 +263,35 @@ REPLACES = {
     "o1_fc": "honours_tpu/engine/rans_o1_pallas.py:147",
     "rans_encode": "honours_tpu/engine/rans_encode_pallas.py:118",
     "o1_decode": "honours_tpu/engine/rans_o1_pallas.py:447",
+    "svb16_encode": "honours_tpu/engine/svb16_fused.py:153",
+    "svb16_decode": "honours_tpu/engine/svb16_fused.py:266",
+    "o1n_fc": "honours_tpu/engine/rans_n4_pallas.py:77",
+    "n4_decode": "honours_tpu/engine/rans_n4_pallas.py:245",
+}
+
+#: kernels each main path must launch
+KERNEL_1 = {"monotone_compact_u8", "monotone_compact_i32",
+            "compaction_shifts", "monotone_expand_u8", "monotone_expand_i32"}
+PATHS = {
+    "drans_vbbe21_zd": KERNEL_1 | {"o1_fc", "rans_encode", "o1_decode"},
+    "svb12_zd": {"svb16_encode", "svb16_decode"},
+    "svb12": {"svb16_encode", "svb16_decode"},
+    "srans3_vbbe21_zd": KERNEL_1 | {"rans_encode", "o1n_fc", "n4_decode"},
 }
 
 
 def check_kernels(seed: int) -> dict:
     from honours_tpu_torch._build import KERNELS
 
+    cases, untimed = kernel_cases(seed)
+    for name, kern, plain in untimed:
+        err = max_abs_err(flatten(kern()), flatten(plain()))
+        if err != 0:
+            raise AssertionError(f"{name}: kernel differs from its plain "
+                                 f"version (max abs err {err})")
+        log(f"kernel {name}: equal to plain (max abs err {err})")
     results = {}
-    for name, kern, plain, nbytes, ops, library in kernel_cases(seed):
+    for name, kern, plain, nbytes, ops, library in cases:
         kern()  # warm-up
         torch.cuda.synchronize()
         got = flatten(kern())
@@ -227,7 +300,7 @@ def check_kernels(seed: int) -> dict:
         if err != 0:
             raise AssertionError(f"{name}: kernel differs from its plain "
                                  f"version (max abs err {err})")
-        reps = 3 if name in ("rans_encode", "o1_decode") else 20
+        reps = 3 if name in ("rans_encode", "o1_decode", "n4_decode") else 20
         ms = cuda_ms(kern, reps)
         library_ms = None
         if library is not None:
@@ -271,26 +344,32 @@ def read_set(seed: int):
     return reads
 
 
-def main_path(seed: int) -> dict:
+def main_path(codec: str, reads) -> dict:
+    """Press and depress `reads` through the runner with `codec`; returns
+    this path's launch counts."""
     from honours_tpu_torch._build import KERNELS
-    from honours_tpu_torch.engine.runner import depress_signals, press_signals
+    from honours_tpu_torch.engine.runner import (
+        ENGINE_CODECS,
+        _emax,
+        _nex_overflowed,
+        depress_signals,
+        press_signals,
+    )
+    from honours_tpu_torch.io.batching import bucket_reads
 
-    reads = read_set(seed)
     lens = [r.size for r in reads]
     raw = sum(2 * r.size for r in reads)
-    log(f"main path: {len(reads)} reads, {sum(lens)} samples, "
-        f"{raw / 1e6:.1f} MB int16")
     warm = reads[:4] + reads[-4:]
-    depress_signals(press_signals(warm), [r.size for r in warm])
+    depress_signals(press_signals(warm, codec), [r.size for r in warm], codec)
     torch.cuda.synchronize()
 
     for k in KERNELS.values():
         k.launches = 0
     t0 = time.perf_counter()
-    streams = press_signals(reads)
+    streams = press_signals(reads, codec)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    out = depress_signals(streams, lens)
+    out = depress_signals(streams, lens, codec)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = {name: k.launches for name, k in KERNELS.items()}
@@ -298,24 +377,37 @@ def main_path(seed: int) -> dict:
     bad = [i for i, (a, b) in enumerate(zip(reads, out))
            if not np.array_equal(a, b)]
     if bad:
-        raise AssertionError(f"reads {bad[:8]} did not round-trip")
-    idle = [name for name, c in launches.items() if c == 0]
+        raise AssertionError(f"{codec}: reads {bad[:8]} did not round-trip")
+    idle = sorted(k for k in PATHS[codec] if launches[k] == 0)
     if idle:
-        raise AssertionError(f"kernels not launched on the main path: {idle}")
+        raise AssertionError(f"{codec}: kernels not launched: {idle}")
+    kind = ENGINE_CODECS[codec]
+    if kind in ("drans", "srans3"):
+        # the two overflow reads are the last two: their streams carry
+        # more exceptions than their bucket's cap, so they were pressed
+        # (and decoded) by the one-row path, and they round-tripped
+        L_of = {int(i): b.L for b in bucket_reads(reads, max_b=256)
+                for i in b.indices}
+        i = len(reads) - 2
+        if not all(_nex_overflowed(streams[j], kind, _emax(L_of[j]))
+                   for j in (i, i + 1)):
+            raise AssertionError(f"{codec}: the overflow reads did not "
+                                 "overflow the exception cap")
     comp = sum(len(s) for s in streams)
     enc_s, dec_s = t1 - t0, t2 - t1
-    log(f"main path: all {len(reads)} reads round-trip bit for bit; ratio "
-        f"{raw / comp:.6f}; encode {enc_s:.3f} s ({raw / enc_s / 1e6:.1f} "
-        f"MB/s), decode {dec_s:.3f} s ({raw / dec_s / 1e6:.1f} MB/s); "
-        f"launches {launches}")
+    log(f"{codec}: all {len(reads)} reads round-trip bit for bit")
+    log(f"{codec}: ratio {raw / comp:.6f}")
+    log(f"{codec}: encode {enc_s:.3f} s, {raw / enc_s / 1e6:.1f} MB/s")
+    log(f"{codec}: decode {dec_s:.3f} s, {raw / dec_s / 1e6:.1f} MB/s")
+    log(f"{codec}: launches {launches}")
 
     # reference on a small input: the CPU path's bytes for a few reads
     small = [reads[i] for i in np.argsort(lens)[:6]]
-    on_card = press_signals(small)
-    on_cpu = press_signals(small, device="cpu")
-    if on_card != on_cpu:
-        raise AssertionError("card and CPU streams differ on small reads")
-    log(f"main path: card streams equal the CPU path's on {len(small)} "
+    if press_signals(small, codec) != press_signals(small, codec,
+                                                    device="cpu"):
+        raise AssertionError(f"{codec}: card and CPU streams differ on "
+                             "small reads")
+    log(f"{codec}: card streams equal the CPU path's on {len(small)} "
         "small reads")
     return launches
 
@@ -340,9 +432,15 @@ def main(argv=None) -> int:
     log(f"build: {time.perf_counter() - t:.1f} s")
 
     results = check_kernels(args.seed)
-    launches = main_path(args.seed)
-    for k, r in results.items():
-        r["launches"] = launches[k]
+    reads = read_set(args.seed)
+    log(f"main path: {len(reads)} reads, {sum(r.size for r in reads)} "
+        f"samples, {sum(2 * r.size for r in reads) / 1e6:.1f} MB int16")
+    for codec in PATHS:
+        for k, c in main_path(codec, reads).items():
+            results[k]["launches"] += c
+    idle = [k for k, r in results.items() if r["launches"] == 0]
+    if idle:
+        raise AssertionError(f"kernels no main path launched: {idle}")
     log(smi)
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("permute.cu", "rans_o1.cu", "rans_encode.cu")
+SOURCES = (
+    "permute.cu", "rans_o1.cu", "rans_encode.cu", "svb16.cu", "rans_n4.cu",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo",

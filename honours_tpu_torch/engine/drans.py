@@ -24,11 +24,12 @@ from honours_tpu_torch.engine.bits import (
 from honours_tpu_torch.engine.entropy_o1 import (
     _lane_grid,
     _o1_fc,
+    _rd_states,
     _ungrid,
     cdiv,
     encode_from_fc,
 )
-from honours_tpu_torch.engine.permute import monotone_expand, u32_to_i32
+from honours_tpu_torch.engine.permute import monotone_expand
 from honours_tpu_torch.engine.pipeline import _zd_merge, _zd_parts
 from honours_tpu_torch.engine.rans_o1_cuda import o1_decode
 from honours_tpu_torch.engine.vbbe21 import (
@@ -149,17 +150,6 @@ def press_drans_batch(sig, n, tabs_canned, emax: int = None, member=None):
 # ---------------------------------------------------------------------------
 # decode
 # ---------------------------------------------------------------------------
-
-
-def _rd_states(stream, base_off, K: int):
-    """The K u32 lane states after the S header, as int32 bits."""
-    B, Mb = stream.shape
-    so = base_off[:, None] + 4 + 4 * torch.arange(K, device=stream.device)
-    idx = so[:, :, None] + torch.arange(4, device=stream.device)
-    b = torch.gather(stream, 1, idx.reshape(B, -1).clamp(0, Mb - 1))
-    b = b.reshape(B, K, 4).to(torch.int64)
-    return u32_to_i32((b << torch.tensor([0, 8, 16, 24],
-                                         device=stream.device)).sum(dim=2))
 
 
 def _grid_ctx(grid):

@@ -4,7 +4,8 @@ Lanes are block-interleaved: lane k owns [k*S, (k+1)*S) of a read's
 residual bytes, S = ceil(n / K), so each symbol's context is its
 predecessor in the same lane (CTX0 for a lane's first symbol) and all K
 contexts are known in lockstep during decode.  The drans engine (format
-v5) drives these with two tables.
+v5) drives these with two tables; srans3 (format v4, entropy_o1n.py)
+shares the lane grid, the encode tail and the state header.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from honours_tpu_torch.engine.permute import (
     i32_to_u32,
     monotone_compact,
     monotone_expand,
+    u32_to_i32,
 )
 from honours_tpu_torch.engine.rans_encode_cuda import encode_core
 from honours_tpu_torch.engine.rans_o1_cuda import MAX_CLUSTERS, o1_fc
@@ -90,21 +92,40 @@ def _lane_grid(data, dlen, K: int, Smax: int):
     return g3, ctx3, alive.reshape(B, K, Smax), S_b
 
 
-def encode_from_fc(fc3, act3, S_b, K: int = K_SHARED):
-    """Encode tail: packed (f, c) per lane-grid position -> v3 body as
-    concat segments [S:u32][K states:u32][candidate plane + keep mask],
-    and the plane width.  The body compaction rides the caller's
-    rowwise_concat."""
-    B, _, Smax = fc3.shape
-    fc = torch.where(act3, fc3, 0).transpose(1, 2).reshape(B, Smax * K)
-    cand, keep, states = encode_core(fc.to(torch.int32).contiguous(), Smax, K)
-    dev = fc3.device
+def encode_segments(fc, nsteps: int, S_b, K: int = K_SHARED):
+    """Encode tail: step-major packed (f, c) [B, nsteps*K] (0 where
+    inactive) -> body concat segments [S:u32][K states:u32][candidate
+    plane + keep mask], and the plane width.  The body compaction rides
+    the caller's rowwise_concat."""
+    B = fc.shape[0]
+    cand, keep, states = encode_core(fc.to(torch.int32).contiguous(), nsteps,
+                                     K)
+    dev = fc.device
     segs = [
         (u32le_bytes(S_b), torch.full((B,), 4, device=dev)),
         (_u32le_grid(states), torch.full((B,), 4 * K, device=dev)),
         (cand, keep),
     ]
     return segs, cand.shape[1]
+
+
+def encode_from_fc(fc3, act3, S_b, K: int = K_SHARED):
+    """v3 body from packed (f, c) per lane-grid position [B, K, Smax]."""
+    B, _, Smax = fc3.shape
+    fc = torch.where(act3, fc3, 0).transpose(1, 2).reshape(B, Smax * K)
+    return encode_segments(fc, Smax, S_b, K)
+
+
+def _rd_states(stream, base_off, K: int):
+    """The K u32 lane states after the S header at base_off, as int32
+    bits."""
+    B, Mb = stream.shape
+    so = base_off[:, None] + 4 + 4 * torch.arange(K, device=stream.device)
+    idx = so[:, :, None] + torch.arange(4, device=stream.device)
+    b = torch.gather(stream, 1, idx.reshape(B, -1).clamp(0, Mb - 1))
+    b = b.reshape(B, K, 4).to(torch.int64)
+    return u32_to_i32((b << torch.tensor([0, 8, 16, 24],
+                                         device=stream.device)).sum(dim=2))
 
 
 def _ungrid(out3, S_b, dlen, K: int, Smax: int, N: int):

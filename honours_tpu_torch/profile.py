@@ -1,13 +1,14 @@
 """Where one bucket's encode and decode spend their time on the card.
 
-    python -m honours_tpu_torch.profile
+    python -m honours_tpu_torch.profile [codec]
 
 Presses and depresses one bucket of 256 synthetic reads at L = 65536
 (the main path's bucket shape; lengths uniform in (L/2, L], seed 0)
-through the drans engine under torch.profiler, after a
-warm-up pass, and prints for each direction: wall time (host clock
-ending in a synchronize), device busy time (sum of kernel times), the
-device's idle share, and the top kernels by device time.  Needs CUDA.
+through the codec's batched engine (default drans_vbbe21_zd; any name
+of engine.runner.ENGINE_CODECS) under torch.profiler, after a warm-up
+pass, and prints for each direction: wall time (host clock ending in a
+synchronize), device busy time (sum of kernel times), the device's idle
+share, and the top kernels by device time.  Needs CUDA.
 """
 
 from __future__ import annotations
@@ -45,42 +46,40 @@ def _report(label: str, prof, wall_s: float) -> None:
 B, L, TOP = 256, 1 << 16, 25
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    args = sys.argv[1:] if argv is None else argv
+    codec = args[0] if args else "drans_vbbe21_zd"
     if not torch.cuda.is_available():
         print("profile: CUDA is not available", file=sys.stderr)
         return 2
     from torch.profiler import ProfilerActivity, profile
 
-    from honours_tpu_torch.engine.drans import (
-        depress_drans_batch,
-        press_drans_batch,
-    )
-    from honours_tpu_torch.engine.pipeline import canned_o1_device_tables
+    from honours_tpu_torch.engine.runner import batch_engine
     from honours_tpu_torch.synth import synthesize_bucket
 
     dev = torch.device("cuda")
     emax = max(64, L // 16)
-    tabs = canned_o1_device_tables(dev)
+    press, depress = batch_engine(codec, dev)
     sig, n = (torch.from_numpy(a).to(dev) for a in synthesize_bucket(B, L))
-    st, _ = press_drans_batch(sig, n, tabs, emax)
-    depress_drans_batch(st, n, tabs, L, emax=emax)
+    st, _ = press(sig, n, emax)
+    depress(st, n, L, emax)
     torch.cuda.synchronize()
 
     def enc():
-        return press_drans_batch(sig, n, tabs, emax)[0]
+        return press(sig, n, emax)[0]
 
     def dec():
-        return depress_drans_batch(st, n, tabs, L, emax=emax)
+        return depress(st, n, L, emax)
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     _, enc_s = _timed(enc)
     with profile(activities=acts) as prof:
         _timed(enc)
-    _report(f"encode [{B}, {L}]", prof, enc_s)
+    _report(f"{codec} encode [{B}, {L}]", prof, enc_s)
     out, dec_s = _timed(dec)
     with profile(activities=acts) as prof:
         _timed(dec)
-    _report(f"decode [{B}, {L}]", prof, dec_s)
+    _report(f"{codec} decode [{B}, {L}]", prof, dec_s)
     if not torch.equal(out, sig):
         print("profile: decode does not return the input", file=sys.stderr)
         return 1
