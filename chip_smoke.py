@@ -13,13 +13,20 @@
    log-uniform lengths in [4,000, 250,000] samples plus edge reads, two
    of which overflow the exception cap) through
    honours_tpu_torch.engine.runner on the card, once per codec
-   (drans_vbbe21_zd, svb12_zd, svb12, srans3_vbbe21_zd).  Each path
-   starts with every launch count at 0; it asserts every read comes back
-   bit for bit, that its own kernels were launched and that the
-   overflow reads took the one-row path, prints its ratio and encode and
-   decode rates, and checks the card's streams of a few reads against
-   the CPU path's.  Every kernel must be launched by some path.
-4. Prints one {"kernels": [...]} line, then {"ok": true, "device": ...}.
+   (drans_vbbe21_zd, svb12_zd, svb12, srans_vbbe21_zd,
+   srans2_vbbe21_zd, srans3_vbbe21_zd).  Each path starts with every
+   launch count at 0; it asserts every read comes back bit for bit, that
+   its own kernels were launched and that the overflow reads took the
+   one-row path, prints its ratio and encode and decode rates, and
+   checks the card's streams of a few reads against the CPU path's.
+   Every kernel must be launched by some path.
+4. The CLI: writes a BLOW5 (zlib records, svb-zd signals) of 64 of those
+   reads plus the four edge reads, runs `python -m honours_tpu_torch
+   press` on it (through honours_tpu_torch.cli.main) with the default
+   codec and with srans_vbbe21_zd, then `depress` on each result, and
+   asserts every signal comes back and each pressed file names its
+   codec; prints the file sizes.
+5. Prints one {"kernels": [...]} line, then {"ok": true, "device": ...}.
 
 Exits non-zero, with no result line, when CUDA is unavailable or any
 check fails.
@@ -31,7 +38,9 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -107,12 +116,18 @@ def kernel_cases(seed: int):
     from honours_tpu_torch.engine import rans_o1_cuda as O
     from honours_tpu_torch.engine import svb16_cuda as SV
     from honours_tpu_torch.engine.bits import read_u32le
-    from honours_tpu_torch.engine.entropy_o1 import _lane_grid, _rd_states
+    from honours_tpu_torch.engine.entropy_o1 import (
+        _lane_grid,
+        _rd_states,
+        read_states,
+    )
     from honours_tpu_torch.engine.pipeline import (
         _zd_parts,
         canned_o1_device_tables,
         canned_o1n_device_tables,
+        canned_rans_tables,
         press_srans3_batch,
+        press_srans_batch,
     )
     from honours_tpu_torch.engine.vbbe21 import (
         vbbe21_parse_batch,
@@ -191,6 +206,16 @@ def kernel_cases(seed: int):
              (off3 + 4 + 4 * K).to(torch.int32), *nt)
     body3 = int((sl3 - off3 - 4 - 4 * K).sum())
 
+    # srans's v2 body, parsed for kernel 4b
+    tabs0 = canned_rans_tables(dev)
+    st0, sl0 = press_srans_batch(sig, n, tabs0, emax)
+    p0 = vbbe21_parse_batch(st0, torch.full_like(n64, 2), n64 - 1, L, emax)
+    off0 = p0["end_off"]
+    args4b = (st0, read_states(st0, off0, K),
+              (n64 - 1 - p0["nex"]).to(torch.int32), tabs0["cum"], L,
+              (off0 + 4 * K).to(torch.int32))
+    body0 = int((sl0 - off0 - 4 * K).sum())
+
     BL = B * L
     nsum = int(n64.sum())
     flat_fc = tabs["fc"][tabs["cmap"].to(torch.int64)].reshape(-1)
@@ -221,6 +246,10 @@ def kernel_cases(seed: int):
          lambda: (O.o1_decode_plain(*args1), O.o1_decode_plain(*args2)),
          consumed + B * K * (T1 + T2) + 4 * 4 * B * K,
          40 * B * K * (T1 + T2), None),
+        # the v2 bodies consumed, states in, [B, L] bytes out
+        ("o0_decode", lambda: O.o0_decode(*args4b),
+         lambda: O.o0_decode_plain(*args4b),
+         body0 + B * L + 4 * B * K, 40 * B * (-(-L // K)) * K, None),
         # samples < n read (2 B), the whole stream row written
         ("svb16_encode", lambda: SV.svb16_encode(sig, n, True),
          lambda: SV.svb16_encode_plain(sig, n, True),
@@ -263,6 +292,7 @@ REPLACES = {
     "o1_fc": "honours_tpu/engine/rans_o1_pallas.py:147",
     "rans_encode": "honours_tpu/engine/rans_encode_pallas.py:118",
     "o1_decode": "honours_tpu/engine/rans_o1_pallas.py:447",
+    "o0_decode": "honours_tpu/engine/rans_o1_pallas.py:561",
     "svb16_encode": "honours_tpu/engine/svb16_fused.py:153",
     "svb16_decode": "honours_tpu/engine/svb16_fused.py:266",
     "o1n_fc": "honours_tpu/engine/rans_n4_pallas.py:77",
@@ -276,6 +306,8 @@ PATHS = {
     "drans_vbbe21_zd": KERNEL_1 | {"o1_fc", "rans_encode", "o1_decode"},
     "svb12_zd": {"svb16_encode", "svb16_decode"},
     "svb12": {"svb16_encode", "svb16_decode"},
+    "srans_vbbe21_zd": KERNEL_1 | {"o1_fc", "rans_encode", "o0_decode"},
+    "srans2_vbbe21_zd": KERNEL_1 | {"o1_fc", "rans_encode", "o1_decode"},
     "srans3_vbbe21_zd": KERNEL_1 | {"rans_encode", "o1n_fc", "n4_decode"},
 }
 
@@ -300,7 +332,8 @@ def check_kernels(seed: int) -> dict:
         if err != 0:
             raise AssertionError(f"{name}: kernel differs from its plain "
                                  f"version (max abs err {err})")
-        reps = 3 if name in ("rans_encode", "o1_decode", "n4_decode") else 20
+        reps = 3 if name in ("rans_encode", "o1_decode", "o0_decode",
+                             "n4_decode") else 20
         ms = cuda_ms(kern, reps)
         library_ms = None
         if library is not None:
@@ -382,7 +415,7 @@ def main_path(codec: str, reads) -> dict:
     if idle:
         raise AssertionError(f"{codec}: kernels not launched: {idle}")
     kind = ENGINE_CODECS[codec]
-    if kind in ("drans", "srans3"):
+    if kind in ("drans", "srans", "srans2", "srans3"):
         # the two overflow reads are the last two: their streams carry
         # more exceptions than their bucket's cap, so they were pressed
         # (and decoded) by the one-row path, and they round-tripped
@@ -412,6 +445,55 @@ def main_path(codec: str, reads) -> dict:
     return launches
 
 
+def cli_phase(reads) -> None:
+    """press and depress a BLOW5 file through the port's CLI on the card,
+    with the default codec and with srans_vbbe21_zd."""
+    from honours_tpu_torch import cli
+    from honours_tpu_torch.io import blow5
+
+    sel = reads[:64] + reads[-4:]
+    f5 = blow5.Blow5File(
+        version=(0, 2, 0), record_press=blow5.RECORD_PRESS_ZLIB,
+        signal_press=blow5.SIGNAL_PRESS_SVB_ZD, num_read_groups=1,
+        header=b"@run_id\tchip_smoke\n",
+        reads=[blow5.Blow5Read(
+            read_id=f"read{i}", read_group=0, digitisation=2048.0,
+            offset=0.0, range=1.0, sampling_rate=4000.0, signal=s)
+            for i, s in enumerate(sel)])
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        src = Path(tmp) / "src.blow5"
+        blow5.write_blow5(str(src), f5)
+        log(f"cli: {src.name} {len(sel)} reads, "
+            f"{sum(2 * s.size for s in sel)} B int16, "
+            f"{src.stat().st_size} B as svb-zd/zlib BLOW5")
+        for codec in ("drans_vbbe21_zd", "srans_vbbe21_zd"):
+            pressed = Path(tmp) / f"{codec}.blow5"
+            back = Path(tmp) / f"{codec}.depressed.blow5"
+            opt = [] if codec == "drans_vbbe21_zd" else ["--codec", codec]
+            t0 = time.perf_counter()
+            if cli.main(["press", str(src), str(pressed), *opt]) != 0:
+                raise AssertionError(f"cli press {codec} failed")
+            t1 = time.perf_counter()
+            if cli.main(["depress", str(pressed), str(back)]) != 0:
+                raise AssertionError(f"cli depress {codec} failed")
+            t2 = time.perf_counter()
+            tag = blow5.htpu_codec_name(blow5.read_blow5(
+                str(pressed), decode_signal=False).header)
+            if tag != codec:
+                raise AssertionError(f"cli press wrote codec {tag}, not "
+                                     f"{codec}")
+            got = blow5.read_blow5(str(back)).reads
+            if len(got) != len(sel) or not all(
+                    np.array_equal(r.signal, s) for r, s in zip(got, sel)):
+                raise AssertionError(f"cli {codec}: signals differ after "
+                                     "press and depress")
+            log(f"cli {codec}: press {pressed.stat().st_size} B in "
+                f"{t1 - t0:.3f} s, depress {back.stat().st_size} B in "
+                f"{t2 - t1:.3f} s, every signal back")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -438,6 +520,7 @@ def main(argv=None) -> int:
     for codec in PATHS:
         for k, c in main_path(codec, reads).items():
             results[k]["launches"] += c
+    cli_phase(reads)
     idle = [k for k, r in results.items() if r["launches"] == 0]
     if idle:
         raise AssertionError(f"kernels no main path launched: {idle}")

@@ -1,0 +1,70 @@
+"""Command-line interface of the port.
+
+  python -m honours_tpu_torch press   IN.blow5 OUT.blow5 [--codec NAME]
+                                      [--device cuda|cpu]
+  python -m honours_tpu_torch depress IN.blow5 OUT.blow5 [--device cuda|cpu]
+  python -m honours_tpu_torch codecs
+
+`press` rewrites a SLOW5/BLOW5 file with the signal field compressed by
+a ported codec (default drans_vbbe21_zd) through the bucketed runner;
+`depress` restores a stock BLOW5 (svb-zd signal, zlib records).  The
+files are byte-identical to `python -m honours_tpu press --tpu` /
+`depress --tpu`.  Both run on the CUDA card and raise without one unless
+`--device cpu` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="honours_tpu_torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("press", help="compress the signal field with a codec")
+    p.add_argument("infile")
+    p.add_argument("outfile")
+    p.add_argument("--codec", default="drans_vbbe21_zd")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+
+    d = sub.add_parser("depress", help="restore stock BLOW5")
+    d.add_argument("infile")
+    d.add_argument("outfile")
+    d.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+
+    sub.add_parser("codecs", help="list the ported codecs")
+
+    args = ap.parse_args(argv)
+
+    from honours_tpu_torch.engine import runner
+
+    if args.cmd == "codecs":
+        print("\n".join(sorted(runner.ENGINE_CODECS)))
+        return 0
+
+    from honours_tpu_torch.device import resolve_device
+    from honours_tpu_torch.io import blow5
+
+    dev = resolve_device(args.device)
+    if args.cmd == "press":
+        runner.engine_kind(args.codec)  # NotImplementedError if not ported
+        f5 = blow5.read_blow5(args.infile, device=dev)
+        streams = runner.press_signals([r.signal for r in f5.reads],
+                                       args.codec, device=dev)
+        blow5.write_blow5(args.outfile, f5, signal_codec=args.codec,
+                          signal_streams=streams)
+    else:
+        f5 = blow5.read_blow5(args.infile, device=dev)
+        f5.signal_press = blow5.SIGNAL_PRESS_SVB_ZD
+        blow5.write_blow5(args.outfile, f5)
+    print(f"{args.infile} ({os.path.getsize(args.infile)} B) -> "
+          f"{args.outfile} ({os.path.getsize(args.outfile)} B)",
+          file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

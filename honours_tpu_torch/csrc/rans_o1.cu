@@ -1,4 +1,5 @@
-// Kernels 2 and 4: order-1 rANS table lookup and decode walk.
+// Kernels 2, 4 and 4b: order-1 rANS table lookup, the order-1 decode
+// walk and its order-0 entry.
 //
 // Kernel 2 replaces honours_tpu/engine/rans_o1_pallas.py
 // o1_fc_gather_pallas (pallas_call at :147).  Per element it returns
@@ -29,6 +30,22 @@
 // Design: one warp per read, one read per block (so B blocks spread over
 // the SMs), every body read clamped to the row so a stream decoded with
 // the wrong group runs to garbage without faulting.
+//
+// Kernel 4b replaces the order-0 entry of the same walk,
+// rans_o1_pallas.py rans_decode_shared_pallas (:561, pallas_call at
+// :447 with order0=True): format v2, one CDF, no S header, round-robin
+// lanes (step t of lane k is byte t*K + k, active while t*K + k < dlen).
+// The TPU kernel broadcasts the single CDF row into a 256-wide compare
+// and pads the walk to 16-step tiles; here the CDF sits in shared memory
+// as uint16 [257], the symbol comes from the same 8-step binary search
+// as kernel 4, and the refill is the same two ballot rounds (round 2
+// sees the states after round 1, in lane order).
+// Bound on this card: latency.  The bytes are the body, the states and
+// B*N output bytes, but one read is a serial chain of ceil(N/K) steps.
+// Design: one warp per read, one read per block, as kernel 4; each step
+// writes its 32 bytes straight to the [B, N] output (coalesced, no lane
+// grid to undo), inactive positions as 0, and every body read is
+// clamped to the row.
 
 #include "common.cuh"
 
@@ -120,6 +137,55 @@ o1_decode_kernel(const uint8_t* __restrict__ stream, long long Mb,
   if (k == 0) ptr_out[b] = static_cast<int>(ptr);
 }
 
+__global__ void __launch_bounds__(K)
+o0_decode_kernel(const uint8_t* __restrict__ stream, long long Mb,
+                 const unsigned* __restrict__ states_in,
+                 const int* __restrict__ dlen,
+                 const int* __restrict__ body_off,
+                 const int* __restrict__ cum, long long N, int T,
+                 uint8_t* __restrict__ out) {
+  __shared__ unsigned short s_cum[257];
+  const int k = threadIdx.x;
+  for (int i = k; i < 257; i += K) s_cum[i] = static_cast<unsigned short>(cum[i]);
+  __syncthreads();
+
+  const long long b = blockIdx.x;
+  const uint8_t* row = stream + b * Mb;
+  uint8_t* o = out + b * N;
+  unsigned x = states_in[b * K + k];
+  const long long dl = dlen[b];
+  long long ptr = body_off[b];
+  const unsigned lt = htt_lanemask_lt();
+
+  for (int t = 0; t < T; ++t) {
+    const long long idx = static_cast<long long>(t) * K + k;
+    const bool active = idx < dl;
+    const unsigned slot = x & 4095u;
+    int a = 0, z = 256;  // largest s with s_cum[s] <= slot (s_cum[256] = 4096)
+#pragma unroll
+    for (int it = 0; it < 8; ++it) {
+      const int m = (a + z) >> 1;
+      if (s_cum[m] <= slot) a = m; else z = m;
+    }
+    if (active) {
+      const unsigned c = s_cum[a];
+      x = (s_cum[a + 1] - c) * (x >> 12) + slot - c;
+    }
+    if (idx < N) o[idx] = active ? static_cast<uint8_t>(a) : 0;
+#pragma unroll
+    for (int round = 0; round < 2; ++round) {
+      const bool need = active && x < RANS_L;
+      const unsigned mask = __ballot_sync(0xffffffffu, need);
+      if (need) {
+        const long long p = ptr + __popc(mask & lt);
+        const unsigned byte = (p >= 0 && p < Mb) ? row[p] : 0u;
+        x = (x << 8) | byte;
+      }
+      ptr += __popc(mask);
+    }
+  }
+}
+
 }  // namespace
 
 HTT_EXPORT int htt_o1_fc(const void* sym, const void* ctx, const void* cmap,
@@ -159,6 +225,23 @@ HTT_EXPORT int htt_o1_decode(const void* stream, long long B, long long Mb,
         static_cast<int>(r), static_cast<int>(T),
         static_cast<uint8_t*>(grid), static_cast<unsigned*>(states_out),
         static_cast<int*>(ptr_out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+HTT_EXPORT int htt_o0_decode(const void* stream, long long B, long long Mb,
+                             const void* states_in, const void* dlen,
+                             const void* body_off, const void* cum,
+                             long long N, long long T, void* out,
+                             void* cuda_stream) {
+  if (B > 0 && N > 0) {
+    o0_decode_kernel<<<static_cast<unsigned>(B), K, 0,
+                       static_cast<cudaStream_t>(cuda_stream)>>>(
+        static_cast<const uint8_t*>(stream), Mb,
+        static_cast<const unsigned*>(states_in),
+        static_cast<const int*>(dlen), static_cast<const int*>(body_off),
+        static_cast<const int*>(cum), N, static_cast<int>(T),
+        static_cast<uint8_t*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,9 +3,11 @@
 Lanes are block-interleaved: lane k owns [k*S, (k+1)*S) of a read's
 residual bytes, S = ceil(n / K), so each symbol's context is its
 predecessor in the same lane (CTX0 for a lane's first symbol) and all K
-contexts are known in lockstep during decode.  The drans engine (format
-v5) drives these with two tables; srans3 (format v4, entropy_o1n.py)
-shares the lane grid, the encode tail and the state header.
+contexts are known in lockstep during decode.  srans2 runs the v3 body
+with the canned table (rans_o1_encode_batch, rans_o1_decode_batch); the
+drans engine (format v5) drives the same pieces with two tables; srans3
+(format v4, entropy_o1n.py) shares the lane grid, the encode tail and
+the state header.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from honours_tpu_torch.engine.bits import u32le_bytes
+from honours_tpu_torch.engine.bits import read_u32le, u32le_bytes
 from honours_tpu_torch.engine.permute import (
     i32_to_u32,
     monotone_compact,
@@ -21,7 +23,12 @@ from honours_tpu_torch.engine.permute import (
     u32_to_i32,
 )
 from honours_tpu_torch.engine.rans_encode_cuda import encode_core
-from honours_tpu_torch.engine.rans_o1_cuda import MAX_CLUSTERS, o1_fc
+from honours_tpu_torch.engine.rans_o1_cuda import (
+    MAX_CLUSTERS,
+    o1_decode,
+    o1_fc,
+)
+from honours_tpu_torch.engine.vbbe21 import wrap_i32
 from honours_tpu_torch.kernels.rans import CTX0, K_SHARED, M
 
 
@@ -116,11 +123,49 @@ def encode_from_fc(fc3, act3, S_b, K: int = K_SHARED):
     return encode_segments(fc, Smax, S_b, K)
 
 
+def rans_o1_encode_batch(data, dlen, tabs):
+    """[B, N] u8 residual bytes (first dlen valid) -> v3 body as concat
+    segments [S:u32][K states:u32][candidate plane + keep mask], and the
+    plane width: lane grid, kernel 2 against one o1 table, kernel 3."""
+    B, N = data.shape
+    K = K_SHARED
+    Smax = -(-N // K)
+    g3, ctx3, act3, S_b = _lane_grid(data, dlen, K, Smax)
+    fc3 = _o1_fc(g3.reshape(B, -1).to(torch.int32),
+                 ctx3.reshape(B, -1).contiguous(), tabs).reshape(B, K, Smax)
+    return encode_from_fc(fc3, act3, S_b, K)
+
+
+def rans_o1_decode_batch(stream, base_off, dlen, tabs, N: int):
+    """Decode the v3 body at base_off of each row -> data [B, N] u8: one
+    full walk of kernel 4 (steps [0, S_b), every lane starting in
+    cmap[CTX0]'s cluster), then the lane grid back to linear bytes.
+    S_b comes from each row's header, so host streams decode too."""
+    B = stream.shape[0]
+    K = K_SHARED
+    Smax = -(-N // K)
+    base_off = base_off.to(torch.int64)
+    S_b = wrap_i32(read_u32le(stream, base_off)).to(torch.int32)
+    cl0 = tabs["cmap"][CTX0].expand(B, K).contiguous()
+    grid, _, _ = o1_decode(
+        stream.contiguous(), _rd_states(stream, base_off, K),
+        dlen.to(torch.int32).contiguous(), S_b, tabs["cmap"], tabs["cum"],
+        Smax, torch.zeros_like(S_b), S_b, cl0,
+        (base_off + 4 + 4 * K).to(torch.int32))
+    return _ungrid(grid, S_b, dlen, K, Smax, N)
+
+
 def _rd_states(stream, base_off, K: int):
     """The K u32 lane states after the S header at base_off, as int32
     bits."""
+    return read_states(stream, base_off + 4, K)
+
+
+def read_states(stream, off, K: int):
+    """K u32 LE lane states at byte `off` [B] of each row, as int32 bits
+    (reads past the row clamp to it)."""
     B, Mb = stream.shape
-    so = base_off[:, None] + 4 + 4 * torch.arange(K, device=stream.device)
+    so = off[:, None] + 4 * torch.arange(K, device=stream.device)
     idx = so[:, :, None] + torch.arange(4, device=stream.device)
     b = torch.gather(stream, 1, idx.reshape(B, -1).clamp(0, Mb - 1))
     b = b.reshape(B, K, 4).to(torch.int64)

@@ -1,4 +1,4 @@
-"""Kernels 2 and 4 (csrc/rans_o1.cu), each beside its plain PyTorch
+"""Kernels 2, 4 and 4b (csrc/rans_o1.cu), each beside its plain PyTorch
 version.
 
 Kernel 2, `o1_fc`, replaces honours_tpu/engine/rans_o1_pallas.py
@@ -8,6 +8,10 @@ Kernel 4, `o1_decode`, replaces rans_o1_pallas.py `_decode_call` as
 launched by rans_o1_decode_resume_pallas: the order-1 decode walk over
 global steps [step_lo, step_hi) of each read (block-interleaved lanes,
 lane k owns [k*S, (k+1)*S)), with shared-stream refills in lane order.
+
+Kernel 4b, `o0_decode`, replaces the order-0 entry of the same walk,
+rans_o1_pallas.py rans_decode_shared_pallas: format v2, one CDF
+cum [257], round-robin lanes (step t of lane k is byte t*K + k).
 
 Tables (entropy_o1.make_o1_tables): cmap [257] int32 context -> cluster,
 fc [r, 256] int32, cum [r, 257] int32 cluster CDFs (cum[:, 0] = 0,
@@ -35,6 +39,8 @@ _FC_BLOCKS_PER_SM = 3  # 66 KB of shared memory per block
 _FC = kernel("o1_fc", "rans_o1.cu", "htt_o1_fc", "ppppllplp")
 _DECODE = kernel("o1_decode", "rans_o1.cu", "htt_o1_decode",
                  "pllpppppppppllpppp")
+_O0_DECODE = kernel("o0_decode", "rans_o1.cu", "htt_o0_decode",
+                    "pllppppllpp")
 
 
 def _check_tables(cmap, fc_tab=None, cum=None):
@@ -83,9 +89,26 @@ def o1_fc(sym, ctx, cmap, fc_tab):
 # ---------------------------------------------------------------------------
 
 
+def _refill_plain(stream, x, active, ptr):
+    """The shared-stream refill of one step: every active lane below
+    RANS_L takes the next byte in lane order, then the lanes still below
+    take a second one.  Bytes outside the row read as 0.  x [B, K] int64
+    uint32 values, ptr [B] int64 absolute byte positions."""
+    Mb = stream.shape[1]
+    for _ in range(2):
+        need = active & (x < RANS_L)
+        cnt = need.to(torch.int64)
+        p = ptr[:, None] + torch.cumsum(cnt, dim=1) - cnt
+        byte = torch.gather(stream, 1, p.clamp(0, Mb - 1)).to(torch.int64)
+        byte = torch.where((p >= 0) & (p < Mb), byte, 0)
+        x = torch.where(need, ((x << 8) | byte) & M32, x)
+        ptr = ptr + cnt.sum(dim=1)
+    return x, ptr
+
+
 def o1_decode_plain(stream, states, dlen, S_b, cmap, cum, T: int, step_lo,
                     step_hi, init_cl, body_off):
-    B, Mb = stream.shape
+    B = stream.shape[0]
     K = states.shape[1]
     dev = stream.device
     r = cum.shape[0]
@@ -108,14 +131,7 @@ def o1_decode_plain(stream, states, dlen, S_b, cmap, cum, T: int, step_lo,
         c = rows.gather(2, sym[..., None])[..., 0]
         f = rows.gather(2, sym[..., None] + 1)[..., 0] - c
         x = torch.where(active, (f * (x >> PROB_BITS) + slot - c) & M32, x)
-        for _ in range(2):
-            need = active & (x < RANS_L)
-            cnt = need.to(torch.int64)
-            p = ptr[:, None] + torch.cumsum(cnt, dim=1) - cnt
-            byte = torch.gather(stream, 1, p.clamp(0, Mb - 1)).to(torch.int64)
-            byte = torch.where((p >= 0) & (p < Mb), byte, 0)
-            x = torch.where(need, ((x << 8) | byte) & M32, x)
-            ptr = ptr + cnt.sum(dim=1)
+        x, ptr = _refill_plain(stream, x, active, ptr)
         cl = torch.where(active, cmap64[sym], cl)
     return grid, u32_to_i32(x), ptr.to(torch.int32)
 
@@ -154,3 +170,53 @@ def o1_decode(stream, states, dlen, S_b, cmap, cum, T: int, step_lo,
                 cum.data_ptr(), cum.shape[0], T, grid.data_ptr(),
                 fst.data_ptr(), fptr.data_ptr(), stream_ptr(dev))
     return grid, fst, fptr
+
+
+# ---------------------------------------------------------------------------
+# kernel 4b: order-0 decode walk (format v2)
+# ---------------------------------------------------------------------------
+
+
+def o0_decode_plain(stream, states, dlen, cum, N: int, body_off):
+    B = stream.shape[0]
+    K = states.shape[1]
+    dev = stream.device
+    T = -(-N // K)
+    cum64 = cum.to(torch.int64)
+    x = i32_to_u32(states)
+    lanes = torch.arange(K, device=dev)[None, :]
+    dl = dlen.to(torch.int64)[:, None]
+    ptr = body_off.to(torch.int64)
+    out = torch.empty((B, T * K), dtype=torch.uint8, device=dev)
+    for t in range(T):
+        active = t * K + lanes < dl
+        slot = x & (M - 1)
+        sym = torch.searchsorted(cum64, slot, right=True) - 1
+        c = cum64[sym]
+        f = cum64[sym + 1] - c
+        out[:, t * K:(t + 1) * K] = torch.where(active, sym, 0).to(torch.uint8)
+        x = torch.where(active, (f * (x >> PROB_BITS) + slot - c) & M32, x)
+        x, ptr = _refill_plain(stream, x, active, ptr)
+    return out[:, :N]
+
+
+def o0_decode(stream, states, dlen, cum, N: int, body_off):
+    """Decode the v2 body at byte `body_off` of each row.
+
+    stream [B, Mb] u8, states [B, K] int32 (uint32 bits), dlen/body_off
+    [B] int32, cum [257] int32 (cum[0] = 0, cum[256] = M).  Returns
+    [B, N] u8: byte t*K + k is step t of lane k, 0 at and past dlen."""
+    if is_cpu(stream, states, dlen, cum, body_off):
+        return o0_decode_plain(stream, states, dlen, cum, N, body_off)
+    B, Mb = stream.shape
+    check(stream, "stream", (torch.uint8,))
+    check(states, "states", (torch.int32,), (B, K_SHARED))
+    check(dlen, "dlen", (torch.int32,), (B,))
+    check(body_off, "body_off", (torch.int32,), (B,))
+    check(cum, "cum", (torch.int32,), (257,))
+    out = torch.empty((B, N), dtype=torch.uint8, device=stream.device)
+    if B and N:
+        _O0_DECODE(stream.data_ptr(), B, Mb, states.data_ptr(),
+                   dlen.data_ptr(), body_off.data_ptr(), cum.data_ptr(), N,
+                   -(-N // K_SHARED), out.data_ptr(), stream_ptr(stream.device))
+    return out

@@ -5,6 +5,8 @@ each bucket runs the batched engine of the codec on the device, and
 per-read streams come back in original order, byte-identical to
 honours_tpu's engine and host codec.  Codecs and their engines:
   drans_vbbe21_zd   engine/drans.py     (batch-shared table fit)
+  srans_vbbe21_zd   engine/pipeline.py  (canned order-0 rANS)
+  srans2_vbbe21_zd  engine/pipeline.py  (canned order-1 rANS)
   srans3_vbbe21_zd  engine/pipeline.py  (nibble order-1 rANS)
   svb12_zd, svb12   engine/svb16.py     (VBZ container, with/without zd)
 
@@ -33,8 +35,13 @@ from honours_tpu_torch.engine.drans import (
 from honours_tpu_torch.engine.pipeline import (
     canned_o1_device_tables,
     canned_o1n_device_tables,
+    canned_rans_tables,
+    depress_srans2_batch,
     depress_srans3_batch,
+    depress_srans_batch,
+    press_srans2_batch,
     press_srans3_batch,
+    press_srans_batch,
 )
 from honours_tpu_torch.engine.svb16 import (
     svb16_decode_batch,
@@ -45,6 +52,8 @@ from honours_tpu_torch.io.batching import bucket_reads, restore_order
 #: codec name -> engine kind (as honours_tpu/engine/runner.py names them)
 ENGINE_CODECS = {
     "drans_vbbe21_zd": "drans",
+    "srans_vbbe21_zd": "srans",
+    "srans2_vbbe21_zd": "srans2",
     "srans3_vbbe21_zd": "srans3",
     "svb12_zd": "svb16_zd",
     "svb12": "svb16",
@@ -52,10 +61,23 @@ ENGINE_CODECS = {
 
 #: byte offset of the vbbe21 exception count in each capped kind's
 #: stream: [G:u16][zd0:u16][nex:u32]... and [zd0:u16][nex:u32]...
-_NEX_AT = {"drans": 4, "srans3": 2}
+_NEX_AT = {"drans": 4, "srans": 2, "srans2": 2, "srans3": 2}
+
+#: capped kind -> (device tables, batched press, batched depress)
+_CAPPED = {
+    "drans": (canned_o1_device_tables, press_drans_batch,
+              depress_drans_batch),
+    "srans": (canned_rans_tables, press_srans_batch, depress_srans_batch),
+    "srans2": (canned_o1_device_tables, press_srans2_batch,
+               depress_srans2_batch),
+    "srans3": (canned_o1n_device_tables, press_srans3_batch,
+               depress_srans3_batch),
+}
 
 
-def _kind(codec_name: str) -> str:
+def engine_kind(codec_name: str) -> str:
+    """The engine kind of a ported codec; NotImplementedError for any
+    other name."""
     if codec_name not in ENGINE_CODECS:
         raise NotImplementedError(
             f"{codec_name} is not ported yet: this port runs "
@@ -66,17 +88,12 @@ def _kind(codec_name: str) -> str:
 def batch_engine(codec_name: str, dev):
     """(press(sig, n, emax) -> (stream, len), depress(buf, n, L, emax) ->
     [B, L] int16): the batched engine of a codec on device `dev`."""
-    kind = _kind(codec_name)
-    if kind == "drans":
-        tabs = canned_o1_device_tables(dev)
-        return (lambda sig, n, emax: press_drans_batch(sig, n, tabs, emax),
-                lambda buf, n, L, emax: depress_drans_batch(buf, n, tabs, L,
-                                                            emax=emax))
-    if kind == "srans3":
-        tabs = canned_o1n_device_tables(dev)
-        return (lambda sig, n, emax: press_srans3_batch(sig, n, tabs, emax),
-                lambda buf, n, L, emax: depress_srans3_batch(buf, n, tabs, L,
-                                                             emax=emax))
+    kind = engine_kind(codec_name)
+    if kind in _CAPPED:
+        tables, press, depress = _CAPPED[kind]
+        tabs = tables(dev)
+        return (lambda sig, n, emax: press(sig, n, tabs, emax),
+                lambda buf, n, L, emax: depress(buf, n, tabs, L, emax=emax))
     zd = kind == "svb16_zd"
     return (lambda sig, n, emax: svb16_encode_batch(sig, n, zd),
             lambda buf, n, L, emax: svb16_decode_batch(buf, n, L, zd))
@@ -121,7 +138,7 @@ def _depress_one(depress, blob: bytes, nin: int, L: int, dev) -> np.ndarray:
 def press_signals(signals, codec_name: str = "drans_vbbe21_zd",
                   max_b: int = 256, device="cuda"):
     """Compress int16 reads -> list[bytes] in original order."""
-    kind = _kind(codec_name)
+    kind = engine_kind(codec_name)
     dev = resolve_device(device)
     press, _ = batch_engine(codec_name, dev)
     buckets = bucket_reads(signals, max_b=max_b)
@@ -145,7 +162,7 @@ def depress_signals(streams, lengths, codec_name: str = "drans_vbbe21_zd",
                     max_b: int = 256, device="cuda"):
     """Decode per-read streams (from either package) -> int16 arrays in
     original order.  The bucketing must match the encoder's max_b."""
-    kind = _kind(codec_name)
+    kind = engine_kind(codec_name)
     dev = resolve_device(device)
     _, depress = batch_engine(codec_name, dev)
     buckets = bucket_reads([np.zeros(int(m), np.int16) for m in lengths],

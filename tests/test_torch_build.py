@@ -30,7 +30,8 @@ def test_registry_holds_every_kernel():
     assert sorted(_build.KERNELS) == sorted([
         "monotone_compact_u8", "monotone_compact_i32", "compaction_shifts",
         "monotone_expand_u8", "monotone_expand_i32", "o1_fc", "rans_encode",
-        "o1_decode", "svb16_encode", "svb16_decode", "o1n_fc", "n4_decode"])
+        "o1_decode", "o0_decode", "svb16_encode", "svb16_decode", "o1n_fc",
+        "n4_decode"])
     for k in _build.KERNELS.values():
         assert k.source in _build.SOURCES
 

@@ -136,17 +136,46 @@ def test_o1n_kernels_match_plain(cuda):
     _same(R.n4_decode(*args, 128), R.n4_decode_plain(*args, 128))
 
 
+def test_o0_decode_kernel_matches_plain(cuda):
+    """Kernel 4b on v2 bodies at a non-zero offset, ragged dlen with 0, 1
+    and 31, N not a multiple of K, and a truncated stream."""
+    from honours_tpu_torch.engine import rans_o1_cuda as O
+    from honours_tpu_torch.engine.bits import rowwise_concat
+    from honours_tpu_torch.engine.entropy import rans_encode_batch
+    from honours_tpu_torch.engine.entropy_o1 import read_states
+    from honours_tpu_torch.engine.pipeline import canned_rans_tables
+
+    tabs = canned_rans_tables(cuda)
+    g = torch.Generator().manual_seed(4)
+    N, K = 1000, 32
+    dlen = torch.tensor([1000, 0, 1, 31, 999, 640, 33, 128],
+                        dtype=torch.int32)
+    data = torch.randint(0, 256, (8, N), generator=g, dtype=torch.uint8)
+    data = torch.where(torch.arange(N)[None, :] < dlen[:, None], data, 0)
+    segs, planew = rans_encode_batch(data.to(cuda), dlen.to(cuda), tabs)
+    st, _ = rowwise_concat(segs, 4 * K + planew)
+    st = torch.nn.functional.pad(st, (3, 0)).contiguous()
+    off = torch.full((8,), 3, device=cuda)
+    states = read_states(st, off, K)
+    body_off = (off + 4 * K).to(torch.int32)
+    args = (st, states, dlen.to(cuda), tabs["cum"], N, body_off)
+    out = O.o0_decode(*args)
+    _same(out, O.o0_decode_plain(*args))
+    assert torch.equal(out.cpu(), data)
+    # a truncated stream decodes (to garbage) without faulting
+    cut = (st[:, :200].contiguous(), *args[1:])
+    _same(O.o0_decode(*cut), O.o0_decode_plain(*cut))
+
+
+KERNEL_1 = {"monotone_compact_u8", "monotone_compact_i32",
+            "compaction_shifts", "monotone_expand_u8", "monotone_expand_i32"}
 KERNELS_OF = {
-    "drans_vbbe21_zd": {"monotone_compact_u8", "monotone_compact_i32",
-                        "compaction_shifts", "monotone_expand_u8",
-                        "monotone_expand_i32", "o1_fc", "rans_encode",
-                        "o1_decode"},
+    "drans_vbbe21_zd": KERNEL_1 | {"o1_fc", "rans_encode", "o1_decode"},
+    "srans_vbbe21_zd": KERNEL_1 | {"o1_fc", "rans_encode", "o0_decode"},
+    "srans2_vbbe21_zd": KERNEL_1 | {"o1_fc", "rans_encode", "o1_decode"},
     "svb12_zd": {"svb16_encode", "svb16_decode"},
     "svb12": {"svb16_encode", "svb16_decode"},
-    "srans3_vbbe21_zd": {"monotone_compact_u8", "monotone_compact_i32",
-                         "compaction_shifts", "monotone_expand_u8",
-                         "monotone_expand_i32", "rans_encode", "o1n_fc",
-                         "n4_decode"},
+    "srans3_vbbe21_zd": KERNEL_1 | {"rans_encode", "o1n_fc", "n4_decode"},
 }
 
 

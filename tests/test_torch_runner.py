@@ -78,7 +78,7 @@ def test_fixture_ratio_equals_jax(fixture_reads):
 
 def test_unported_codec_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        runner.press_signals([np.zeros(3, np.int16)], "srans2_vbbe21_zd",
+        runner.press_signals([np.zeros(3, np.int16)], "shuffman_vbbe21_zd",
                              device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         runner.depress_signals([b""], [3], "vbbe21_zd", device="cpu")
