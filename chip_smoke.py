@@ -5,10 +5,16 @@
 1. Prints the card, builds the CUDA kernels (csrc/) and times the build.
 2. Holds every kernel against its plain PyTorch version at the main
    paths' shapes (a bucket of 256 synthetic reads at L = 65536): the
-   outputs are integers and must be equal.  Times each with CUDA events,
-   beside its plain version, a one-call PyTorch yardstick where one
-   exists, and its bound (bytes over 3.35 TB/s or integer operations
-   over 67 Tops/s, whichever is larger).
+   outputs are integers and must be equal.  Times each on the card (CUDA
+   events around the replay of a CUDA graph of 20 calls, 3 for the
+   walks) and from the host (events around the same calls made one by
+   one, which include the wrapper's Python), beside its plain version, a
+   one-call PyTorch yardstick where one exists (timed as the kernel),
+   and its bound (bytes over 3.35 TB/s or integer operations
+   over 67 Tops/s, whichever is larger).  Then does the same for kernel
+   1's five entries and o1_fc on one read of L = 262144 (the one-row
+   shape) and for the drans decode's phase-grid merge (expand_u8 at
+   [B*K, Smax] = [8192, 2048]), on log lines of their own.
 3. Presses and depresses ~1,028 reads (1,024 synthetic reads with
    log-uniform lengths in [4,000, 250,000] samples plus edge reads, two
    of which overflow the exception cap) through
@@ -27,6 +33,14 @@
    asserts every signal comes back and each pressed file names its
    codec; prints the file sizes.
 5. Prints one {"kernels": [...]} line, then {"ok": true, "device": ...}.
+
+`--kernels-only` stops after step 2 and prints no result line: it times
+the kernels of whichever honours_tpu_torch is imported, e.g. an older
+tree's, with
+
+    cd OLD_TREE && python3 -c "import runpy, sys; sys.argv = ['x',
+        '--kernels-only']; runpy.run_path('NEW_TREE/chip_smoke.py',
+        run_name='__main__')"
 
 Exits non-zero, with no result line, when CUDA is unavailable or any
 check fails.
@@ -68,6 +82,28 @@ def cuda_ms(fn, reps: int) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Device time of one call: `reps` calls captured in a CUDA graph and
+    replayed, so the host's Python between launches is not timed."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -116,24 +152,15 @@ def kernel_cases(seed: int):
     from honours_tpu_torch.engine import rans_o1_cuda as O
     from honours_tpu_torch.engine import svb16_cuda as SV
     from honours_tpu_torch.engine.bits import read_u32le
-    from honours_tpu_torch.engine.entropy_o1 import (
-        _lane_grid,
-        _rd_states,
-        read_states,
-    )
+    from honours_tpu_torch.engine.entropy_o1 import _rd_states, read_states
     from honours_tpu_torch.engine.pipeline import (
-        _zd_parts,
         canned_o1_device_tables,
         canned_o1n_device_tables,
         canned_rans_tables,
         press_srans3_batch,
         press_srans_batch,
     )
-    from honours_tpu_torch.engine.vbbe21 import (
-        vbbe21_parse_batch,
-        vbbe21_parts_batch,
-        wrap_i32,
-    )
+    from honours_tpu_torch.engine.vbbe21 import vbbe21_parse_batch, wrap_i32
     from honours_tpu_torch.kernels.rans import K_SHARED as K
     from honours_tpu_torch.tables.drans import PREFIX_DEN
 
@@ -144,26 +171,10 @@ def kernel_cases(seed: int):
     dev = sig.device
     tabs = canned_o1_device_tables(dev)
     n64 = n.to(torch.int64)
-    _, rest = _zd_parts(sig, n64)
-    pos = torch.arange(L, device=dev)[None, :]
-    valid = pos < (n64 - 1)[:, None]
-    ex = (rest > 255) & valid
-    plain = valid & ~ex
-    data_u8 = torch.where(plain, rest & 0xFF, 0).to(torch.uint8)
-    comb = torch.where(ex, pos | ((rest.to(torch.int64) - 256) << 16), 0)
-    comb = (comb - ((comb >> 31) << 32)).to(torch.int32)
-    parts = vbbe21_parts_batch(rest, n64 - 1, emax)
-    data, dlen = parts["data"], parts["data_len"]
-    S_b = -torch.div(-dlen, K, rounding_mode="floor")
-    j = pos
-    lg_valid = j < dlen[:, None]
-    lg_shift = torch.where(lg_valid, (j // S_b.clamp(min=1)[:, None])
-                           * (Smax - S_b[:, None]), 0).to(torch.int32)
-    g3, ctx3, act3, S_b = _lane_grid(data, dlen, K, Smax)
-    sym = g3.reshape(B, -1).to(torch.int32)
-    ctx = ctx3.reshape(B, -1).contiguous()
+    perm_cases, g = permute_fc_cases(sig, n, tabs)
+    sym, ctx = g["sym"], g["ctx"]
     fc3 = O.o1_fc(sym, ctx, tabs["cmap"], tabs["fc"]).reshape(B, K, Smax)
-    fc = torch.where(act3, fc3, 0).transpose(1, 2).reshape(B, Smax * K)
+    fc = torch.where(g["act3"], fc3, 0).transpose(1, 2).reshape(B, Smax * K)
     fc = fc.contiguous()
 
     stream, _ = D.press_drans_batch(sig, n, tabs, emax)
@@ -180,18 +191,21 @@ def kernel_cases(seed: int):
     cl2 = D.phase2_setup(grid1, d, fit)
     args2 = (stream, fst, d["dlen"], d["S_b"], fit["cmap"], fit["cum"], T2,
              d["T0_b"], d["S_b"], cl2, fptr)
-    _, _, fptr2 = O.o1_decode(*args2)
+    grid2, _, fptr2 = O.o1_decode(*args2)
     consumed = int((fptr2.to(torch.int64)
                     - d["body_off"].to(torch.int64)).sum())
-
-    # ex values and targets placed by the parse: the i32 expansion
-    ex_cnt = ex.sum(1)
-    eidx = torch.arange(emax, device=dev)[None, :]
-    ex_valid = eidx < ex_cnt[:, None]
-    ex_pos, _ = P.compact(pos.expand(B, L).to(torch.int32).contiguous(), ex)
-    ex_pos = ex_pos[:, :emax].to(torch.int64)
-    ex_vals = torch.where(ex_valid, eidx + 300, 0).to(torch.int32)
-    ex_shift = torch.where(ex_valid, ex_pos - eidx, 0).to(torch.int32)
+    # the phase-grid merge of the drans decode (engine/drans.py
+    # _merge_grids): an expansion of [B*K, Smax] u8 rows
+    r2 = torch.nn.functional.pad(grid2.reshape(B * K, T2), (0, Smax - T2))
+    m_shift = d["T0_b"].repeat_interleave(K)[:, None].expand(B * K, Smax)
+    m_shift = m_shift.to(torch.int32).contiguous()
+    cols = torch.arange(Smax, device=dev)[None, :]
+    m_valid = cols < (d["S_b"] - d["T0_b"]).repeat_interleave(K)[:, None]
+    BKS = B * K * Smax
+    merge = ("monotone_expand_u8",
+             lambda: P.expand(r2, m_shift, m_valid, Smax),
+             lambda: P.expand_plain(r2, m_shift, m_valid, Smax),
+             8 * BKS, 2 * BKS, None)
 
     # svb16 on the raw bucket; srans3's v4 body, parsed for kernel 8
     svb, svb_len = SV.svb16_encode(sig, n, True)
@@ -218,27 +232,7 @@ def kernel_cases(seed: int):
 
     BL = B * L
     nsum = int(n64.sum())
-    flat_fc = tabs["fc"][tabs["cmap"].to(torch.int64)].reshape(-1)
-    flat_idx = ctx.to(torch.int64) * 256 + sym
-    cases = [
-        ("monotone_compact_u8", lambda: P.compact(data_u8, plain),
-         lambda: P.compact_plain(data_u8, plain), 3 * BL, 2 * BL, None),
-        ("monotone_compact_i32", lambda: P.compact(comb, ex),
-         lambda: P.compact_plain(comb, ex), 9 * BL, 2 * BL, None),
-        ("compaction_shifts", lambda: P.compaction_shifts(plain),
-         lambda: P.compaction_shifts_plain(plain), 5 * BL, 2 * BL, None),
-        ("monotone_expand_u8",
-         lambda: P.expand(data, lg_shift, lg_valid, K * Smax),
-         lambda: P.expand_plain(data, lg_shift, lg_valid, K * Smax),
-         6 * BL + 2 * B * K * Smax, 2 * BL, None),
-        ("monotone_expand_i32",
-         lambda: P.expand(ex_vals, ex_shift, ex_valid, L),
-         lambda: P.expand_plain(ex_vals, ex_shift, ex_valid, L),
-         9 * B * emax + 5 * BL, 2 * B * emax, None),
-        ("o1_fc", lambda: O.o1_fc(sym, ctx, tabs["cmap"], tabs["fc"]),
-         lambda: O.o1_fc_plain(sym, ctx, tabs["cmap"], tabs["fc"]),
-         12 * sym.numel(), 4 * sym.numel(),
-         lambda: torch.take(flat_fc, flat_idx)),
+    cases = perm_cases + [
         ("rans_encode", lambda: E.encode_core(fc, Smax, K),
          lambda: E.encode_core_plain(fc, Smax, K),
          4 * fc.numel() + 4 * fc.numel() + 4 * B * K, 30 * fc.numel(), None),
@@ -274,7 +268,77 @@ def kernel_cases(seed: int):
         ("svb16_decode zd=False", lambda: SV.svb16_decode(svb_raw, n, L, False),
          lambda: SV.svb16_decode_plain(svb_raw, n, L, False)),
     ]
-    return cases, untimed
+    shapes = (f"[{B}, {L}]", f"[{B * K}, {Smax}] (drans phase-grid merge)")
+    return cases, untimed, merge, shapes
+
+
+def permute_fc_cases(sig, n, tabs):
+    """(name, kernel call, plain call, bytes, ops, library call) of the
+    five kernel 1 entries and o1_fc on one bucket [B, L], with the inputs
+    the drans path gives them, and the lane grid {sym, ctx, act3}."""
+    from honours_tpu_torch.engine import permute_cuda as P
+    from honours_tpu_torch.engine import rans_o1_cuda as O
+    from honours_tpu_torch.engine.entropy_o1 import _lane_grid
+    from honours_tpu_torch.engine.pipeline import _zd_parts
+    from honours_tpu_torch.engine.vbbe21 import vbbe21_parts_batch
+    from honours_tpu_torch.kernels.rans import K_SHARED as K
+
+    B, L = sig.shape
+    emax = max(64, L // 16)
+    Smax = L // K
+    dev = sig.device
+    n64 = n.to(torch.int64)
+    _, rest = _zd_parts(sig, n64)
+    pos = torch.arange(L, device=dev)[None, :]
+    valid = pos < (n64 - 1)[:, None]
+    ex = (rest > 255) & valid
+    plain = valid & ~ex
+    data_u8 = torch.where(plain, rest & 0xFF, 0).to(torch.uint8)
+    comb = torch.where(ex, pos | ((rest.to(torch.int64) - 256) << 16), 0)
+    comb = (comb - ((comb >> 31) << 32)).to(torch.int32)
+    parts = vbbe21_parts_batch(rest, n64 - 1, emax)
+    data, dlen = parts["data"], parts["data_len"]
+    S_b = -torch.div(-dlen, K, rounding_mode="floor")
+    lg_valid = pos < dlen[:, None]
+    lg_shift = torch.where(lg_valid, (pos // S_b.clamp(min=1)[:, None])
+                           * (Smax - S_b[:, None]), 0).to(torch.int32)
+    g3, ctx3, act3, S_b = _lane_grid(data, dlen, K, Smax)
+    sym = g3.reshape(B, -1).to(torch.int32)
+    ctx = ctx3.reshape(B, -1).contiguous()
+
+    # ex values and targets placed by the parse: the i32 expansion
+    ex_cnt = ex.sum(1)
+    eidx = torch.arange(emax, device=dev)[None, :]
+    ex_valid = eidx < ex_cnt[:, None]
+    ex_pos, _ = P.compact(pos.expand(B, L).to(torch.int32).contiguous(), ex)
+    ex_pos = ex_pos[:, :emax].to(torch.int64)
+    ex_vals = torch.where(ex_valid, eidx + 300, 0).to(torch.int32)
+    ex_shift = torch.where(ex_valid, ex_pos - eidx, 0).to(torch.int32)
+
+    BL = B * L
+    flat_fc = tabs["fc"][tabs["cmap"].to(torch.int64)].reshape(-1)
+    flat_idx = ctx.to(torch.int64) * 256 + sym
+    cases = [
+        ("monotone_compact_u8", lambda: P.compact(data_u8, plain),
+         lambda: P.compact_plain(data_u8, plain), 3 * BL, 2 * BL, None),
+        ("monotone_compact_i32", lambda: P.compact(comb, ex),
+         lambda: P.compact_plain(comb, ex), 9 * BL, 2 * BL, None),
+        ("compaction_shifts", lambda: P.compaction_shifts(plain),
+         lambda: P.compaction_shifts_plain(plain), 5 * BL, 2 * BL, None),
+        ("monotone_expand_u8",
+         lambda: P.expand(data, lg_shift, lg_valid, K * Smax),
+         lambda: P.expand_plain(data, lg_shift, lg_valid, K * Smax),
+         6 * BL + 2 * B * K * Smax, 2 * BL, None),
+        ("monotone_expand_i32",
+         lambda: P.expand(ex_vals, ex_shift, ex_valid, L),
+         lambda: P.expand_plain(ex_vals, ex_shift, ex_valid, L),
+         9 * B * emax + 5 * BL, 2 * B * emax, None),
+        ("o1_fc", lambda: O.o1_fc(sym, ctx, tabs["cmap"], tabs["fc"]),
+         lambda: O.o1_fc_plain(sym, ctx, tabs["cmap"], tabs["fc"]),
+         12 * sym.numel(), 4 * sym.numel(),
+         lambda: torch.take(flat_fc, flat_idx)),
+    ]
+    return cases, {"sym": sym, "ctx": ctx, "act3": act3}
 
 
 def flatten(x):
@@ -312,10 +376,59 @@ PATHS = {
 }
 
 
-def check_kernels(seed: int) -> dict:
+SLOW = ("rans_encode", "o1_decode", "o0_decode", "n4_decode")
+
+
+def time_case(name, kern, plain, nbytes, ops, library) -> dict:
+    """Hold one kernel call against its plain version (tolerance 0) and
+    time it, its plain version and its library yardstick; its bound from
+    the bytes and operations of this call."""
     from honours_tpu_torch._build import KERNELS
 
-    cases, untimed = kernel_cases(seed)
+    kern()  # warm-up
+    torch.cuda.synchronize()
+    got = flatten(kern())
+    want, plain_ms = timed_once(plain)
+    err = max_abs_err(got, flatten(want))
+    if err != 0:
+        raise AssertionError(f"{name}: kernel differs from its plain "
+                             f"version (max abs err {err})")
+    reps = 3 if name in SLOW else 20
+    ms = graph_ms(kern, reps)
+    call_ms = cuda_ms(kern, reps)
+    library_ms = None
+    if library is not None:
+        library()
+        library_ms = graph_ms(library, reps)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT_OPS_PER_S * 1e3
+    return {
+        "name": name, "route": "cuda",
+        "source": "honours_tpu_torch/csrc/" + KERNELS[name].source,
+        "replaces": REPLACES[name], "launches": 0, "max_abs_err": err,
+        "matches_plain": True, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms, "call_ms": call_ms,
+    }
+
+
+def log_case(shape: str, r: dict) -> None:
+    log(f"kernel {r['name']} {shape}: equal to plain (max abs err "
+        f"{r['max_abs_err']}); {r['ms']:.4f} ms on the card "
+        f"({r['call_ms']:.4f} ms a call from the host) vs plain "
+        f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']})"
+        + (f", library {r['library_ms']:.4f} ms" if r["library_ms"] else ""))
+
+
+def check_kernels(seed: int) -> dict:
+    """Every kernel at the main path's bucket shape, then kernel 1 and
+    o1_fc at the one-row shape and the drans phase-grid merge; returns
+    the bucket-shape results by kernel."""
+    from honours_tpu_torch.engine.pipeline import canned_o1_device_tables
+
+    cases, untimed, merge, (bucket, merged) = kernel_cases(seed)
     for name, kern, plain in untimed:
         err = max_abs_err(flatten(kern()), flatten(plain()))
         if err != 0:
@@ -323,37 +436,15 @@ def check_kernels(seed: int) -> dict:
                                  f"version (max abs err {err})")
         log(f"kernel {name}: equal to plain (max abs err {err})")
     results = {}
-    for name, kern, plain, nbytes, ops, library in cases:
-        kern()  # warm-up
-        torch.cuda.synchronize()
-        got = flatten(kern())
-        want, plain_ms = timed_once(plain)
-        err = max_abs_err(got, flatten(want))
-        if err != 0:
-            raise AssertionError(f"{name}: kernel differs from its plain "
-                                 f"version (max abs err {err})")
-        reps = 3 if name in ("rans_encode", "o1_decode", "o0_decode",
-                             "n4_decode") else 20
-        ms = cuda_ms(kern, reps)
-        library_ms = None
-        if library is not None:
-            library()
-            library_ms = cuda_ms(library, reps)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / INT_OPS_PER_S * 1e3
-        results[name] = {
-            "name": name, "route": "cuda",
-            "source": "honours_tpu_torch/csrc/" + KERNELS[name].source,
-            "replaces": REPLACES[name], "launches": 0, "max_abs_err": err,
-            "matches_plain": True, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms,
-        }
-        log(f"kernel {name}: equal to plain (max abs err {err}); "
-            f"{ms:.4f} ms vs plain {plain_ms:.3f} ms, bound "
-            f"{max(t_bytes, t_ops):.4f} ms ({results[name]['bound_by']})"
-            + (f", library {library_ms:.4f} ms" if library_ms else ""))
+    for case in cases:
+        results[case[0]] = r = time_case(*case)
+        log_case(bucket, r)
+    # B = 1, L = 262144: one read on the runner's one-row path
+    sig, n = make_bucket(seed, B=1, L=1 << 18)
+    one_row, _ = permute_fc_cases(sig, n, canned_o1_device_tables(sig.device))
+    for case in one_row:
+        log_case(f"[1, {sig.shape[1]}]", time_case(*case))
+    log_case(merged, time_case(*merge))
     return results
 
 
@@ -497,6 +588,9 @@ def cli_phase(reads) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="build, check and time the kernels, then stop "
+                    "(no main path, no result lines)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -514,6 +608,8 @@ def main(argv=None) -> int:
     log(f"build: {time.perf_counter() - t:.1f} s")
 
     results = check_kernels(args.seed)
+    if args.kernels_only:
+        return 0
     reads = read_set(args.seed)
     log(f"main path: {len(reads)} reads, {sum(r.size for r in reads)} "
         f"samples, {sum(2 * r.size for r in reads) / 1e6:.1f} MB int16")

@@ -6,13 +6,20 @@
 // fc = fc_tab[cmap[ctx]][sym] (f + cum_lo * 8192) for ctx in [0, 256]
 // (256 = CTX0).  The TPU kernel emulates the gather with predicated
 // single-vreg gathers over 128 table chunks; here the table (<= 64
-// clusters x 256 int32 = 64 KiB) and cmap sit in shared memory and each
-// thread does two shared-memory loads.
-// Bound on this card: bytes — 12 B of device memory per element (sym and
+// clusters x 256 int32 = 64 KiB) and cmap sit in shared memory and the
+// gather is two shared-memory loads.
+// Bound on this card: bytes: 12 B of device memory per element (sym and
 // ctx read, fc written) against two shared loads and a few integer ops.
-// Design: a grid-stride loop over a grid sized to the resident blocks
-// (three 66 KB blocks per SM), so each block loads the table once and
-// then streams many elements with coalesced reads and writes.
+// Design: a persistent grid of one 1024-thread block per SM, so the
+// table is copied from device memory once per SM (<= 132 x 66 KB, where
+// three blocks per SM each copied it before); cmap is stored pre-scaled
+// by 256.  Each
+// thread then moves 4 elements per step as one 16-byte load of sym, one
+// of ctx and one 16-byte store of fc, two steps in flight per loop trip.
+// The elements before sym's first 16-byte boundary and the last n % 4
+// are done one by one; the wrapper places fc at sym's alignment, and ctx
+// is read 4 bytes at a time when its alignment differs.  The launch's
+// shared-memory limit is raised once per device, not per call.
 //
 // Kernel 4 replaces rans_o1_pallas.py `_decode_call` (pallas_call at
 // :447) as launched through rans_o1_decode_resume_pallas (:530): the
@@ -51,28 +58,75 @@
 
 namespace {
 
-constexpr int FC_T = 512;
+constexpr int FC_T = 1024;
 constexpr int K = 32;
 constexpr int MAX_CL = 64;
 constexpr unsigned RANS_L = 1u << 23;
 constexpr int CTX0 = 256;
+constexpr int FC_CMAP = 260;  // cmap words, padded so the table is 16-byte aligned
+constexpr int FC_SMEM_MAX = (FC_CMAP + MAX_CL * 256) * sizeof(int);
 
-__global__ void __launch_bounds__(FC_T)
+__device__ __forceinline__ int fc_of(const int* s_cmap, const int* s_fc,
+                                      int sym, int ctx) {
+  return s_fc[s_cmap[min(max(ctx, 0), CTX0)] + (sym & 255)];
+}
+
+__global__ void __launch_bounds__(FC_T, 1)
 o1_fc_kernel(const int* __restrict__ sym, const int* __restrict__ ctx,
              const int* __restrict__ cmap, const int* __restrict__ fc_tab,
              int r, long long n, int* __restrict__ out) {
-  extern __shared__ int sm[];
-  int* s_cmap = sm;
-  int* s_fc = sm + 260;
+  extern __shared__ __align__(16) int sm[];
+  int* s_cmap = sm;  // cluster * 256, per context
+  int* s_fc = sm + FC_CMAP;
   for (int i = threadIdx.x; i < CTX0 + 1; i += FC_T)
-    s_cmap[i] = min(max(cmap[i], 0), r - 1);
+    s_cmap[i] = min(max(cmap[i], 0), r - 1) * 256;
   for (int i = threadIdx.x; i < r * 256; i += FC_T) s_fc[i] = fc_tab[i];
   __syncthreads();
+
+  // elements [0, head) and [head + 4 * nv, n) one by one
+  const long long head = min(
+      n, static_cast<long long>((16 - (reinterpret_cast<uintptr_t>(sym) & 15)) & 15) / 4);
+  const long long nv = (n - head) / 4;
+  const long long tail = head + 4 * nv;
+  const long long tid = static_cast<long long>(blockIdx.x) * FC_T + threadIdx.x;
+  if (tid < head) out[tid] = fc_of(s_cmap, s_fc, sym[tid], ctx[tid]);
+  if (tid < n - tail)
+    out[tail + tid] = fc_of(s_cmap, s_fc, sym[tail + tid], ctx[tail + tid]);
+
+  const int4* sv = reinterpret_cast<const int4*>(sym + head);
+  const int* cp = ctx + head;
+  int* op = out + head;
+  const bool ctx_vec = (reinterpret_cast<uintptr_t>(cp) & 15) == 0;
+  const bool out_vec = (reinterpret_cast<uintptr_t>(op) & 15) == 0;
   const long long stride = static_cast<long long>(gridDim.x) * FC_T;
-  for (long long i = static_cast<long long>(blockIdx.x) * FC_T + threadIdx.x;
-       i < n; i += stride) {
-    const int c = min(max(ctx[i], 0), CTX0);
-    out[i] = s_fc[s_cmap[c] * 256 + (sym[i] & 255)];
+  for (long long i = tid; i < nv; i += 2 * stride) {
+    int4 s[2], c[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const long long k = i + u * stride;
+      if (k < nv) {
+        s[u] = sv[k];
+        c[u] = ctx_vec ? reinterpret_cast<const int4*>(cp)[k]
+                       : make_int4(cp[4 * k], cp[4 * k + 1], cp[4 * k + 2],
+                                   cp[4 * k + 3]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const long long k = i + u * stride;
+      if (k < nv) {
+        const int4 f = make_int4(fc_of(s_cmap, s_fc, s[u].x, c[u].x),
+                                 fc_of(s_cmap, s_fc, s[u].y, c[u].y),
+                                 fc_of(s_cmap, s_fc, s[u].z, c[u].z),
+                                 fc_of(s_cmap, s_fc, s[u].w, c[u].w));
+        if (out_vec) {
+          reinterpret_cast<int4*>(op)[k] = f;
+        } else {
+          op[4 * k] = f.x; op[4 * k + 1] = f.y;
+          op[4 * k + 2] = f.z; op[4 * k + 3] = f.w;
+        }
+      }
+    }
   }
 }
 
@@ -191,11 +245,17 @@ o0_decode_kernel(const uint8_t* __restrict__ stream, long long Mb,
 HTT_EXPORT int htt_o1_fc(const void* sym, const void* ctx, const void* cmap,
                          const void* fc_tab, long long r, long long n,
                          void* out, long long grid, void* stream) {
-  const size_t smem = (260 + r * 256) * sizeof(int);
-  cudaFuncSetAttribute(o1_fc_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem));
+  static bool attr_set[64];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64 || !attr_set[dev]) {
+    cudaFuncSetAttribute(o1_fc_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         FC_SMEM_MAX);
+    if (dev >= 0 && dev < 64) attr_set[dev] = true;
+  }
   if (n > 0) {
+    const size_t smem = (FC_CMAP + r * 256) * sizeof(int);
     o1_fc_kernel<<<static_cast<unsigned>(grid), FC_T, smem,
                    static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(sym), static_cast<const int*>(ctx),

@@ -5,7 +5,10 @@ Replaces honours_tpu/engine/permute_pallas.py `_walk` (compact_walk,
 expand_walk, compaction_shifts_walk).  The wrappers route by device:
 CPU tensors take the plain version, CUDA tensors launch the kernel.
 Payloads are uint8 or int32 (uint32 words travel as int32 bit patterns);
-masks are bool.
+masks are bool.  The kernels cut each row into tiles of TILE elements
+(one block each) and chain the tiles of a row through a zeroed scratch
+of one status word per tile plus a ticket counter, allocated here when a
+row has more than one tile.
 """
 
 from __future__ import annotations
@@ -15,20 +18,24 @@ import torch
 from honours_tpu_torch._build import check, is_cpu, kernel, stream_ptr
 
 PAYLOADS = (torch.uint8, torch.int32)
+#: elements per tile (one block) of every kernel 1 entry and per thread
+#: (permute.cu's TILE and EPT)
+TILE = 4096
+EPT = 16
 
 _COMPACT = {
     torch.uint8: kernel("monotone_compact_u8", "permute.cu",
-                        "htt_compact_u8", "ppppllp"),
+                        "htt_compact_u8", "ppppllpp"),
     torch.int32: kernel("monotone_compact_i32", "permute.cu",
-                        "htt_compact_i32", "ppppllp"),
+                        "htt_compact_i32", "ppppllpp"),
 }
 _SHIFTS = kernel("compaction_shifts", "permute.cu", "htt_compaction_shifts",
-                 "pppllp")
+                 "pppllpp")
 _EXPAND = {
     torch.uint8: kernel("monotone_expand_u8", "permute.cu", "htt_expand_u8",
-                        "ppppplllp"),
+                        "pppppllllpp"),
     torch.int32: kernel("monotone_expand_i32", "permute.cu",
-                        "htt_expand_i32", "ppppplllp"),
+                        "htt_expand_i32", "pppppllllpp"),
 }
 
 
@@ -83,19 +90,59 @@ def expand_plain(values, shift, valid, width: int):
 # ---------------------------------------------------------------------------
 
 
+def _status(B: int, tiles: int, device):
+    """Zeroed tile states of a launch of B rows of `tiles` tiles, then its
+    ticket counter; None when each row is one tile (no tile waits on
+    another)."""
+    if B * tiles >= 1 << 31:
+        raise ValueError(f"{B} rows of {tiles} tiles: more than 2^31 tiles")
+    if tiles == 1:
+        return None
+    return torch.zeros((B * tiles + 1,), dtype=torch.int64, device=device)
+
+
+def compact_tiles(N: int) -> int:
+    """Tiles of a compaction row: TILE elements each."""
+    return max(1, -(-N // TILE))
+
+
+def expand_tiles(N: int, width: int, rows: int, sms: int) -> tuple[int, int]:
+    """(input elements per tile, tiles) of an expansion row: one tile per
+    TILE elements of input, and where `rows` rows give fewer blocks than
+    the card has SMs, up to one per TILE columns of output, so that a few
+    rows spreading their elements over a wide output still spread their
+    writes over the card.  Tiles are whole per-thread groups."""
+    want = min(-(-width // TILE), -(-sms // max(rows, 1)))
+    tiles = max(1, -(-N // TILE), want)
+    per = -(-max(N, 1) // tiles)
+    per = -(-per // EPT) * EPT
+    return per, max(1, -(-N // per))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check_rows(t, name, dtypes):
+    check(t, name, dtypes)
+    if t.dim() != 2 or t.shape[1] >= 1 << 31:
+        raise ValueError(f"{name}: shape {tuple(t.shape)} is not [B, N < 2^31]")
+
+
 def compact(values, keep):
     """monotone compaction -> (out [B, N], count [B] int32)."""
     if is_cpu(values, keep):
         return compact_plain(values, keep)
+    _check_rows(values, "values", PAYLOADS)
     B, N = values.shape
-    check(values, "values", PAYLOADS)
     check(keep, "keep", (torch.bool,), (B, N))
     out = torch.empty_like(values)
     count = torch.empty((B,), dtype=torch.int32, device=values.device)
     if B:
+        status = _status(B, compact_tiles(N), values.device)
         _COMPACT[values.dtype](values.data_ptr(), keep.data_ptr(),
                                out.data_ptr(), count.data_ptr(), B, N,
-                               stream_ptr(values.device))
+                               _ptr(status), stream_ptr(values.device))
     return out, count
 
 
@@ -103,13 +150,14 @@ def compaction_shifts(keep):
     """holes-before-each-kept-element, packed left -> (shifts, count)."""
     if is_cpu(keep):
         return compaction_shifts_plain(keep)
+    _check_rows(keep, "keep", (torch.bool,))
     B, N = keep.shape
-    check(keep, "keep", (torch.bool,))
     out = torch.empty((B, N), dtype=torch.int32, device=keep.device)
     count = torch.empty((B,), dtype=torch.int32, device=keep.device)
     if B:
+        status = _status(B, compact_tiles(N), keep.device)
         _SHIFTS(keep.data_ptr(), out.data_ptr(), count.data_ptr(), B, N,
-                stream_ptr(keep.device))
+                _ptr(status), stream_ptr(keep.device))
     return out, count
 
 
@@ -117,15 +165,21 @@ def expand(values, shift, valid, width: int):
     """monotone expansion -> (out [B, width], covered [B, width] bool)."""
     if is_cpu(values, shift, valid):
         return expand_plain(values, shift, valid, width)
+    _check_rows(values, "values", PAYLOADS)
     B, N = values.shape
-    check(values, "values", PAYLOADS)
     check(shift, "shift", (torch.int32,), (B, N))
     check(valid, "valid", (torch.bool,), (B, N))
+    if not 0 <= width < 1 << 31:
+        raise ValueError(f"width {width} is not in [0, 2^31)")
     out = torch.empty((B, width), dtype=values.dtype, device=values.device)
     covered = torch.empty((B, width), dtype=torch.bool, device=values.device)
-    if B:
+    if B and width:
+        sms = torch.cuda.get_device_properties(
+            values.device).multi_processor_count
+        per, tiles = expand_tiles(N, width, B, sms)
+        status = _status(B, tiles, values.device)
         _EXPAND[values.dtype](values.data_ptr(), shift.data_ptr(),
                               valid.data_ptr(), out.data_ptr(),
-                              covered.data_ptr(), B, N, width,
-                              stream_ptr(values.device))
+                              covered.data_ptr(), B, N, width, per,
+                              _ptr(status), stream_ptr(values.device))
     return out, covered

@@ -33,8 +33,8 @@ from honours_tpu_torch.kernels.rans import (
 )
 
 MAX_CLUSTERS = 64
-_FC_THREADS = 512
-_FC_BLOCKS_PER_SM = 3  # 66 KB of shared memory per block
+_FC_THREADS = 1024  # one block per SM: the table (<= 66 KB) loaded once
+_FC_PER_THREAD = 4  # one 16-byte vector of each operand per step
 
 _FC = kernel("o1_fc", "rans_o1.cu", "htt_o1_fc", "ppppllplp")
 _DECODE = kernel("o1_decode", "rans_o1.cu", "htt_o1_decode",
@@ -73,11 +73,14 @@ def o1_fc(sym, ctx, cmap, fc_tab):
     check(sym, "sym", (torch.int32,))
     check(ctx, "ctx", (torch.int32,), sym.shape)
     _check_tables(cmap, fc_tab=fc_tab)
-    out = torch.empty_like(sym)
     n = sym.numel()
+    # fc shares sym's offset within 16 bytes, so both move as vectors
+    off = sym.data_ptr() % 16 // 4
+    out = torch.empty((n + off,), dtype=torch.int32,
+                      device=sym.device)[off:].view(sym.shape)
     if n:
         sms = torch.cuda.get_device_properties(sym.device).multi_processor_count
-        grid = min(-(-n // _FC_THREADS), _FC_BLOCKS_PER_SM * sms)
+        grid = min(-(-n // (_FC_THREADS * _FC_PER_THREAD)), sms)
         _FC(sym.data_ptr(), ctx.data_ptr(), cmap.data_ptr(),
             fc_tab.data_ptr(), fc_tab.shape[0], n, out.data_ptr(), grid,
             stream_ptr(sym.device))

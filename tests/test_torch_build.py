@@ -46,6 +46,17 @@ def test_ctypes_signature_matches_c_entry(name):
         assert want in p.replace(" *", "*"), (p, code)
 
 
+def test_tile_width_matches_permute_source():
+    """permute_cuda.TILE and EPT (the wrapper's tiling and scratch size)
+    are permute.cu's, and a tile is one group of elements per thread."""
+    text = (_build.CSRC / "permute.cu").read_text()
+    consts = {k: int(v) for k, v in re.findall(
+        r"constexpr int (TPB|EPT|TILE) = (\d+);", text)}
+    assert consts["TILE"] == permute_cuda.TILE
+    assert consts["EPT"] == permute_cuda.EPT
+    assert consts["TPB"] * consts["EPT"] == consts["TILE"]
+
+
 def test_library_names_follow_sources():
     paths = {s: _build._lib_path(s) for s in _build.SOURCES}
     assert len(set(paths.values())) == len(paths)

@@ -27,33 +27,99 @@ def _same(a, b):
         assert torch.equal(x.cpu(), y.cpu())
 
 
+TILE = 4096  # permute_cuda.TILE (tests/test_torch_build.py holds it to permute.cu)
+WIDTHS = [1, 700, TILE - 1, TILE, TILE + 1, 3 * TILE + 5, 1 << 21, (1 << 21) + 5]
+
+
+def _keep(kind, B, N, g):
+    if kind == "random":
+        return torch.rand((B, N), generator=g) < 0.6
+    if kind == "last":
+        return (torch.arange(N) == N - 1).expand(B, N).contiguous()
+    return torch.full((B, N), kind == "all", dtype=torch.bool)
+
+
+@pytest.mark.parametrize("kind", ["random", "all", "none", "last"])
+@pytest.mark.parametrize("B", [1, 3])
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.int32])
-@pytest.mark.parametrize("N", [1, 700, 1 << 21])
-def test_permute_kernels_match_plain(cuda, dtype, N):
+@pytest.mark.parametrize("N", WIDTHS)
+def test_permute_kernels_match_plain(cuda, dtype, N, B, kind):
+    """Kernel 1's five entries at the tile edges (one tile, one element
+    either side, several tiles, 2^21 + 5 columns) with every keep
+    pattern; expansions with a width past N and targets below 0 and at or
+    past the width."""
     from honours_tpu_torch.engine import permute_cuda as P
 
-    g = torch.Generator().manual_seed(N)
-    B = 2 if N > 4096 else 8
+    assert P.TILE == TILE
+    g = torch.Generator().manual_seed(N + B)
     hi = 256 if dtype == torch.uint8 else 1 << 30
     v = torch.randint(0, hi, (B, N), generator=g).to(dtype).to(cuda)
-    keep = (torch.rand((B, N), generator=g) < 0.6).to(cuda)
+    keep = _keep(kind, B, N, g).to(cuda)
     _same(P.compact(v, keep), P.compact_plain(v, keep))
     _same(P.compaction_shifts(keep), P.compaction_shifts_plain(keep))
     sh, cnt = P.compaction_shifts(keep)
     valid = torch.arange(N, device=cuda)[None, :] < cnt[:, None]
     vc, _ = P.compact(v, keep)
-    _same(P.expand(vc, sh, valid, N + 3), P.expand_plain(vc, sh, valid, N + 3))
+    for W in (N, N + 3, N + 5000):
+        _same(P.expand(vc, sh, valid, W), P.expand_plain(vc, sh, valid, W))
+    # strictly rising targets from -N/3 to past the width, random valid
+    tg = torch.randperm(N + N // 3 + N // 2 + 1, generator=g)[:N].sort().values
+    sh2 = (tg - N // 3 - torch.arange(N)).to(torch.int32).expand(B, N)
+    sh2 = sh2.contiguous().to(cuda)
+    val2 = (torch.rand((B, N), generator=g) < 0.7).to(cuda)
+    for W in (max(1, N // 2), N, 2 * N + 7):
+        _same(P.expand(v, sh2, val2, W), P.expand_plain(v, sh2, val2, W))
 
 
-def test_kernel_rejects_other_dtypes(cuda):
+def _rejects(cuda):
+    """(wrapper call, error) pairs for tensors the kernels cannot take."""
     from honours_tpu_torch.engine import permute_cuda as P
+    from honours_tpu_torch.engine import rans_o1_cuda as O
+    from honours_tpu_torch.engine.pipeline import canned_o1_device_tables
 
-    v = torch.zeros((2, 4), dtype=torch.int64, device=cuda)
-    with pytest.raises(TypeError):
-        P.compact(v, torch.ones((2, 4), dtype=torch.bool, device=cuda))
+    u8 = torch.zeros((2, 8), dtype=torch.uint8, device=cuda)
+    keep = torch.ones((2, 8), dtype=torch.bool, device=cuda)
+    sh = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
+    i32 = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
+    t = canned_o1_device_tables(cuda)
+    return {
+        "dtype": (lambda: P.compact(u8.to(torch.int64), keep), TypeError),
+        "not_rows": (lambda: P.compact(u8[0], keep[0]), ValueError),
+        "keep_not_contiguous": (
+            lambda: P.compact(u8, torch.ones((8, 2), dtype=torch.bool,
+                                             device=cuda).t()), ValueError),
+        "shifts_not_rows": (lambda: P.compaction_shifts(keep[0]), ValueError),
+        "shift_dtype": (lambda: P.expand(u8, sh.to(torch.int64), keep, 8),
+                        TypeError),
+        "negative_width": (lambda: P.expand(u8, sh, keep, -1), ValueError),
+        "width_2_31": (lambda: P.expand(u8, sh, keep, 1 << 31), ValueError),
+        "mixed_devices": (lambda: P.compact(u8, keep.cpu()), ValueError),
+        "fc_dtype": (lambda: O.o1_fc(i32.to(torch.int64), i32, t["cmap"],
+                                     t["fc"]), TypeError),
+        "fc_not_contiguous": (lambda: O.o1_fc(i32.t(), i32.t(), t["cmap"],
+                                              t["fc"]), ValueError),
+        "fc_table_shape": (lambda: O.o1_fc(i32, i32, t["cmap"],
+                                           t["fc"][:, :128].contiguous()),
+                           ValueError),
+    }
 
 
-def test_fc_and_encode_kernels_match_plain(cuda):
+REJECTS = ["dtype", "not_rows", "keep_not_contiguous", "shifts_not_rows",
+           "shift_dtype", "negative_width", "width_2_31", "mixed_devices",
+           "fc_dtype", "fc_not_contiguous", "fc_table_shape"]
+
+
+@pytest.mark.parametrize("case", REJECTS)
+def test_kernel_rejects_other_dtypes(cuda, case):
+    call, err = _rejects(cuda)[case]
+    with pytest.raises(err):
+        call()
+
+
+@pytest.mark.parametrize("off,tail", [(0, 0), (1, 0), (3, 1), (2, 3)])
+def test_fc_and_encode_kernels_match_plain(cuda, off, tail):
+    """Kernel 2 on the whole grid and on views starting `off` elements
+    into their storage with n % 4 == (4 - tail) % 4; kernel 3 after it."""
     from honours_tpu_torch.engine import rans_encode_cuda as E
     from honours_tpu_torch.engine import rans_o1_cuda as O
     from honours_tpu_torch.engine.pipeline import canned_o1_device_tables
@@ -66,6 +132,12 @@ def test_fc_and_encode_kernels_match_plain(cuda):
     sym, ctx = sym.to(cuda), ctx.to(cuda)
     fc = O.o1_fc(sym, ctx, tabs["cmap"], tabs["fc"])
     _same(fc, O.o1_fc_plain(sym, ctx, tabs["cmap"], tabs["fc"]))
+    n = sym.numel() - 4 - tail
+    sv = sym.reshape(-1)[off:off + n]
+    cv = ctx.reshape(-1)[4 - off:4 - off + n]
+    assert sv.data_ptr() % 16 == 4 * off
+    fv = O.o1_fc(sv, cv, tabs["cmap"], tabs["fc"])
+    _same(fv, O.o1_fc_plain(sv, cv, tabs["cmap"], tabs["fc"]))
     fc = torch.where(torch.rand(fc.shape, generator=g).to(cuda) < 0.9, fc, 0)
     _same(E.encode_core(fc, Smax, K), E.encode_core_plain(fc, Smax, K))
 

@@ -78,6 +78,86 @@ def test_expand_inverts_compact_and_matches(data, dtype):
     _eq(cov, pa)
 
 
+# the tile edges of kernel 1 (permute_cuda.TILE elements per block) and a
+# row of 2^21 + 5 columns: the shapes tests/test_torch_gpu.py runs the
+# kernels at, with B = 1 and B = 3
+T = PC.TILE
+EDGE_WIDTHS = [T - 1, T, T + 1, 3 * T + 5, (1 << 21) + 5]
+KEEPS = ["random", "all", "none", "last"]
+
+
+def edge_case(B, N, kind, seed=0):
+    """(u8 values, i32 values, keep) of one edge case."""
+    rng = np.random.default_rng(seed + N + B)
+    keep = {"random": rng.random((B, N)) < 0.6,
+            "all": np.ones((B, N), bool),
+            "none": np.zeros((B, N), bool),
+            "last": np.arange(N)[None, :].repeat(B, 0) == N - 1}[kind]
+    return (rng.integers(0, 256, (B, N)).astype(np.uint8),
+            rng.integers(-(1 << 31), (1 << 31) - 1, (B, N)).astype(np.int32),
+            keep)
+
+
+def edge_targets(B, N, width, lo=0, seed=0):
+    """Shifts whose targets rise strictly along each row from `lo` to past
+    `width`, with a random valid mask.  (Targets below 0 are outside
+    honours_tpu's contract: its routes wrap them, the port drops them.)"""
+    rng = np.random.default_rng(seed + N)
+    tg = np.sort(rng.choice(np.arange(lo, width + N // 2), N, replace=False))
+    shift = np.broadcast_to(tg - np.arange(N), (B, N)).astype(np.int32)
+    return shift, rng.random((B, N)) < 0.7
+
+
+@pytest.mark.parametrize("N", EDGE_WIDTHS)
+@pytest.mark.parametrize("B", [1, 3])
+def test_edge_widths_match_xla(B, N):
+    """Plain compaction, shifts and expansion == the XLA route at the
+    kernel's tile edges, on one compile per shape: every keep pattern,
+    and at 2^21 + 5 columns the random one and the last-only one."""
+    for kind in KEEPS if N < 1 << 21 else ["random", "last"]:
+        v, _, keep = edge_case(B, N, kind)
+        out, cnt = TP.monotone_compact(torch.from_numpy(v),
+                                       torch.from_numpy(keep))
+        jo, jc = JP.monotone_compact(jnp.asarray(v), jnp.asarray(keep))
+        _eq(out, jo)
+        _eq(cnt, jc)
+        s, _ = TP.compaction_shifts(torch.from_numpy(keep))
+        _eq(s, JP.compaction_shifts(jnp.asarray(keep))[0])
+        validc = torch.arange(N)[None, :] < cnt[:, None].to(torch.int64)
+        eo, ec = TP.monotone_expand(out, s, validc, N + 3)
+        jeo, jec = JP.monotone_expand(jo, jnp.asarray(s.numpy()),
+                                      jnp.asarray(validc.numpy()), N + 3)
+        _eq(eo, jeo)
+        _eq(ec, jec)
+
+
+@pytest.mark.parametrize("N", EDGE_WIDTHS[:4])
+@pytest.mark.parametrize("B", [1, 3])
+def test_edge_widths_match_pallas(B, N):
+    """Plain versions == the Pallas walks (interpret mode) at the tile
+    edges: both payloads, every keep pattern, and an expansion whose
+    targets fall at or past a width above N."""
+    for kind in KEEPS:
+        v, w, keep = edge_case(B, N, kind)
+        for x in (v, w):
+            out, cnt = PC.compact_plain(torch.from_numpy(x),
+                                        torch.from_numpy(keep))
+            po, pc = PP.compact_walk(jnp.asarray(x), jnp.asarray(keep),
+                                     interpret=True)
+            _eq(out, po)
+            _eq(cnt, pc)
+        s, _ = PC.compaction_shifts_plain(torch.from_numpy(keep))
+        _eq(s, PP.compaction_shifts_walk(jnp.asarray(keep), interpret=True)[0])
+    width = N + 700
+    shift, valid = edge_targets(B, N, width)
+    eo, ec = PC.expand_plain(torch.from_numpy(w), torch.from_numpy(shift),
+                             torch.from_numpy(valid), width)
+    po, pa = PP.expand_walk(jnp.asarray(w), jnp.asarray(shift),
+                            jnp.asarray(valid), width, interpret=True)
+    _eq(eo, po)
+    _eq(ec, pa)
+
+
 def test_expand_rejects_narrow_width(data):
     with pytest.raises(ValueError):
         TP.monotone_expand(torch.zeros((2, 8), dtype=torch.uint8),
@@ -196,3 +276,38 @@ def test_wrappers_route_cpu_tensors_to_plain(data):
     assert {k: PC._COMPACT[k].launches for k in PC._COMPACT} == before
     with pytest.raises(ValueError, match="mixed"):
         PC.compact(v, keep.to("meta"))
+
+
+def test_wrapper_checks_rows_and_tiles():
+    """The CUDA route's own checks, reachable without a card: rows must be
+    [B, N < 2^31] and a launch needs fewer than 2^31 tiles."""
+    with pytest.raises(ValueError, match="not \\[B, N"):
+        PC._check_rows(torch.zeros(8, dtype=torch.uint8), "values",
+                       PC.PAYLOADS)
+    with pytest.raises(TypeError):
+        PC._check_rows(torch.zeros((2, 8), dtype=torch.int64), "values",
+                       PC.PAYLOADS)
+    with pytest.raises(ValueError, match="2\\^31 tiles"):
+        PC._status(1 << 20, 1 << 11, "cpu")
+    st = PC._status(3, PC.compact_tiles(3 * PC.TILE + 5), "cpu")
+    assert st.dtype == torch.int64 and st.shape == (3 * 4 + 1,)
+    assert not st.any()
+    assert PC._status(3, PC.compact_tiles(PC.TILE), "cpu") is None
+
+
+@pytest.mark.parametrize("N,width,rows", [
+    (0, 5, 1), (1, 1, 1), (PC.TILE, PC.TILE, 3), (2048, 2048, 8192),
+    (4096, 65536, 256), (4096, 65536, 1), (16384, 262144, 1),
+    (65536, 65536, 256), (12293, 12296, 3)])
+def test_expand_tiles_cover_the_row(N, width, rows):
+    """An expansion row's tiles: whole per-thread groups of input, at most
+    TILE each, every input element in exactly one tile; one tile per
+    TILE input elements, and up to one per TILE output columns when the
+    rows alone give fewer blocks than the card's 132 SMs."""
+    per, tiles = PC.expand_tiles(N, width, rows, 132)
+    assert per % PC.EPT == 0 and 0 < per <= PC.TILE
+    assert (tiles - 1) * per < max(N, 1) <= tiles * per
+    spread = min(-(-width // PC.TILE), -(-132 // rows), -(-max(N, 1) // PC.EPT))
+    assert tiles >= max(-(-N // PC.TILE), spread)
+    if rows >= 132:
+        assert tiles == max(1, -(-N // PC.TILE))

@@ -83,6 +83,24 @@ def test_fc_lookup_matches_pallas(tabs, table):
     assert np.array_equal(O.o1_fc(*args).numpy(), want)
 
 
+@pytest.mark.parametrize("off", [0, 1, 3])
+@pytest.mark.parametrize("n", [4095, 4097, 3 * 4096 + 5])
+def test_fc_lookup_views_match_pallas(tabs, n, off):
+    """Kernel 2's plain version on views that start `off` elements into
+    their storage, n % 4 != 0 (the kernel's scalar head and tail) ==
+    o1_fc_gather_pallas (interpret)."""
+    tt, jt = tabs
+    rng = np.random.default_rng(n + off)
+    base_s = torch.from_numpy(rng.integers(0, 256, n + 4).astype(np.int32))
+    base_c = torch.from_numpy(rng.integers(0, 257, n + 4).astype(np.int32))
+    sym = base_s[off:off + n].view(1, n)
+    ctx = base_c[3 - off:3 - off + n].view(1, n)
+    want = np.asarray(o1_fc_gather_pallas(
+        jnp.asarray(sym.numpy()), jnp.asarray(ctx.numpy()), jt["cmap_pad"],
+        jt["fc_tab"], interpret=True))
+    assert np.array_equal(O.o1_fc(sym, ctx, tt["cmap"], tt["fc"]).numpy(), want)
+
+
 def test_encode_walk_matches_pallas_and_xla(tabs, grid_case):
     """Kernel 3's plain version == rans_encode_core_pallas (interpret)
     and the XLA encode loop behind encode_from_fc."""
