@@ -201,11 +201,10 @@ def kernel_cases(seed: int):
     m_shift = m_shift.to(torch.int32).contiguous()
     cols = torch.arange(Smax, device=dev)[None, :]
     m_valid = cols < (d["S_b"] - d["T0_b"]).repeat_interleave(K)[:, None]
-    BKS = B * K * Smax
     merge = ("monotone_expand_u8",
              lambda: P.expand(r2, m_shift, m_valid, Smax),
              lambda: P.expand_plain(r2, m_shift, m_valid, Smax),
-             8 * BKS, 2 * BKS, None)
+             expand_bytes(r2, m_shift, m_valid, Smax), 2 * B * K * Smax, None)
 
     # svb16 on the raw bucket; srans3's v4 body, parsed for kernel 8
     svb, svb_len = SV.svb16_encode(sig, n, True)
@@ -272,6 +271,26 @@ def kernel_cases(seed: int):
     return cases, untimed, merge, shapes
 
 
+def compact_bytes(keep, read: int, write: int) -> int:
+    """Bytes a compaction of [B, N] must move: the mask, `read` bytes of
+    payload for each kept element, `write` bytes for each output element
+    and the counts."""
+    B, N = keep.shape
+    return B * N * (1 + write) + read * int(keep.sum()) + 4 * B
+
+
+def expand_bytes(values, shift, valid, width: int) -> int:
+    """Bytes an expansion must move: the mask, the shift of each valid
+    element, the value of each one whose target lies in [0, width), and
+    out and covered [B, width]."""
+    B, N = values.shape
+    tgt = torch.arange(N, device=shift.device)[None, :] + shift
+    inside = valid & (tgt >= 0) & (tgt < width)
+    p = values.element_size()
+    return (B * N + 4 * int(valid.sum()) + p * int(inside.sum())
+            + (p + 1) * B * width)
+
+
 def permute_fc_cases(sig, n, tabs):
     """(name, kernel call, plain call, bytes, ops, library call) of the
     five kernel 1 entries and o1_fc on one bucket [B, L], with the inputs
@@ -320,19 +339,22 @@ def permute_fc_cases(sig, n, tabs):
     flat_idx = ctx.to(torch.int64) * 256 + sym
     cases = [
         ("monotone_compact_u8", lambda: P.compact(data_u8, plain),
-         lambda: P.compact_plain(data_u8, plain), 3 * BL, 2 * BL, None),
+         lambda: P.compact_plain(data_u8, plain),
+         compact_bytes(plain, 1, 1), 2 * BL, None),
         ("monotone_compact_i32", lambda: P.compact(comb, ex),
-         lambda: P.compact_plain(comb, ex), 9 * BL, 2 * BL, None),
+         lambda: P.compact_plain(comb, ex), compact_bytes(ex, 4, 4),
+         2 * BL, None),
         ("compaction_shifts", lambda: P.compaction_shifts(plain),
-         lambda: P.compaction_shifts_plain(plain), 5 * BL, 2 * BL, None),
+         lambda: P.compaction_shifts_plain(plain),
+         compact_bytes(plain, 0, 4), 2 * BL, None),
         ("monotone_expand_u8",
          lambda: P.expand(data, lg_shift, lg_valid, K * Smax),
          lambda: P.expand_plain(data, lg_shift, lg_valid, K * Smax),
-         6 * BL + 2 * B * K * Smax, 2 * BL, None),
+         expand_bytes(data, lg_shift, lg_valid, K * Smax), 2 * BL, None),
         ("monotone_expand_i32",
          lambda: P.expand(ex_vals, ex_shift, ex_valid, L),
          lambda: P.expand_plain(ex_vals, ex_shift, ex_valid, L),
-         9 * B * emax + 5 * BL, 2 * B * emax, None),
+         expand_bytes(ex_vals, ex_shift, ex_valid, L), 2 * B * emax, None),
         ("o1_fc", lambda: O.o1_fc(sym, ctx, tabs["cmap"], tabs["fc"]),
          lambda: O.o1_fc_plain(sym, ctx, tabs["cmap"], tabs["fc"]),
          12 * sym.numel(), 4 * sym.numel(),

@@ -24,32 +24,35 @@
 // EPT-bit mask; one block scan (warp shuffles, then one warp over the
 // per-warp sums, two barriers) gives tile-local ranks.  The rank of the
 // tile's first element across the row comes from a single-pass decoupled
-// look-back (Merrill & Garland): the tile publishes its count at once
-// and its inclusive prefix when known, as one 64-bit word (flag << 32 |
-// value) in a zeroed scratch [B, tiles] from the wrapper; warp 0 reads
-// 32 predecessors at a time and stops at the nearest inclusive prefix.
-// The kept elements are then staged in shared memory at their rank, and
-// the tile's run out[P, P + c) is written with 16-byte stores (scalar
-// at its two unaligned ends).  The zero tail [count, N) is written once,
-// by the row's last tile, which alone knows count; every kept element of
-// the row lands below count, so the tail never meets a kept run.
+// look-back (Merrill & Garland): the tile publishes its count at once and
+// its inclusive prefix when known, as one 64-bit word (flag << 32 | value)
+// in a zeroed scratch [B, tiles] from the wrapper; warp 0 reads 32
+// predecessors at a time and stops at the nearest inclusive prefix. The
+// kept elements are then staged in shared memory at their rank, and the
+// tile's run out[P, P + c) is written with 16-byte stores (scalar at its
+// two unaligned ends).  The zero tail [count, N) is written once, by the
+// row's last tile, which alone knows count; every kept element of the row
+// lands below count, so the tail never meets a kept run.
 //
 // Expansion: targets j + shift[j] of the valid elements rise strictly
-// along the row.  A row has one tile per TILE input elements, and more
-// when a batch of few rows spreads them over a wide output (`per` input
-// elements each, from the wrapper), so that the writes still spread
-// over the SMs.  Each tile stages its in-range (target, value)
-// pairs in shared memory in order and learns R, the first target of any
-// later tile (W if none), by the same look-back run right to left
-// (tickets hand out a row's tiles from its last one).  The tile then owns
-// output columns [first own target, R) (tile 0 owns [0, R), the head),
-// which partition [0, W): it writes each of them exactly once, value and
-// covered flag or zeros, one 16-byte store of out per thread and step,
-// each warp a contiguous share (so a warp stores contiguous bytes),
+// along the row.  A row has one tile per TILE input elements, and more when
+// a batch of few rows spreads them over a wide output (`per` input
+// elements each, from the wrapper), so that the writes still spread over
+// the SMs; rows of at most TILE / 2 elements go 2, 4 or 8 to a block
+// (whole warps each, one scan over the block), so that short rows leave no
+// thread idle.  Each tile stages its in-range (target, value) pairs in
+// shared memory in order (a word of padding after every 16 pairs, so that
+// a warp's stride-16 stores meet 32 banks, not 2) and learns R, the first
+// target of any later tile (W if none), by the same look-back run right to
+// left (tickets hand out a row's tiles from its last one).  The tile then
+// owns output columns [first own target, R) (tile 0 owns [0, R), the
+// head), which partition [0, W): it writes each of them exactly once,
+// value and covered flag or zeros, one 16-byte store of out per thread and
+// step, each warp a contiguous share (so a warp stores contiguous bytes),
 // finding a segment's pairs from a cursor that only moves forward.  There
-// is no zero pass and no barrier between a zero fill and a scatter.
-// Inputs outside the contract (targets not rising) need not match the
-// plain version, but still end.
+// is no zero pass and no barrier between a zero fill and a scatter. Inputs
+// outside the contract (targets not rising) need not match the plain
+// version, but still end.
 
 #include "common.cuh"
 
@@ -252,23 +255,34 @@ compact_kernel(const T* __restrict__ v, const uint8_t* __restrict__ keep,
   }
 }
 
+// Staging slot of pair i: a word of padding after every 16 pairs, so
+// that the lanes of a warp, each storing its run of consecutive pairs,
+// meet different banks.
+__device__ __forceinline__ int slot(int i) { return i + (i >> 4); }
+
 // out[j + shift[j]] = v[j] for valid j (targets strictly increasing);
 // every other column 0, covered marks the written columns.  Targets
 // outside [0, W) are dropped.  out and covered are 16-byte aligned.
+// A row of one tile takes TPB / rpb threads (whole warps), so a block
+// takes rpb such rows (the last block's spare groups idle); rpb is 1
+// when rows have several tiles.
 template <typename T>
 __global__ void __launch_bounds__(TPB, 6)
 expand_kernel(const T* __restrict__ v, const int* __restrict__ shift,
               const uint8_t* __restrict__ valid, T* __restrict__ out,
-              uint8_t* __restrict__ covered, long long N, long long W,
-              long long per, long long tiles,
+              uint8_t* __restrict__ covered, long long B, long long N,
+              long long W, long long per, long long tiles, int rpb,
               unsigned long long* __restrict__ status) {
-  __shared__ int s_tgt[TILE];
-  __shared__ T s_val[TILE];
+  __shared__ int s_tgt[TILE + TILE / 16];
+  __shared__ T s_val[TILE + TILE / 16];
+  __shared__ int s_base[NW];
   __shared__ long long s_next;
+  const int G = TPB / rpb, grp = threadIdx.x / G, gt = threadIdx.x % G;
   const long long g = take_ticket(status, tiles);
-  const long long row = g / tiles, t = tiles - 1 - g % tiles;
-  const long long j0 = t * per + static_cast<long long>(threadIdx.x) * EPT;
-  const long long left = min(N, (t + 1) * per) - j0;
+  const long long row = tiles == 1 ? g * rpb + grp : g / tiles;
+  const long long t = tiles - 1 - g % tiles;
+  const long long j0 = t * per + static_cast<long long>(gt) * EPT;
+  const long long left = row < B ? min(N, (t + 1) * per) - j0 : 0;
   unsigned m = left > 0 ? mask_ept(valid + row * N + j0, left) : 0u;
   int tg[EPT];
   T x[EPT];
@@ -282,20 +296,27 @@ expand_kernel(const T* __restrict__ v, const int* __restrict__ shift,
     }
   }
   if (m) load_ept(v + row * N + j0, left, x);
-  int c_tile;
-  int r = block_scan(__popc(m), c_tile);
+  // one scan over the block; a row's pairs are the run the scan gives
+  // its threads, [s_base[grp], next group's base)
+  int c_block;
+  int r = block_scan(__popc(m), c_block);
+  if (gt == 0) s_base[grp] = r;
 #pragma unroll
   for (int k = 0; k < EPT; ++k) {
     if (m >> k & 1) {
-      s_tgt[r] = tg[k];
-      s_val[r] = x[k];
+      s_tgt[slot(r)] = tg[k];
+      s_val[slot(r)] = x[k];
       ++r;
     }
   }
   __syncthreads();
+  const int base = s_base[grp];
+  const int c_tile = (grp + 1 < rpb ? s_base[grp + 1] : c_block) - base;
+  auto tgt = [&](int i) { return s_tgt[slot(base + i)]; };
+  auto val = [&](int i) { return s_val[slot(base + i)]; };
 
   // look-ahead: the first in-range target of the later tiles (W if none)
-  const long long first = c_tile ? s_tgt[0] : W;
+  const long long first = c_tile ? tgt(0) : W;
   if (tiles > 1 && threadIdx.x < 32) {
     unsigned long long* st = status + row * tiles;
     const int lane = threadIdx.x;
@@ -309,10 +330,10 @@ expand_kernel(const T* __restrict__ v, const int* __restrict__ shift,
         if (idx < tiles) {
           do { s = ld_status(st + idx); } while ((s >> 32) == 0);
         }
-        const long long val = static_cast<long long>(s & FULL);
-        const unsigned done = __ballot_sync(FULL, (s >> 32) == 2 || val < W);
+        const long long later = static_cast<long long>(s & FULL);
+        const unsigned done = __ballot_sync(FULL, (s >> 32) == 2 || later < W);
         const int stop = done ? __ffs(done) - 1 : 31;
-        long long best = lane <= stop ? val : W;
+        long long best = lane <= stop ? later : W;
 #pragma unroll
         for (int d = 16; d > 0; d >>= 1)
           best = min(best, __shfl_xor_sync(FULL, best, d));
@@ -326,32 +347,34 @@ expand_kernel(const T* __restrict__ v, const int* __restrict__ shift,
     }
   }
   __syncthreads();
+  if (row >= B) return;
   const int lo = t == 0 ? 0 : static_cast<int>(first);
   const int hi = static_cast<int>(tiles > 1 ? s_next : W);
   if (lo >= hi) return;
 
   // write the owned columns [lo, hi) once, in segments of SEG columns,
-  // one 16-byte store of out each, aligned in memory.  Each warp takes a
-  // contiguous share of the segments and its lanes neighbouring ones, so
-  // a warp's stores are contiguous and a lane's next segment lies 32
-  // segments on.  A lane keeps a cursor `a` (the first pair with target
-  // >= its segment's first column) and that pair's target `next` in a
-  // register: a segment in a gap costs no shared load, the cursor moves
-  // by a few linear probes, and by a binary search where pairs are dense.
+  // one 16-byte store of out each, aligned in memory.  Each of the row's
+  // warps takes a contiguous share of the segments and its lanes
+  // neighbouring ones, so a warp's stores are contiguous and a lane's
+  // next segment lies 32 segments on.  A lane keeps a cursor `a` (the
+  // first pair with target >= its segment's first column) and that
+  // pair's target `next` in a register: a segment in a gap costs no
+  // shared load, the cursor moves by a few linear probes, and by a binary
+  // search where pairs are dense.
   constexpr int SEG = 16 / sizeof(T);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31, wg = gt >> 5, nwg = G >> 5;
   const long long rb = row * W;
   const long long s0 = (rb + lo) / SEG, s1 = (rb + hi + SEG - 1) / SEG;
-  const long long share = ((s1 - s0 + NW - 1) / NW + 31) / 32 * 32;
-  const long long w1 = min(s1, s0 + (warp + 1) * share);
-  long long sg = s0 + warp * share + lane;
+  const long long share = ((s1 - s0 + nwg - 1) / nwg + 31) / 32 * 32;
+  const long long w1 = min(s1, s0 + (wg + 1) * share);
+  long long sg = s0 + wg * share + lane;
   int a = 0, z = c_tile;
   const int cfirst = static_cast<int>(sg * SEG - rb);
   while (a < z) {
     const int mid = (a + z) >> 1;
-    if (s_tgt[mid] < cfirst) a = mid + 1; else z = mid;
+    if (tgt(mid) < cfirst) a = mid + 1; else z = mid;
   }
-  int next = a < c_tile ? s_tgt[a] : NO_PAIR;
+  int next = a < c_tile ? tgt(a) : NO_PAIR;
   for (; sg < w1; sg += 32) {
     const int c0 = static_cast<int>(sg * SEG - rb);
     if (next < c0) {
@@ -359,16 +382,16 @@ expand_kernel(const T* __restrict__ v, const int* __restrict__ shift,
       for (int probe = 0; probe < 4; ++probe) {
         if (next < c0) {
           ++a;
-          next = a < c_tile ? s_tgt[a] : NO_PAIR;
+          next = a < c_tile ? tgt(a) : NO_PAIR;
         }
       }
       if (next < c0) {
         z = c_tile;
         while (a < z) {
           const int mid = (a + z) >> 1;
-          if (s_tgt[mid] < c0) a = mid + 1; else z = mid;
+          if (tgt(mid) < c0) a = mid + 1; else z = mid;
         }
-        next = a < c_tile ? s_tgt[a] : NO_PAIR;
+        next = a < c_tile ? tgt(a) : NO_PAIR;
       }
     }
     // A segment in a gap is zeros; one whose columns are all targets (SEG
@@ -379,32 +402,32 @@ expand_kernel(const T* __restrict__ v, const int* __restrict__ shift,
     for (int q = 0; q < SEG / 4; ++q) cw[q] = 0;
     if (next < c0 + SEG) {
       const bool dense = next == c0 && a + SEG - 1 < c_tile &&
-                         s_tgt[a + SEG - 1] == c0 + SEG - 1;
+                         tgt(a + SEG - 1) == c0 + SEG - 1;
 #pragma unroll
       for (int e = 0; e < SEG; ++e) {
         bool hit;
-        T x;
+        T y;
         if (dense) {
           hit = true;
-          x = s_val[a + e];
+          y = val(a + e);
         } else {
           hit = next == c0 + e;
-          x = hit ? s_val[a] : T(0);
+          y = hit ? val(a) : T(0);
           if (hit) {
             ++a;
-            next = a < c_tile ? s_tgt[a] : NO_PAIR;
+            next = a < c_tile ? tgt(a) : NO_PAIR;
           }
         }
         cw[e / 4] |= (hit ? 1u : 0u) << (8 * (e % 4));
         if constexpr (sizeof(T) == 1) {
-          ow[e / 4] |= static_cast<unsigned>(x) << (8 * (e % 4));
+          ow[e / 4] |= static_cast<unsigned>(y) << (8 * (e % 4));
         } else {
-          ow[e] = static_cast<unsigned>(x);
+          ow[e] = static_cast<unsigned>(y);
         }
       }
       if (dense) {
         a += SEG;
-        next = a < c_tile ? s_tgt[a] : NO_PAIR;
+        next = a < c_tile ? tgt(a) : NO_PAIR;
       }
     }
     // whole segments go out as vector stores, the partial ones at the
@@ -451,18 +474,22 @@ int launch_compact(const void* v, const void* keep, void* out, void* count,
   return static_cast<int>(cudaGetLastError());
 }
 
+// rpb: rows per block (1, 2, 4 or 8), more than 1 only for rows of one
+// tile of at most TILE / rpb elements.
 template <typename T>
 int launch_expand(const void* v, const void* shift, const void* valid,
                   void* out, void* covered, long long B, long long N,
-                  long long W, long long per, void* status, void* stream) {
+                  long long W, long long per, long long rpb, void* status,
+                  void* stream) {
   const long long tiles = N > 0 ? (N + per - 1) / per : 1;
   if (B > 0 && W > 0) {
-    expand_kernel<T><<<static_cast<unsigned>(B * tiles), TPB, 0,
+    const long long blocks = tiles == 1 ? (B + rpb - 1) / rpb : B * tiles;
+    expand_kernel<T><<<static_cast<unsigned>(blocks), TPB, 0,
                        static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(v), static_cast<const int*>(shift),
         static_cast<const uint8_t*>(valid), static_cast<T*>(out),
-        static_cast<uint8_t*>(covered), N, W, per, tiles,
-        static_cast<unsigned long long*>(status));
+        static_cast<uint8_t*>(covered), B, N, W, per, tiles,
+        static_cast<int>(rpb), static_cast<unsigned long long*>(status));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -492,15 +519,17 @@ HTT_EXPORT int htt_compaction_shifts(const void* keep, void* out, void* count,
 HTT_EXPORT int htt_expand_u8(const void* v, const void* shift,
                              const void* valid, void* out, void* covered,
                              long long B, long long N, long long W,
-                             long long per, void* status, void* stream) {
+                             long long per, long long rpb, void* status,
+                             void* stream) {
   return launch_expand<uint8_t>(v, shift, valid, out, covered, B, N, W, per,
-                                status, stream);
+                                rpb, status, stream);
 }
 
 HTT_EXPORT int htt_expand_i32(const void* v, const void* shift,
                               const void* valid, void* out, void* covered,
                               long long B, long long N, long long W,
-                              long long per, void* status, void* stream) {
-  return launch_expand<int>(v, shift, valid, out, covered, B, N, W, per,
+                              long long per, long long rpb, void* status,
+                              void* stream) {
+  return launch_expand<int>(v, shift, valid, out, covered, B, N, W, per, rpb,
                             status, stream);
 }

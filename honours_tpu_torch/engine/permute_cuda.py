@@ -6,9 +6,10 @@ expand_walk, compaction_shifts_walk).  The wrappers route by device:
 CPU tensors take the plain version, CUDA tensors launch the kernel.
 Payloads are uint8 or int32 (uint32 words travel as int32 bit patterns);
 masks are bool.  The kernels cut each row into tiles of TILE elements
-(one block each) and chain the tiles of a row through a zeroed scratch
-of one status word per tile plus a ticket counter, allocated here when a
-row has more than one tile.
+(one block each; an expansion block takes up to eight short rows) and
+chain the tiles of a row through a zeroed scratch of one status word per
+tile plus a ticket counter, allocated here when a row has more than one
+tile.
 """
 
 from __future__ import annotations
@@ -33,9 +34,9 @@ _SHIFTS = kernel("compaction_shifts", "permute.cu", "htt_compaction_shifts",
                  "pppllpp")
 _EXPAND = {
     torch.uint8: kernel("monotone_expand_u8", "permute.cu", "htt_expand_u8",
-                        "pppppllllpp"),
+                        "ppppplllllpp"),
     torch.int32: kernel("monotone_expand_i32", "permute.cu",
-                        "htt_expand_i32", "pppppllllpp"),
+                        "htt_expand_i32", "ppppplllllpp"),
 }
 
 
@@ -119,6 +120,19 @@ def expand_tiles(N: int, width: int, rows: int, sms: int) -> tuple[int, int]:
     return per, max(1, -(-N // per))
 
 
+def expand_rows_per_block(per: int, tiles: int) -> int:
+    """Rows an expansion block takes: 1 when a row has several tiles, else
+    as many (1, 2, 4 or 8) as fit in one block with whole warps of EPT
+    elements a thread each."""
+    if tiles > 1:
+        return 1
+    warps = max(1, -(-per // (32 * EPT)))
+    rpb = 1
+    while rpb < 8 and 2 * rpb * warps * 32 * EPT <= TILE:
+        rpb *= 2
+    return rpb
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -181,5 +195,6 @@ def expand(values, shift, valid, width: int):
         _EXPAND[values.dtype](values.data_ptr(), shift.data_ptr(),
                               valid.data_ptr(), out.data_ptr(),
                               covered.data_ptr(), B, N, width, per,
+                              expand_rows_per_block(per, tiles),
                               _ptr(status), stream_ptr(values.device))
     return out, covered

@@ -28,7 +28,8 @@ def _same(a, b):
 
 
 TILE = 4096  # permute_cuda.TILE (tests/test_torch_build.py holds it to permute.cu)
-WIDTHS = [1, 700, TILE - 1, TILE, TILE + 1, 3 * TILE + 5, 1 << 21, (1 << 21) + 5]
+WIDTHS = [1, 513, 700, TILE // 2, TILE - 1, TILE, TILE + 1, 3 * TILE + 5,
+          1 << 21, (1 << 21) + 5]
 
 
 def _keep(kind, B, N, g):
@@ -45,7 +46,8 @@ def _keep(kind, B, N, g):
 @pytest.mark.parametrize("N", WIDTHS)
 def test_permute_kernels_match_plain(cuda, dtype, N, B, kind):
     """Kernel 1's five entries at the tile edges (one tile, one element
-    either side, several tiles, 2^21 + 5 columns) with every keep
+    either side, several tiles, 2^21 + 5 columns) and on rows an
+    expansion block takes 2, 4 or 8 of, with every keep
     pattern; expansions with a width past N and targets below 0 and at or
     past the width."""
     from honours_tpu_torch.engine import permute_cuda as P

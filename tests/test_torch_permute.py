@@ -78,11 +78,12 @@ def test_expand_inverts_compact_and_matches(data, dtype):
     _eq(cov, pa)
 
 
-# the tile edges of kernel 1 (permute_cuda.TILE elements per block) and a
-# row of 2^21 + 5 columns: the shapes tests/test_torch_gpu.py runs the
-# kernels at, with B = 1 and B = 3
+# the tile edges of kernel 1 (permute_cuda.TILE elements per block), rows
+# an expansion block takes four and two of, and a row of 2^21 + 5
+# columns: the shapes tests/test_torch_gpu.py runs the kernels at, with
+# B = 1 and B = 3
 T = PC.TILE
-EDGE_WIDTHS = [T - 1, T, T + 1, 3 * T + 5, (1 << 21) + 5]
+EDGE_WIDTHS = [513, T // 2, T - 1, T, T + 1, 3 * T + 5, (1 << 21) + 5]
 KEEPS = ["random", "all", "none", "last"]
 
 
@@ -131,7 +132,7 @@ def test_edge_widths_match_xla(B, N):
         _eq(ec, jec)
 
 
-@pytest.mark.parametrize("N", EDGE_WIDTHS[:4])
+@pytest.mark.parametrize("N", EDGE_WIDTHS[:-1])
 @pytest.mark.parametrize("B", [1, 3])
 def test_edge_widths_match_pallas(B, N):
     """Plain versions == the Pallas walks (interpret mode) at the tile
@@ -298,13 +299,24 @@ def test_wrapper_checks_rows_and_tiles():
 @pytest.mark.parametrize("N,width,rows", [
     (0, 5, 1), (1, 1, 1), (PC.TILE, PC.TILE, 3), (2048, 2048, 8192),
     (4096, 65536, 256), (4096, 65536, 1), (16384, 262144, 1),
-    (65536, 65536, 256), (12293, 12296, 3)])
+    (65536, 65536, 256), (12293, 12296, 3), (513, 513, 3), (700, 700, 300),
+    (2049, 2049, 256)])
 def test_expand_tiles_cover_the_row(N, width, rows):
     """An expansion row's tiles: whole per-thread groups of input, at most
     TILE each, every input element in exactly one tile; one tile per
     TILE input elements, and up to one per TILE output columns when the
-    rows alone give fewer blocks than the card's 132 SMs."""
+    rows alone give fewer blocks than the card's 132 SMs.  A block takes
+    as many rows of one tile as fit it, each on a power-of-two share of
+    whole warps, and one row of several tiles."""
     per, tiles = PC.expand_tiles(N, width, rows, 132)
+    rpb = PC.expand_rows_per_block(per, tiles)
+    threads = PC.TILE // PC.EPT // rpb
+    warps = -(-per // (32 * PC.EPT))
+    assert rpb in (1, 2, 4, 8) and threads >= 32 * warps
+    if tiles > 1:
+        assert rpb == 1
+    elif rpb < 8:
+        assert threads // 2 < 32 * warps
     assert per % PC.EPT == 0 and 0 < per <= PC.TILE
     assert (tiles - 1) * per < max(N, 1) <= tiles * per
     spread = min(-(-width // PC.TILE), -(-132 // rows), -(-max(N, 1) // PC.EPT))
