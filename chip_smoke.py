@@ -12,9 +12,10 @@
    one-call PyTorch yardstick where one exists (timed as the kernel),
    and its bound (bytes over 3.35 TB/s or integer operations
    over 67 Tops/s, whichever is larger).  Then does the same for kernel
-   1's five entries and o1_fc on one read of L = 262144 (the one-row
-   shape) and for the drans decode's phase-grid merge (expand_u8 at
-   [B*K, Smax] = [8192, 2048]), on log lines of their own.
+   1's five entries, o1_fc, rans_encode, o1_decode (both drans phases)
+   and o0_decode on one read of L = 262144 (the one-row shape) and for
+   the drans decode's phase-grid merge (expand_u8 at [B*K, Smax] =
+   [8192, 2048]), on log lines of their own.
 3. Presses and depresses ~1,028 reads (1,024 synthetic reads with
    log-uniform lengths in [4,000, 250,000] samples plus edge reads, two
    of which overflow the exception cap) through
@@ -67,10 +68,9 @@ def log(*a):
     print(*a, flush=True)
 
 
-def nvidia_smi() -> str:
+def nvidia_smi(fields: str = "name,power.limit") -> str:
     r = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     return r.stdout.strip().splitlines()[0] if r.returncode == 0 else (
         "nvidia-smi failed: " + r.stderr.strip())
@@ -140,40 +140,31 @@ def make_bucket(seed: int, B: int = 256, L: int = 1 << 16):
     return torch.from_numpy(sig).cuda(), torch.from_numpy(n).cuda()
 
 
-def kernel_cases(seed: int):
-    """(name, kernel call, plain call, bytes, ops, library call) at the
-    main path's shapes, from one bucket run through the port's stages,
-    and the untimed (name, kernel call, plain call) checks of options the
-    timed cases leave out."""
+def walk_cases(sig, n, g, tabs):
+    """(name, kernel call, plain call, bytes, ops, library call) of the
+    three walks on one bucket [B, L] with the inputs the main paths give
+    them: rans_encode on drans's lane grid `g` (from permute_fc_cases),
+    o1_decode's two drans phases, o0_decode on srans's v2 bodies; and
+    the drans decode's phase grids for the merge case."""
     from honours_tpu_torch.engine import drans as D
-    from honours_tpu_torch.engine import permute_cuda as P
     from honours_tpu_torch.engine import rans_encode_cuda as E
-    from honours_tpu_torch.engine import rans_n4_cuda as N4
     from honours_tpu_torch.engine import rans_o1_cuda as O
-    from honours_tpu_torch.engine import svb16_cuda as SV
-    from honours_tpu_torch.engine.bits import read_u32le
-    from honours_tpu_torch.engine.entropy_o1 import _rd_states, read_states
+    from honours_tpu_torch.engine.entropy_o1 import read_states
     from honours_tpu_torch.engine.pipeline import (
-        canned_o1_device_tables,
-        canned_o1n_device_tables,
         canned_rans_tables,
-        press_srans3_batch,
         press_srans_batch,
     )
-    from honours_tpu_torch.engine.vbbe21 import vbbe21_parse_batch, wrap_i32
+    from honours_tpu_torch.engine.vbbe21 import vbbe21_parse_batch
     from honours_tpu_torch.kernels.rans import K_SHARED as K
     from honours_tpu_torch.tables.drans import PREFIX_DEN
 
-    sig, n = make_bucket(seed)
     B, L = sig.shape
     emax = max(64, L // 16)
     Smax = L // K
     dev = sig.device
-    tabs = canned_o1_device_tables(dev)
     n64 = n.to(torch.int64)
-    perm_cases, g = permute_fc_cases(sig, n, tabs)
-    sym, ctx = g["sym"], g["ctx"]
-    fc3 = O.o1_fc(sym, ctx, tabs["cmap"], tabs["fc"]).reshape(B, K, Smax)
+    fc3 = O.o1_fc(g["sym"], g["ctx"], tabs["cmap"],
+                  tabs["fc"]).reshape(B, K, Smax)
     fc = torch.where(g["act3"], fc3, 0).transpose(1, 2).reshape(B, Smax * K)
     fc = fc.contiguous()
 
@@ -194,9 +185,69 @@ def kernel_cases(seed: int):
     grid2, _, fptr2 = O.o1_decode(*args2)
     consumed = int((fptr2.to(torch.int64)
                     - d["body_off"].to(torch.int64)).sum())
+
+    # srans's v2 body, parsed for kernel 4b
+    tabs0 = canned_rans_tables(dev)
+    st0, sl0 = press_srans_batch(sig, n, tabs0, emax)
+    p0 = vbbe21_parse_batch(st0, torch.full_like(n64, 2), n64 - 1, L, emax)
+    off0 = p0["end_off"]
+    dlen0 = (n64 - 1 - p0["nex"]).to(torch.int32)
+    args4b = (st0, read_states(st0, off0, K), dlen0, tabs0["cum"], L,
+              (off0 + 4 * K).to(torch.int32))
+    body0 = int((sl0 - off0 - 4 * K).sum())
+
+    # operations: those of the lane-steps that code a symbol in this data
+    cases = [
+        ("rans_encode", lambda: E.encode_core(fc, Smax, K),
+         lambda: E.encode_core_plain(fc, Smax, K),
+         4 * fc.numel() + 4 * fc.numel() + 4 * B * K,
+         30 * int((fc > 0).sum()), None),
+        # the bodies consumed, states in and out, the lane grid out
+        ("o1_decode", lambda: (O.o1_decode(*args1), O.o1_decode(*args2)),
+         lambda: (O.o1_decode_plain(*args1), O.o1_decode_plain(*args2)),
+         consumed + B * K * (T1 + T2) + 4 * 4 * B * K,
+         40 * int(d["dlen"].to(torch.int64).sum()), None),
+        # the v2 bodies consumed, states in, [B, L] bytes out
+        ("o0_decode", lambda: O.o0_decode(*args4b),
+         lambda: O.o0_decode_plain(*args4b),
+         body0 + B * L + 4 * B * K, 40 * int(dlen0.sum()), None),
+    ]
+    return cases, {"d": d, "grid2": grid2, "T2": T2}
+
+
+def kernel_cases(seed: int):
+    """(name, kernel call, plain call, bytes, ops, library call) at the
+    main path's shapes, from one bucket run through the port's stages,
+    and the untimed (name, kernel call, plain call) checks of options the
+    timed cases leave out."""
+    from honours_tpu_torch.engine import permute_cuda as P
+    from honours_tpu_torch.engine import rans_n4_cuda as N4
+    from honours_tpu_torch.engine import svb16_cuda as SV
+    from honours_tpu_torch.engine.bits import read_u32le
+    from honours_tpu_torch.engine.entropy_o1 import _rd_states
+    from honours_tpu_torch.engine.pipeline import (
+        canned_o1_device_tables,
+        canned_o1n_device_tables,
+        press_srans3_batch,
+    )
+    from honours_tpu_torch.engine.vbbe21 import vbbe21_parse_batch, wrap_i32
+    from honours_tpu_torch.kernels.rans import K_SHARED as K
+
+    sig, n = make_bucket(seed)
+    B, L = sig.shape
+    emax = max(64, L // 16)
+    Smax = L // K
+    dev = sig.device
+    tabs = canned_o1_device_tables(dev)
+    n64 = n.to(torch.int64)
+    perm_cases, g = permute_fc_cases(sig, n, tabs)
+    sym, ctx = g["sym"], g["ctx"]
+    walks, w = walk_cases(sig, n, g, tabs)
     # the phase-grid merge of the drans decode (engine/drans.py
     # _merge_grids): an expansion of [B*K, Smax] u8 rows
-    r2 = torch.nn.functional.pad(grid2.reshape(B * K, T2), (0, Smax - T2))
+    d, T2 = w["d"], w["T2"]
+    r2 = torch.nn.functional.pad(w["grid2"].reshape(B * K, T2),
+                                 (0, Smax - T2))
     m_shift = d["T0_b"].repeat_interleave(K)[:, None].expand(B * K, Smax)
     m_shift = m_shift.to(torch.int32).contiguous()
     cols = torch.arange(Smax, device=dev)[None, :]
@@ -219,30 +270,9 @@ def kernel_cases(seed: int):
              (off3 + 4 + 4 * K).to(torch.int32), *nt)
     body3 = int((sl3 - off3 - 4 - 4 * K).sum())
 
-    # srans's v2 body, parsed for kernel 4b
-    tabs0 = canned_rans_tables(dev)
-    st0, sl0 = press_srans_batch(sig, n, tabs0, emax)
-    p0 = vbbe21_parse_batch(st0, torch.full_like(n64, 2), n64 - 1, L, emax)
-    off0 = p0["end_off"]
-    args4b = (st0, read_states(st0, off0, K),
-              (n64 - 1 - p0["nex"]).to(torch.int32), tabs0["cum"], L,
-              (off0 + 4 * K).to(torch.int32))
-    body0 = int((sl0 - off0 - 4 * K).sum())
-
     BL = B * L
     nsum = int(n64.sum())
-    cases = perm_cases + [
-        ("rans_encode", lambda: E.encode_core(fc, Smax, K),
-         lambda: E.encode_core_plain(fc, Smax, K),
-         4 * fc.numel() + 4 * fc.numel() + 4 * B * K, 30 * fc.numel(), None),
-        ("o1_decode", lambda: (O.o1_decode(*args1), O.o1_decode(*args2)),
-         lambda: (O.o1_decode_plain(*args1), O.o1_decode_plain(*args2)),
-         consumed + B * K * (T1 + T2) + 4 * 4 * B * K,
-         40 * B * K * (T1 + T2), None),
-        # the v2 bodies consumed, states in, [B, L] bytes out
-        ("o0_decode", lambda: O.o0_decode(*args4b),
-         lambda: O.o0_decode_plain(*args4b),
-         body0 + B * L + 4 * B * K, 40 * B * (-(-L // K)) * K, None),
+    cases = perm_cases + walks + [
         # samples < n read (2 B), the whole stream row written
         ("svb16_encode", lambda: SV.svb16_encode(sig, n, True),
          lambda: SV.svb16_encode_plain(sig, n, True),
@@ -445,9 +475,9 @@ def log_case(shape: str, r: dict) -> None:
 
 
 def check_kernels(seed: int) -> dict:
-    """Every kernel at the main path's bucket shape, then kernel 1 and
-    o1_fc at the one-row shape and the drans phase-grid merge; returns
-    the bucket-shape results by kernel."""
+    """Every kernel at the main path's bucket shape, then kernel 1, o1_fc
+    and the three walks at the one-row shape and the drans phase-grid
+    merge; returns the bucket-shape results by kernel."""
     from honours_tpu_torch.engine.pipeline import canned_o1_device_tables
 
     cases, untimed, merge, (bucket, merged) = kernel_cases(seed)
@@ -461,10 +491,12 @@ def check_kernels(seed: int) -> dict:
     for case in cases:
         results[case[0]] = r = time_case(*case)
         log_case(bucket, r)
-    # B = 1, L = 262144: one read on the runner's one-row path
+    # B = 1, L = 262144: one read on the runner's one-row path, where one
+    # read's chain is a walk's whole launch
     sig, n = make_bucket(seed, B=1, L=1 << 18)
-    one_row, _ = permute_fc_cases(sig, n, canned_o1_device_tables(sig.device))
-    for case in one_row:
+    tabs = canned_o1_device_tables(sig.device)
+    one_row, g = permute_fc_cases(sig, n, tabs)
+    for case in one_row + walk_cases(sig, n, g, tabs)[0]:
         log_case(f"[1, {sig.shape[1]}]", time_case(*case))
     log_case(merged, time_case(*merge))
     return results
@@ -625,6 +657,7 @@ def main(argv=None) -> int:
     log(f"device: {name}; count {torch.cuda.device_count()}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
     log(f"nvidia-smi: {smi}")
+    log("clocks (sm, max sm): " + nvidia_smi("clocks.sm,clocks.max.sm"))
     t = time.perf_counter()
     _build.build()
     log(f"build: {time.perf_counter() - t:.1f} s")

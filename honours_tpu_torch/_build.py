@@ -14,6 +14,7 @@ counts the launch.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -143,6 +144,16 @@ def check(t: torch.Tensor, name: str, dtypes, shape=None) -> None:
         raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: tensor is not contiguous")
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return _sm_count(device.index)
 
 
 def stream_ptr(device: torch.device) -> int:

@@ -24,35 +24,49 @@
 // Kernel 4 replaces rans_o1_pallas.py `_decode_call` (pallas_call at
 // :447) as launched through rans_o1_decode_resume_pallas (:530): the
 // forward order-1 decode walk over global steps [step_lo, step_hi) of
-// each read.  The TPU kernel materializes every cluster CDF row through
-// bf16 one-hot matmuls and takes the shared-stream refill ranks from a
-// triangular matmul; here lane k of a warp is rANS lane k of the read,
-// the cluster CDFs live in shared memory as uint16 [r, 257], the symbol
-// comes from an 8-step binary search, and refill ranks come from
-// __ballot_sync plus __popc(mask & lanemask_lt), in two rounds.
-// Bound on this card: latency.  The bytes (stream in, lane grid out) are
-// a few hundred KB per read, but every step depends on the previous
-// state, so one read is a serial chain of Smax steps; the bound recorded
-// for it (bytes over bandwidth) is far below what a serial chain allows.
-// Design: one warp per read, one read per block (so B blocks spread over
-// the SMs), every body read clamped to the row so a stream decoded with
-// the wrong group runs to garbage without faulting.
-//
-// Kernel 4b replaces the order-0 entry of the same walk,
-// rans_o1_pallas.py rans_decode_shared_pallas (:561, pallas_call at
-// :447 with order0=True): format v2, one CDF, no S header, round-robin
-// lanes (step t of lane k is byte t*K + k, active while t*K + k < dlen).
-// The TPU kernel broadcasts the single CDF row into a 256-wide compare
-// and pads the walk to 16-step tiles; here the CDF sits in shared memory
-// as uint16 [257], the symbol comes from the same 8-step binary search
-// as kernel 4, and the refill is the same two ballot rounds (round 2
-// sees the states after round 1, in lane order).
-// Bound on this card: latency.  The bytes are the body, the states and
-// B*N output bytes, but one read is a serial chain of ceil(N/K) steps.
-// Design: one warp per read, one read per block, as kernel 4; each step
-// writes its 32 bytes straight to the [B, N] output (coalesced, no lane
-// grid to undo), inactive positions as 0, and every body read is
-// clamped to the row.
+// each read.  Kernel 4b replaces the order-0 entry of the same walk,
+// rans_decode_shared_pallas (:561, order0=True): format v2, one CDF, no
+// S header, round-robin lanes (step t of lane k is byte t*K + k, active
+// while t*K + k < dlen).  The TPU kernel materializes CDF rows through
+// bf16 one-hot matmuls, takes refill ranks from a triangular matmul and
+// keeps a window of the stream in VMEM.
+// Bound on this card: latency.  The bytes (stream in, symbols out) are a
+// few hundred KB per read, but each step depends on the previous state,
+// so a read is a serial chain of one step per symbol a lane decodes.
+// Chain floor (a model, PERF.md): the dependent path of one step in the
+// SASS is, order 1, three shared loads (pair rank, word, window byte), a
+// vote, a popcount and about 16 integer ops, about 180 cycles; order 0,
+// two shared loads and about 12 integer ops, about 135 cycles.
+// Design: lane k of a warp is rANS lane k of a read, 1-8 reads (warps) a
+// block (walk_reads_per_block), and every load on a step's dependent path
+// is a shared-memory load issued where it stands:
+// - Lookup.  A prep kernel writes the walk's tables once per launch into
+//   scratch the wrapper allocates, and each block copies them with
+//   cp.async.  Order 1 (one prep block per cluster): the non-zero
+//   symbols as packed words c | (c + f - 1) << 12 | sym << 24 (NZW a
+//   row), the rank of the symbol holding slot 2j for each slot pair
+//   (PAIRS bytes a row: slot 2j + 1 lies in that symbol or the next
+//   non-zero one, so zero-frequency runs cost nothing), and per context
+//   its cluster's row addresses.  A step loads the rank, then both words
+//   at once, forms both candidates' states and picks one: no probe, no
+//   branch.  At r = 64 the tables are 195 KB, so a block holds one copy
+//   for its 1-8 reads.  Order 0: one word per slot (4096), one load.
+// - Refill.  Round 2 of the refill takes a byte iff the state after the
+//   decode is below 2^15, so both rounds' ballots and both byte loads
+//   issue together.  The bytes come from a RING-byte window of the
+//   stream in shared memory: four SEG-byte segments, filled by cp.async
+//   two segments ahead of the pointer, zeros outside the row (the row's
+//   end lines byte by byte), so a stream walked with the wrong table or
+//   cut short runs on to garbage without a fault or a per-byte check.
+//   The walk keeps the pointer as 32-bit ring coordinates and returns the
+//   absolute pointer.
+// - Output.  Order 1: each lane packs 16 steps' symbols in registers and
+//   stores them as one 16-byte line of its grid row (byte stores when
+//   the row is not 16-byte aligned, and for the last steps).  Order 0:
+//   each step's 32 bytes are contiguous and are stored as they come.
+// - Once every lane of a read is past its last active step the chain
+//   stops; order 1 repeats each lane's (now fixed) symbol to the end of
+//   its row, order 0 writes zeros.
 
 #include "common.cuh"
 
@@ -75,9 +89,9 @@ __global__ void __launch_bounds__(FC_T, 1)
 o1_fc_kernel(const int* __restrict__ sym, const int* __restrict__ ctx,
              const int* __restrict__ cmap, const int* __restrict__ fc_tab,
              int r, long long n, int* __restrict__ out) {
-  extern __shared__ __align__(16) int sm[];
-  int* s_cmap = sm;  // cluster * 256, per context
-  int* s_fc = sm + FC_CMAP;
+  extern __shared__ __align__(16) uint8_t sm[];
+  int* s_cmap = reinterpret_cast<int*>(sm);  // cluster * 256, per context
+  int* s_fc = s_cmap + FC_CMAP;
   for (int i = threadIdx.x; i < CTX0 + 1; i += FC_T)
     s_cmap[i] = min(max(cmap[i], 0), r - 1) * 256;
   for (int i = threadIdx.x; i < r * 256; i += FC_T) s_fc[i] = fc_tab[i];
@@ -130,7 +144,227 @@ o1_fc_kernel(const int* __restrict__ sym, const int* __restrict__ ctx,
   }
 }
 
-__global__ void __launch_bounds__(K)
+// ---------------------------------------------------------------------------
+// kernels 4 and 4b: the decode walks
+// ---------------------------------------------------------------------------
+
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int RING = 2048;     // stream bytes a read keeps in shared memory
+constexpr int SEG = 512;       // a ring segment: 16 bytes a lane
+constexpr int SEG_SHIFT = 9;
+constexpr int NZW = 260;       // packed words a cluster row (<= 256 + pad)
+constexpr int PAIRS = 2048;    // order 1: slot pairs a cluster
+constexpr int O0_WORDS = 4096; // order 0: a packed word per slot
+constexpr int MAX_RPB = 8;     // reads (warps) a block
+constexpr int PREP_T = 256;
+constexpr int GROUP = 16;      // order-1 steps a lane packs into one store
+
+// bytes of the order-1 walk's tables for r clusters: the packed words
+// [r, NZW] u32, the pair ranks [r, PAIRS] u8, the cluster bases
+// [FC_CMAP] int2 (cluster * PAIRS, cluster * NZW * 4) by context
+__host__ __device__ constexpr long long o1_layout_bytes(long long r) {
+  return r * (NZW * 4 + PAIRS) + FC_CMAP * 8;
+}
+constexpr long long O1_SMEM_MAX = o1_layout_bytes(MAX_CL) + (MAX_RPB + 1) * RING;
+
+__device__ __forceinline__ unsigned pack_word(unsigned c, unsigned hi,
+                                              unsigned sym) {
+  return c | ((hi - 1u) << 12) | (sym << 24);
+}
+
+// largest s in [0, 255] with cum[s] <= v
+__device__ __forceinline__ int cdf_search(const int* cum, int v) {
+  int a = 0, z = 256;
+#pragma unroll
+  for (int it = 0; it < 8; ++it) {
+    const int m = (a + z) >> 1;
+    if (cum[m] <= v) a = m; else z = m;
+  }
+  return a;
+}
+
+// One block per cluster: its non-zero symbols' words (in symbol order,
+// the rest of the row all ones), the rank of the symbol holding slot 2j
+// for every pair j, and, from block 0, each context's cluster bases.
+__global__ void __launch_bounds__(PREP_T)
+o1_prep_kernel(const int* __restrict__ cmap, const int* __restrict__ cum,
+               int r, uint8_t* __restrict__ layout) {
+  __shared__ int s_cum[257];
+  __shared__ int s_rank[256];
+  __shared__ int s_warp[PREP_T / 32];
+  const int cl = blockIdx.x, t = threadIdx.x;
+  unsigned* words = reinterpret_cast<unsigned*>(layout) + cl * NZW;
+  uint8_t* pairs = layout + r * NZW * 4LL + cl * PAIRS;
+  for (int i = t; i < 257; i += PREP_T) s_cum[i] = cum[cl * 257 + i];
+  __syncthreads();
+  const int c = s_cum[t], hi = s_cum[t + 1];
+  const bool live = hi > c;
+  const unsigned m = __ballot_sync(FULL, live);
+  if ((t & 31) == 0) s_warp[t >> 5] = __popc(m);
+  __syncthreads();
+  int rank = __popc(m & htt_lanemask_lt()), total = 0;
+  for (int w = 0; w < PREP_T / 32; ++w) {
+    rank += w < (t >> 5) ? s_warp[w] : 0;
+    total += s_warp[w];
+  }
+  s_rank[t] = rank;
+  if (live) words[rank] = pack_word(c, hi, t);
+  for (int i = total + t; i < NZW; i += PREP_T) words[i] = FULL;
+  __syncthreads();
+  for (int j = t; j < PAIRS; j += PREP_T)
+    pairs[j] = static_cast<uint8_t>(s_rank[cdf_search(s_cum, 2 * j)]);
+  if (cl == 0) {
+    int2* bases = reinterpret_cast<int2*>(layout + r * (NZW * 4LL + PAIRS));
+    for (int i = t; i < FC_CMAP; i += PREP_T) {
+      const int b = i <= CTX0 ? min(max(cmap[i], 0), r - 1) : 0;
+      bases[i] = make_int2(b * PAIRS, b * NZW * 4);
+    }
+  }
+}
+
+// Order 0: the packed word of every slot.
+__global__ void __launch_bounds__(PREP_T)
+o0_prep_kernel(const int* __restrict__ cum, unsigned* __restrict__ words) {
+  __shared__ int s_cum[257];
+  for (int i = threadIdx.x; i < 257; i += PREP_T) s_cum[i] = cum[i];
+  __syncthreads();
+  const int slot = blockIdx.x * PREP_T + threadIdx.x;
+  const int s = cdf_search(s_cum, slot);
+  words[slot] = pack_word(s_cum[s], s_cum[s + 1], s);
+}
+
+// A read's window of the stream.  Ring coordinate a = p + delta holds row
+// byte p (delta = the row's offset in its 16-byte line) at ring + a % RING
+// (ring: a RING-aligned shared address), and bytes outside the row read as
+// 0.  Segments seg, seg+1 are resident, seg+2 and seg+3 in flight.  The
+// walk keeps pa = a mod 2^32 of its pointer; pa reaching edge (the start
+// of seg+1) moves the window on.
+struct Window {
+  const uint8_t* row;
+  long long delta, Mb, seg;
+  unsigned ring, pa, edge;
+  int k;
+
+  // lane k's 16 bytes of segment q: copied when inside the row, zeros
+  // when outside it, byte by byte at the row's two ends
+  __device__ __forceinline__ void fill(long long q) {
+    const long long lo = q * SEG + 16 * k - delta;  // row byte at the line start
+    const unsigned dst = ring | static_cast<unsigned>((q * SEG + 16 * k) & (RING - 1));
+    if (lo >= 0 && lo + 16 <= Mb) {
+      htt_cp_async16(dst, row + lo);
+    } else if (lo + 16 <= 0 || lo >= Mb) {
+      htt_sts_zero16(dst);
+    } else {
+      for (int j = 0; j < 16; ++j)
+        htt_sts_u8(dst + j, lo + j >= 0 && lo + j < Mb ? row[lo + j] : 0);
+    }
+    htt_cp_commit();
+  }
+
+  __device__ __forceinline__ void start(const uint8_t* row_, long long Mb_,
+                                        unsigned ring_, long long ptr,
+                                        int lane) {
+    row = row_;
+    delta = reinterpret_cast<uintptr_t>(row_) & 15;
+    ring = ring_;
+    Mb = Mb_;
+    k = lane;
+    seg = (ptr + delta) >> SEG_SHIFT;
+    pa = static_cast<unsigned>(ptr + delta);
+    edge = static_cast<unsigned>((seg + 1) * SEG);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) fill(seg + q);
+    htt_cp_wait<2>();
+    __syncwarp();
+  }
+
+  __device__ __forceinline__ unsigned byte(unsigned off) const {
+    return htt_lds_u8(ring | ((pa + off) & (RING - 1)));
+  }
+
+  // after the pointer moved (by at most 64 bytes): on entering a new
+  // segment, fetch the one three ahead into the slot just left
+  __device__ __forceinline__ void advance(unsigned n) {
+    pa += n;
+    if (static_cast<int>(pa - edge) >= 0) {
+      ++seg;
+      edge += SEG;
+      __syncwarp();
+      fill(seg + 3);
+      htt_cp_wait<2>();
+      __syncwarp();
+    }
+  }
+};
+
+// the RING-aligned shared address of warp w's ring, past `used` bytes of
+// the block's dynamic shared memory (which has RING bytes to spare)
+__device__ __forceinline__ unsigned ring_of(const uint8_t* sm, long long used,
+                                            int w) {
+  const unsigned a = htt_shared_addr(sm) + static_cast<unsigned>(used);
+  return ((a + RING - 1) & ~static_cast<unsigned>(RING - 1)) + w * RING;
+}
+
+// Both refill rounds of one step: a lane below RANS_L takes a byte in lane
+// order, and one that was below 2^15 (so still below RANS_L after it) a
+// second one after every first.
+__device__ __forceinline__ unsigned refill(unsigned x, bool active,
+                                           Window& win, unsigned lt) {
+  const bool n1 = active && x < RANS_L;
+  const bool n2 = active && x < (RANS_L >> 8);
+  const unsigned m1 = __ballot_sync(FULL, n1);
+  const unsigned m2 = __ballot_sync(FULL, n2);
+  const unsigned c1 = __popc(m1);
+  const unsigned b1 = win.byte(__popc(m1 & lt));
+  const unsigned b2 = win.byte(c1 + __popc(m2 & lt));
+  x = n2 ? (x << 16) | (b1 << 8) | b2 : n1 ? (x << 8) | b1 : x;
+  win.advance(c1 + __popc(m2));
+  return x;
+}
+
+__device__ __forceinline__ unsigned decode_state(unsigned x, unsigned w) {
+  const unsigned c = w & 4095u;
+  return (((w >> 12) & 4095u) + 1u - c) * (x >> 12) + (x & 4095u) - c;
+}
+
+// The order-1 lookup and decode of `slot` in the cluster whose shared
+// addresses (pair ranks, words) are `base`: the pair's rank gives the
+// symbol holding slot 2j and, for slot 2j + 1, the next one may hold it;
+// both words load at once and both candidates' states are formed before
+// the choice.  Returns the word; *xd gets the decoded state.
+__device__ __forceinline__ unsigned o1_lookup(uint2 base, unsigned x,
+                                              unsigned* xd) {
+  const unsigned slot = x & 4095u;
+  const unsigned wa = base.y + 4 * htt_lds_u8(base.x + (slot >> 1));
+  const unsigned w0 = htt_lds_u32(wa);
+  const unsigned w1 = htt_lds_u32(wa + 4);
+  const bool second = slot > ((w0 >> 12) & 4095u);
+  *xd = second ? decode_state(x, w1) : decode_state(x, w0);
+  return second ? w1 : w0;
+}
+
+__device__ __forceinline__ unsigned o1_step(unsigned& x, uint2& base,
+                                            bool active, unsigned s_bases,
+                                            Window& win, unsigned lt) {
+  unsigned xd;
+  const unsigned sym = o1_lookup(base, x, &xd) >> 24;
+  const uint2 next = htt_lds_u32x2(s_bases + 8 * sym);
+  x = active ? xd : x;
+  base.x = active ? next.x : base.x;
+  base.y = active ? next.y : base.y;
+  x = refill(x, active, win, lt);
+  return sym;
+}
+
+// bytes v (one each) into g[0, n)
+__device__ __forceinline__ void put_bytes(uint8_t* g, const unsigned* v,
+                                          int n) {
+#pragma unroll
+  for (int j = 0; j < n; ++j)
+    g[j] = static_cast<uint8_t>(v[j >> 2] >> (8 * (j & 3)));
+}
+
+__global__ void __launch_bounds__(K * MAX_RPB)
 o1_decode_kernel(const uint8_t* __restrict__ stream, long long Mb,
                  const unsigned* __restrict__ states_in,
                  const int* __restrict__ dlen, const int* __restrict__ S_b,
@@ -138,106 +372,110 @@ o1_decode_kernel(const uint8_t* __restrict__ stream, long long Mb,
                  const int* __restrict__ step_hi,
                  const int* __restrict__ init_cl,
                  const int* __restrict__ body_off,
-                 const int* __restrict__ cmap, const int* __restrict__ cum,
-                 int r, int T, uint8_t* __restrict__ grid,
+                 const uint8_t* __restrict__ layout, int r, long long B,
+                 int T, uint8_t* __restrict__ grid,
                  unsigned* __restrict__ states_out, int* __restrict__ ptr_out) {
-  __shared__ unsigned short s_cum[MAX_CL * 257];
-  __shared__ int s_cmap[CTX0 + 1];
-  const int k = threadIdx.x;
-  for (int i = k; i < r * 257; i += K) s_cum[i] = static_cast<unsigned short>(cum[i]);
-  for (int i = k; i < CTX0 + 1; i += K) s_cmap[i] = min(max(cmap[i], 0), r - 1);
+  extern __shared__ __align__(16) uint8_t sm[];
+  const long long lbytes = o1_layout_bytes(r);
+  htt_copy_to_shared(sm, layout, lbytes);
+  // the bases become shared addresses
+  const unsigned s_words = htt_shared_addr(sm);
+  const unsigned s_pairs = s_words + r * NZW * 4;
+  const unsigned s_bases = s_pairs + r * PAIRS;
+  uint2* bases = reinterpret_cast<uint2*>(sm + r * (NZW * 4LL + PAIRS));
+  for (int i = threadIdx.x; i < FC_CMAP; i += blockDim.x)
+    bases[i] = make_uint2(bases[i].x + s_pairs, bases[i].y + s_words);
   __syncthreads();
 
-  const long long b = blockIdx.x;
-  const uint8_t* row = stream + b * Mb;
-  uint8_t* g = grid + (b * K + k) * static_cast<long long>(T);
+  const int w = threadIdx.x >> 5, k = threadIdx.x & 31;
+  const long long b = static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + w;
+  if (b >= B) return;
   unsigned x = states_in[b * K + k];
-  int cl = min(max(init_cl[b * K + k], 0), r - 1);
-  const long long S = S_b[b], lo = step_lo[b], hi = step_hi[b], dl = dlen[b];
-  const long long lane_base = static_cast<long long>(k) * S;
-  long long ptr = body_off[b];
+  const unsigned cl0 = min(max(init_cl[b * K + k], 0), r - 1);
+  uint2 base = make_uint2(s_pairs + cl0 * PAIRS, s_words + cl0 * NZW * 4);
+  const long long lo = step_lo[b];
+  // lane k is active at local step i < n_act: lo + i < step_hi and
+  // k*S + lo + i < dlen
+  const long long end = min(static_cast<long long>(step_hi[b]),
+                            dlen[b] - static_cast<long long>(k) * S_b[b]);
+  const int n_act = static_cast<int>(min(max(end - lo, 0LL),
+                                         static_cast<long long>(T)));
+  const int iend = __reduce_max_sync(FULL, n_act);
+  Window win;
+  win.start(stream + b * Mb, Mb, ring_of(sm, lbytes, w), body_off[b], k);
+  uint8_t* g = grid + (b * K + k) * static_cast<long long>(T);
+  const bool vec = (reinterpret_cast<uintptr_t>(g) & 15) == 0;
   const unsigned lt = htt_lanemask_lt();
 
-  for (int i = 0; i < T; ++i) {
-    const long long u = lo + i;
-    const bool active = u < hi && lane_base + u < dl;
-    const unsigned slot = x & 4095u;
-    const unsigned short* cr = s_cum + cl * 257;
-    int a = 0, z = 256;  // largest s with cr[s] <= slot (cr[256] = 4096)
+  int i = 0;
+  for (; i + GROUP <= iend; i += GROUP) {
+    unsigned v[GROUP / 4] = {0, 0, 0, 0};
 #pragma unroll
-    for (int it = 0; it < 8; ++it) {
-      const int m = (a + z) >> 1;
-      if (cr[m] <= slot) a = m; else z = m;
-    }
-    g[i] = static_cast<uint8_t>(a);
-    if (active) {
-      const unsigned c = cr[a];
-      x = (cr[a + 1] - c) * (x >> 12) + slot - c;
-    }
-#pragma unroll
-    for (int round = 0; round < 2; ++round) {
-      const bool need = active && x < RANS_L;
-      const unsigned mask = __ballot_sync(0xffffffffu, need);
-      if (need) {
-        const long long p = ptr + __popc(mask & lt);
-        const unsigned byte = (p >= 0 && p < Mb) ? row[p] : 0u;
-        x = (x << 8) | byte;
-      }
-      ptr += __popc(mask);
-    }
-    if (active) cl = s_cmap[a];
+    for (int j = 0; j < GROUP; ++j)
+      v[j >> 2] |= o1_step(x, base, i + j < n_act, s_bases, win, lt)
+                   << (8 * (j & 3));
+    if (vec) *reinterpret_cast<uint4*>(g + i) = make_uint4(v[0], v[1], v[2], v[3]);
+    else put_bytes(g + i, v, GROUP);
   }
+  for (; i < iend; ++i)
+    g[i] = static_cast<uint8_t>(o1_step(x, base, i < n_act, s_bases, win, lt));
+  if (i < T) {  // every lane is past its last active step: its symbol stays
+    // (16-byte stores: a warp's byte stores hit 32 rows, 32 sectors each)
+    unsigned xd;
+    const unsigned sym = o1_lookup(base, x, &xd) >> 24;
+    const int head = min(T - i, static_cast<int>(
+        (16 - (reinterpret_cast<uintptr_t>(g + i) & 15)) & 15));
+    for (int j = 0; j < head; ++j) g[i + j] = static_cast<uint8_t>(sym);
+    i += head;
+    const unsigned s4 = sym * 0x01010101u;
+    for (; i + 16 <= T; i += 16)
+      *reinterpret_cast<uint4*>(g + i) = make_uint4(s4, s4, s4, s4);
+    for (; i < T; ++i) g[i] = static_cast<uint8_t>(sym);
+  }
+  htt_cp_wait<0>();
   states_out[b * K + k] = x;
-  if (k == 0) ptr_out[b] = static_cast<int>(ptr);
+  if (k == 0) ptr_out[b] = static_cast<int>(win.pa - static_cast<unsigned>(win.delta));
 }
 
-__global__ void __launch_bounds__(K)
+__global__ void __launch_bounds__(K * MAX_RPB)
 o0_decode_kernel(const uint8_t* __restrict__ stream, long long Mb,
                  const unsigned* __restrict__ states_in,
                  const int* __restrict__ dlen,
                  const int* __restrict__ body_off,
-                 const int* __restrict__ cum, long long N, int T,
-                 uint8_t* __restrict__ out) {
-  __shared__ unsigned short s_cum[257];
-  const int k = threadIdx.x;
-  for (int i = k; i < 257; i += K) s_cum[i] = static_cast<unsigned short>(cum[i]);
-  __syncthreads();
+                 const unsigned* __restrict__ layout, long long B, long long N,
+                 int T, uint8_t* __restrict__ out) {
+  extern __shared__ __align__(16) uint8_t sm[];
+  htt_copy_to_shared(sm, layout, O0_WORDS * 4);
+  const unsigned* s_words = reinterpret_cast<const unsigned*>(sm);
 
-  const long long b = blockIdx.x;
-  const uint8_t* row = stream + b * Mb;
+  const int w = threadIdx.x >> 5, k = threadIdx.x & 31;
+  const long long b = static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + w;
+  if (b >= B) return;
   uint8_t* o = out + b * N;
   unsigned x = states_in[b * K + k];
-  const long long dl = dlen[b];
-  long long ptr = body_off[b];
+  // lane k is active at step t < n_act: t*K + k < dlen
+  const long long left = dlen[b] - k;
+  const int n_act = static_cast<int>(
+      min(left > 0 ? (left + K - 1) / K : 0LL, static_cast<long long>(T)));
+  const int tend = __reduce_max_sync(FULL, n_act);
+  // lane k writes byte t*K + k of its row while t < n_out
+  const int n_out = static_cast<int>((N - k + K - 1) / K);
+  Window win;
+  win.start(stream + b * Mb, Mb, ring_of(sm, O0_WORDS * 4, w), body_off[b], k);
   const unsigned lt = htt_lanemask_lt();
 
-  for (int t = 0; t < T; ++t) {
-    const long long idx = static_cast<long long>(t) * K + k;
-    const bool active = idx < dl;
-    const unsigned slot = x & 4095u;
-    int a = 0, z = 256;  // largest s with s_cum[s] <= slot (s_cum[256] = 4096)
-#pragma unroll
-    for (int it = 0; it < 8; ++it) {
-      const int m = (a + z) >> 1;
-      if (s_cum[m] <= slot) a = m; else z = m;
-    }
-    if (active) {
-      const unsigned c = s_cum[a];
-      x = (s_cum[a + 1] - c) * (x >> 12) + slot - c;
-    }
-    if (idx < N) o[idx] = active ? static_cast<uint8_t>(a) : 0;
-#pragma unroll
-    for (int round = 0; round < 2; ++round) {
-      const bool need = active && x < RANS_L;
-      const unsigned mask = __ballot_sync(0xffffffffu, need);
-      if (need) {
-        const long long p = ptr + __popc(mask & lt);
-        const unsigned byte = (p >= 0 && p < Mb) ? row[p] : 0u;
-        x = (x << 8) | byte;
-      }
-      ptr += __popc(mask);
-    }
+  uint8_t* op = o + k;
+#pragma unroll 4
+  for (int t = 0; t < tend; ++t, op += K) {
+    const bool active = t < n_act;
+    const unsigned wd = s_words[x & 4095u];
+    if (t < n_out) *op = active ? static_cast<uint8_t>(wd >> 24) : 0;
+    x = active ? decode_state(x, wd) : x;
+    x = refill(x, active, win, lt);
   }
+  for (long long idx = static_cast<long long>(tend) * K + k; idx < N; idx += K)
+    o[idx] = 0;
+  htt_cp_wait<0>();
 }
 
 }  // namespace
@@ -245,15 +483,8 @@ o0_decode_kernel(const uint8_t* __restrict__ stream, long long Mb,
 HTT_EXPORT int htt_o1_fc(const void* sym, const void* ctx, const void* cmap,
                          const void* fc_tab, long long r, long long n,
                          void* out, long long grid, void* stream) {
-  static bool attr_set[64];
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 0 || dev >= 64 || !attr_set[dev]) {
-    cudaFuncSetAttribute(o1_fc_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         FC_SMEM_MAX);
-    if (dev >= 0 && dev < 64) attr_set[dev] = true;
-  }
+  static bool smem_set[64];
+  htt_smem_limit_once(o1_fc_kernel, FC_SMEM_MAX, smem_set);
   if (n > 0) {
     const size_t smem = (FC_CMAP + r * 256) * sizeof(int);
     o1_fc_kernel<<<static_cast<unsigned>(grid), FC_T, smem,
@@ -272,19 +503,26 @@ HTT_EXPORT int htt_o1_decode(const void* stream, long long B, long long Mb,
                              const void* body_off, const void* cmap,
                              const void* cum, long long r, long long T,
                              void* grid, void* states_out, void* ptr_out,
-                             void* cuda_stream) {
+                             void* layout, long long rpb, void* cuda_stream) {
+  static bool smem_set[64];
+  htt_smem_limit_once(o1_decode_kernel, static_cast<int>(O1_SMEM_MAX),
+                      smem_set);
   if (B > 0) {
-    o1_decode_kernel<<<static_cast<unsigned>(B), K, 0,
-                       static_cast<cudaStream_t>(cuda_stream)>>>(
+    const cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
+    o1_prep_kernel<<<static_cast<unsigned>(r), PREP_T, 0, st>>>(
+        static_cast<const int*>(cmap), static_cast<const int*>(cum),
+        static_cast<int>(r), static_cast<uint8_t*>(layout));
+    const size_t smem = o1_layout_bytes(r) + (rpb + 1) * RING;
+    o1_decode_kernel<<<static_cast<unsigned>((B + rpb - 1) / rpb),
+                       static_cast<unsigned>(K * rpb), smem, st>>>(
         static_cast<const uint8_t*>(stream), Mb,
         static_cast<const unsigned*>(states_in),
         static_cast<const int*>(dlen), static_cast<const int*>(S_b),
         static_cast<const int*>(step_lo), static_cast<const int*>(step_hi),
         static_cast<const int*>(init_cl), static_cast<const int*>(body_off),
-        static_cast<const int*>(cmap), static_cast<const int*>(cum),
-        static_cast<int>(r), static_cast<int>(T),
-        static_cast<uint8_t*>(grid), static_cast<unsigned*>(states_out),
-        static_cast<int*>(ptr_out));
+        static_cast<const uint8_t*>(layout), static_cast<int>(r), B,
+        static_cast<int>(T), static_cast<uint8_t*>(grid),
+        static_cast<unsigned*>(states_out), static_cast<int*>(ptr_out));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -293,14 +531,18 @@ HTT_EXPORT int htt_o0_decode(const void* stream, long long B, long long Mb,
                              const void* states_in, const void* dlen,
                              const void* body_off, const void* cum,
                              long long N, long long T, void* out,
-                             void* cuda_stream) {
+                             void* layout, long long rpb, void* cuda_stream) {
   if (B > 0 && N > 0) {
-    o0_decode_kernel<<<static_cast<unsigned>(B), K, 0,
-                       static_cast<cudaStream_t>(cuda_stream)>>>(
+    const cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
+    o0_prep_kernel<<<O0_WORDS / PREP_T, PREP_T, 0, st>>>(
+        static_cast<const int*>(cum), static_cast<unsigned*>(layout));
+    const size_t smem = O0_WORDS * 4 + (rpb + 1) * RING;
+    o0_decode_kernel<<<static_cast<unsigned>((B + rpb - 1) / rpb),
+                       static_cast<unsigned>(K * rpb), smem, st>>>(
         static_cast<const uint8_t*>(stream), Mb,
         static_cast<const unsigned*>(states_in),
         static_cast<const int*>(dlen), static_cast<const int*>(body_off),
-        static_cast<const int*>(cum), N, static_cast<int>(T),
+        static_cast<const unsigned*>(layout), B, N, static_cast<int>(T),
         static_cast<uint8_t*>(out));
   }
   return static_cast<int>(cudaGetLastError());

@@ -16,7 +16,13 @@ from __future__ import annotations
 
 import torch
 
-from honours_tpu_torch._build import check, is_cpu, kernel, stream_ptr
+from honours_tpu_torch._build import (
+    check,
+    is_cpu,
+    kernel,
+    sm_count,
+    stream_ptr,
+)
 
 PAYLOADS = (torch.uint8, torch.int32)
 #: elements per tile (one block) of every kernel 1 entry and per thread
@@ -188,9 +194,7 @@ def expand(values, shift, valid, width: int):
     out = torch.empty((B, width), dtype=values.dtype, device=values.device)
     covered = torch.empty((B, width), dtype=torch.bool, device=values.device)
     if B and width:
-        sms = torch.cuda.get_device_properties(
-            values.device).multi_processor_count
-        per, tiles = expand_tiles(N, width, B, sms)
+        per, tiles = expand_tiles(N, width, B, sm_count(values.device))
         status = _status(B, tiles, values.device)
         _EXPAND[values.dtype](values.data_ptr(), shift.data_ptr(),
                               valid.data_ptr(), out.data_ptr(),

@@ -20,7 +20,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from honours_tpu_torch._build import check, is_cpu, kernel, stream_ptr
+from honours_tpu_torch._build import (
+    check,
+    is_cpu,
+    kernel,
+    sm_count,
+    stream_ptr,
+)
 from honours_tpu_torch.engine.permute import M32, i32_to_u32
 from honours_tpu_torch.kernels.rans import CTX0, K_SHARED, M, PROB_BITS, RANS_L
 
@@ -75,7 +81,7 @@ def o1n_fc(sym, ctx, cmap, lo_assign, fcH, fcL):
     out_l = torch.empty_like(sym)
     n = sym.numel()
     if n:
-        sms = torch.cuda.get_device_properties(sym.device).multi_processor_count
+        sms = sm_count(sym.device)
         grid = min(-(-n // _FC_THREADS), _FC_BLOCKS_PER_SM * sms)
         _FC(sym.data_ptr(), ctx.data_ptr(), cmap.data_ptr(),
             lo_assign.data_ptr(), fcH.data_ptr(), fcL.data_ptr(),

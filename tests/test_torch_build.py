@@ -80,3 +80,20 @@ def test_synthesize_bucket_shape():
     assert ((n > 512) & (n <= 1024)).all()
     for row, m in zip(sig, n):
         assert not row[m:].any()
+
+
+@pytest.mark.parametrize("source,name,value", [
+    ("rans_o1.cu", "NZW", rans_o1_cuda.NZW),
+    ("rans_o1.cu", "PAIRS", rans_o1_cuda.PAIRS),
+    ("rans_o1.cu", "FC_CMAP", rans_o1_cuda.FC_CMAP),
+    ("rans_o1.cu", "MAX_RPB", rans_o1_cuda.MAX_RPB),
+    ("rans_encode.cu", "MAX_RPB", rans_o1_cuda.MAX_RPB),
+    ("rans_encode.cu", "RCP_WORDS", rans_encode_cuda.RCP_WORDS),
+])
+def test_walk_constants_match_sources(source, name, value):
+    """The walks' table sizes and reads per block, which the wrappers use
+    to size scratch and launches, are the CUDA sources'."""
+    text = (_build.CSRC / source).read_text()
+    m = re.search(r"constexpr int " + name + r" = ([^;]+);", text)
+    assert m, f"{name} not in {source}"
+    assert int(m.group(1)) == value

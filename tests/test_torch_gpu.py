@@ -241,6 +241,220 @@ def test_o0_decode_kernel_matches_plain(cuda):
     _same(O.o0_decode(*cut), O.o0_decode_plain(*cut))
 
 
+def _o1_tables(kind, dev):
+    """Order-1 device tables: "canned" (r = 64), "one" (one row for every
+    context, r = 1) or "zero_runs" (8 clusters in which symbols 20-59 and
+    96-255 have frequency 0)."""
+    from honours_tpu_torch.engine.entropy_o1 import make_o1_tables
+    from honours_tpu_torch.engine.pipeline import canned_o1_device_tables
+    from honours_tpu_torch.kernels.rans import normalize_freqs
+
+    if kind == "canned":
+        return canned_o1_device_tables(dev)
+    rng = np.random.default_rng(7)
+    if kind == "one":
+        row = normalize_freqs(rng.integers(1, 1000, 256))
+        return make_o1_tables(np.tile(row, (257, 1)), dev)
+    allowed = np.zeros(256, bool)
+    allowed[:20] = allowed[60:96] = True
+    rows = [normalize_freqs(rng.integers(1, 1000, 256) * allowed)
+            for _ in range(8)]
+    return make_o1_tables(np.stack([rows[c % 8] for c in range(257)]), dev)
+
+
+def _o1_bodies(tabs, N, dlen, pad, width_pad, seed, symbols=256):
+    """v3 bodies under `tabs` of random bytes (any byte, or with
+    symbols=56 only the zero_runs tables' live ones), each row shifted
+    right by `pad` bytes and the stream widened by `width_pad`:
+    (stream, S_b, states, body_off, data)."""
+    from honours_tpu_torch.engine.bits import read_u32le, rowwise_concat
+    from honours_tpu_torch.engine.entropy_o1 import (
+        _rd_states,
+        rans_o1_encode_batch,
+    )
+    from honours_tpu_torch.engine.vbbe21 import wrap_i32
+
+    dev = tabs["cum"].device
+    B = dlen.numel()
+    g = torch.Generator().manual_seed(seed)
+    if symbols == 256:
+        data = torch.randint(0, 256, (B, N), generator=g, dtype=torch.uint8)
+    else:  # the zero_runs tables' symbols: [0, 20) and [60, 96)
+        pick = torch.cat([torch.arange(20), torch.arange(60, 96)])
+        data = pick[torch.randint(0, pick.numel(), (B, N), generator=g)]
+        data = data.to(torch.uint8)
+    data = torch.where(torch.arange(N)[None, :] < dlen[:, None], data, 0)
+    segs, planew = rans_o1_encode_batch(data.to(dev), dlen.to(dev), tabs)
+    st, _ = rowwise_concat(segs, 4 + 4 * 32 + planew)
+    st = torch.nn.functional.pad(st, (pad, width_pad)).contiguous()
+    off = torch.full((B,), pad, dtype=torch.int64, device=dev)
+    S_b = wrap_i32(read_u32le(st, off)).to(torch.int32)
+    body_off = (off + 4 + 4 * 32).to(torch.int32)
+    return st, S_b, _rd_states(st, off, 32), body_off, data
+
+
+RAGGED = [1000, 0, 1, 31, 999, 640, 33, 128]
+O1_CASES = {  # table, N, dlen, pad, width_pad, first phase's T
+    "canned_resumed": ("canned", 1000, RAGGED, 3, 5, 13),
+    "one_cluster": ("one", 1000, RAGGED, 0, 0, 16),
+    "zero_runs": ("zero_runs", 1000, RAGGED, 5, 2, 7),
+    "long_bodies": ("canned", 48_000, [48_000, 47_999, 20_000, 31], 1, 3, 333),
+}
+
+
+@pytest.mark.parametrize("case", sorted(O1_CASES))
+def test_o1_decode_kernel_matches_plain(cuda, case):
+    """Kernel 4 against its plain version: a full walk, then the same
+    bodies in two resumed phases (step_lo > 0, T not a multiple of 16,
+    lane clusters out of range to clamp), at odd body offsets and row
+    widths, on r = 64, r = 1 and zero-frequency-run tables, bodies many
+    times the window, dlen 0, 1 and 31; then truncated streams and the
+    wrong table, which decode to garbage without a fault."""
+    from honours_tpu_torch.engine import rans_o1_cuda as O
+
+    kind, N, dl, pad, wpad, T1 = O1_CASES[case]
+    tabs = _o1_tables(kind, cuda)
+    dlen = torch.tensor(dl, dtype=torch.int32)
+    symbols = 56 if kind == "zero_runs" else 256
+    st, S_b, states, body_off, data = _o1_bodies(
+        tabs, N, dlen, pad, wpad, len(case), symbols)
+    B, Smax = dlen.numel(), -(-N // 32)
+    dlen = dlen.to(cuda)
+    zeros = torch.zeros_like(S_b)
+    cl0 = tabs["cmap"][256].expand(B, 32).contiguous()
+    full = (st, states, dlen, S_b, tabs["cmap"], tabs["cum"], Smax, zeros,
+            S_b, cl0, body_off)
+    got = O.o1_decode(*full)
+    _same(got, O.o1_decode_plain(*full))
+    T0 = torch.minimum(S_b, torch.full_like(S_b, T1))
+    args1 = (st, states, dlen, S_b, tabs["cmap"], tabs["cum"], T1, zeros,
+             T0, cl0, body_off)
+    g1, s1, p1 = O.o1_decode(*args1)
+    _same((g1, s1, p1), O.o1_decode_plain(*args1))
+    gen = torch.Generator().manual_seed(B)
+    r = tabs["cum"].shape[0]
+    cl2 = torch.randint(-3, r + 3, (B, 32), generator=gen, dtype=torch.int32)
+    args2 = (st, s1, dlen, S_b, tabs["cmap"], tabs["cum"], Smax - T1, T0,
+             S_b, cl2.to(cuda), p1)
+    _same(O.o1_decode(*args2), O.o1_decode_plain(*args2))
+    cut = (st[:, :200].contiguous(), *full[1:])
+    _same(O.o1_decode(*cut), O.o1_decode_plain(*cut))
+    other = _o1_tables("one" if kind != "one" else "canned", cuda)
+    wrong = (*full[:4], other["cmap"], other["cum"], *full[6:])
+    _same(O.o1_decode(*wrong), O.o1_decode_plain(*wrong))
+
+
+def test_o1_decode_kernel_one_read(cuda):
+    """Kernel 4 on one read of Smax = 8192 steps (the one-row shape)."""
+    from honours_tpu_torch.engine import rans_o1_cuda as O
+
+    tabs = _o1_tables("canned", cuda)
+    N = 8192 * 32
+    dlen = torch.tensor([N - 5], dtype=torch.int32)
+    st, S_b, states, body_off, data = _o1_bodies(tabs, N, dlen, 0, 0, 11)
+    cl0 = tabs["cmap"][256].expand(1, 32).contiguous()
+    args = (st, states, dlen.to(cuda), S_b, tabs["cmap"], tabs["cum"], 8192,
+            torch.zeros_like(S_b), S_b, cl0, body_off)
+    got = O.o1_decode(*args)
+    _same(got, O.o1_decode_plain(*args))
+
+
+O0_CASES = {  # N, dlen, pad, width_pad, table
+    "ragged": (1000, RAGGED, 3, 2, "canned"),
+    "long_bodies": (48_000, [48_000, 47_999, 20_000, 31], 1, 5, "canned"),
+    "one_read": (8192 * 32, [8192 * 32 - 3], 0, 1, "canned"),
+    "zero_runs": (1000, [1000, 999, 31, 1], 2, 0, "zero_runs"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(O0_CASES))
+def test_o0_decode_kernel_edges(cuda, case):
+    """Kernel 4b against its plain version at odd offsets and widths, on
+    bodies many times the window, one read of 8192 steps, a table with
+    zero-frequency runs, and under the wrong table (garbage, no fault)."""
+    from honours_tpu_torch.engine import rans_o1_cuda as O
+    from honours_tpu_torch.engine.bits import rowwise_concat
+    from honours_tpu_torch.engine.entropy import make_tables, rans_encode_batch
+    from honours_tpu_torch.engine.entropy_o1 import read_states
+    from honours_tpu_torch.engine.pipeline import canned_rans_tables
+    from honours_tpu_torch.kernels.rans import normalize_freqs
+
+    N, dl, pad, wpad, kind = O0_CASES[case]
+    rng = np.random.default_rng(3)
+    allowed = np.zeros(256, bool)
+    allowed[:20] = allowed[60:96] = True
+    zr = make_tables(normalize_freqs(rng.integers(1, 1000, 256) * allowed),
+                     cuda)
+    tabs = canned_rans_tables(cuda) if kind == "canned" else zr
+    dlen = torch.tensor(dl, dtype=torch.int32)
+    B = dlen.numel()
+    g = torch.Generator().manual_seed(N)
+    pick = torch.nonzero(tabs["freqs"].cpu() > 0).flatten()
+    data = pick[torch.randint(0, pick.numel(), (B, N), generator=g)]
+    data = torch.where(torch.arange(N)[None, :] < dlen[:, None], data, 0)
+    data = data.to(torch.uint8)
+    segs, planew = rans_encode_batch(data.to(cuda), dlen.to(cuda), tabs)
+    st, _ = rowwise_concat(segs, 4 * 32 + planew)
+    st = torch.nn.functional.pad(st, (pad, wpad)).contiguous()
+    off = torch.full((B,), pad, device=cuda)
+    args = (st, read_states(st, off, 32), dlen.to(cuda), tabs["cum"], N,
+            (off + 4 * 32).to(torch.int32))
+    out = O.o0_decode(*args)
+    _same(out, O.o0_decode_plain(*args))
+    assert torch.equal(out.cpu(), data)
+    other = zr if kind == "canned" else canned_rans_tables(cuda)
+    wrong = (*args[:3], other["cum"], *args[4:])
+    _same(O.o0_decode(*wrong), O.o0_decode_plain(*wrong))
+
+
+ENCODE_CASES = {  # B, Smax, fc offset in elements, kind
+    "aligned": (8, 96, 0, "table"),
+    "offset_4": (3, 70, 1, "table"),
+    "offset_8": (5, 33, 2, "table"),
+    "offset_12": (2, 64, 3, "table"),
+    "f_1_and_4096": (4, 65, 0, "extremes"),
+    "invalid": (4, 64, 0, "invalid"),
+    "many_rows": (1100, 40, 0, "table"),
+    "one_read": (1, 8192, 0, "table"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ENCODE_CASES))
+def test_rans_encode_kernel_edges(cuda, case):
+    """Kernel 3 against its plain version: fc views at every 4-byte offset
+    (the kernel copies 4 bytes at a time there), Smax not a multiple of
+    the 32-step chunk, f = 1 and f = 4096, fc outside a valid table (the
+    exact division path), rows ending early (chunks no lane is active
+    in), more rows than 8 per SM, and one read of 8192 steps."""
+    from honours_tpu_torch.engine import rans_encode_cuda as E
+    from honours_tpu_torch.engine.pipeline import canned_o1_device_tables
+
+    B, Smax, off, kind = ENCODE_CASES[case]
+    g = torch.Generator().manual_seed(Smax + B)
+    n = B * Smax * 32
+    if kind == "extremes":  # one symbol holding all of M, or f = 1
+        f = torch.where(torch.rand(n, generator=g) < 0.5, 1, 4096)
+        c = torch.where(f == 1, torch.randint(0, 4096, (n,), generator=g), 0)
+        fc = (f + c * 8192).to(torch.int32)
+    elif kind == "invalid":  # f + c > M (x may pass 2^31, never 2^32)
+        f = torch.randint(1, 4097, (n,), generator=g)
+        fc = (f + torch.randint(0, 1 << 17, (n,), generator=g) * 8192)
+        fc = fc.to(torch.int32)
+    else:
+        tab = canned_o1_device_tables(torch.device("cpu"))["fc"].reshape(-1)
+        fc = tab[torch.randint(0, tab.numel(), (n,), generator=g)]
+    fc = torch.where(torch.rand(n, generator=g) < 0.85, fc, 0)
+    # row b ends after (4 - b % 4) / 4 of its steps: whole chunks idle
+    t = torch.arange(Smax).repeat_interleave(32)[None, :]
+    ends = (4 - torch.arange(B)[:, None] % 4) * Smax // 4
+    fc = torch.where(t < ends, fc.view(B, -1), 0).reshape(-1)
+    store = torch.zeros(n + 4, dtype=torch.int32)
+    store[off:off + n] = fc
+    view = store.to(cuda)[off:off + n].view(B, Smax * 32)
+    assert view.data_ptr() % 16 == 4 * off
+    _same(E.encode_core(view, Smax), E.encode_core_plain(view, Smax))
+
+
 KERNEL_1 = {"monotone_compact_u8", "monotone_compact_i32",
             "compaction_shifts", "monotone_expand_u8", "monotone_expand_i32"}
 KERNELS_OF = {
