@@ -12,10 +12,11 @@
    one-call PyTorch yardstick where one exists (timed as the kernel),
    and its bound (bytes over 3.35 TB/s or integer operations
    over 67 Tops/s, whichever is larger).  Then does the same for kernel
-   1's five entries, o1_fc, rans_encode, o1_decode (both drans phases)
-   and o0_decode on one read of L = 262144 (the one-row shape) and for
-   the drans decode's phase-grid merge (expand_u8 at [B*K, Smax] =
-   [8192, 2048]), on log lines of their own.
+   1's five entries, o1_fc, rans_encode, o1_decode (both drans phases),
+   o0_decode, svb16_encode, svb16_decode and n4_decode on one read of
+   L = 262144 (the one-row shape; each plain version runs once there)
+   and for the drans decode's phase-grid merge (expand_u8 at [B*K,
+   Smax] = [8192, 2048]), on log lines of their own.
 3. Presses and depresses ~1,028 reads (1,024 synthetic reads with
    log-uniform lengths in [4,000, 250,000] samples plus edge reads, two
    of which overflow the exception cap) through
@@ -223,23 +224,14 @@ def kernel_cases(seed: int):
     from honours_tpu_torch.engine import permute_cuda as P
     from honours_tpu_torch.engine import rans_n4_cuda as N4
     from honours_tpu_torch.engine import svb16_cuda as SV
-    from honours_tpu_torch.engine.bits import read_u32le
-    from honours_tpu_torch.engine.entropy_o1 import _rd_states
-    from honours_tpu_torch.engine.pipeline import (
-        canned_o1_device_tables,
-        canned_o1n_device_tables,
-        press_srans3_batch,
-    )
-    from honours_tpu_torch.engine.vbbe21 import vbbe21_parse_batch, wrap_i32
+    from honours_tpu_torch.engine.pipeline import canned_o1_device_tables
     from honours_tpu_torch.kernels.rans import K_SHARED as K
 
     sig, n = make_bucket(seed)
     B, L = sig.shape
-    emax = max(64, L // 16)
     Smax = L // K
     dev = sig.device
     tabs = canned_o1_device_tables(dev)
-    n64 = n.to(torch.int64)
     perm_cases, g = permute_fc_cases(sig, n, tabs)
     sym, ctx = g["sym"], g["ctx"]
     walks, w = walk_cases(sig, n, g, tabs)
@@ -257,38 +249,11 @@ def kernel_cases(seed: int):
              lambda: P.expand_plain(r2, m_shift, m_valid, Smax),
              expand_bytes(r2, m_shift, m_valid, Smax), 2 * B * K * Smax, None)
 
-    # svb16 on the raw bucket; srans3's v4 body, parsed for kernel 8
-    svb, svb_len = SV.svb16_encode(sig, n, True)
-    ntabs = canned_o1n_device_tables(dev)
-    nt = (ntabs["cmap"], ntabs["lo_assign"], ntabs["fcH"], ntabs["fcL"])
-    st3, sl3 = press_srans3_batch(sig, n, ntabs, emax)
-    p3 = vbbe21_parse_batch(st3, torch.full_like(n64, 2), n64 - 1, L, emax)
-    off3 = p3["end_off"]
-    args8 = (st3, _rd_states(st3, off3, K),
-             (n64 - 1 - p3["nex"]).to(torch.int32),
-             wrap_i32(read_u32le(st3, off3)).to(torch.int32),
-             (off3 + 4 + 4 * K).to(torch.int32), *nt)
-    body3 = int((sl3 - off3 - 4 - 4 * K).sum())
-
-    BL = B * L
-    nsum = int(n64.sum())
-    cases = perm_cases + walks + [
-        # samples < n read (2 B), the whole stream row written
-        ("svb16_encode", lambda: SV.svb16_encode(sig, n, True),
-         lambda: SV.svb16_encode_plain(sig, n, True),
-         2 * nsum + svb.numel() + 8 * B, 12 * nsum, None),
-        # each row's stream up to its length read, [B, L] int16 written
-        ("svb16_decode", lambda: SV.svb16_decode(svb, n, L, True),
-         lambda: SV.svb16_decode_plain(svb, n, L, True),
-         int(svb_len.sum()) + 2 * BL + 4 * B, 16 * nsum, None),
+    svb_n4, nt = svb_n4_cases(sig, n)
+    cases = perm_cases + walks + svb_n4 + [
         ("o1n_fc", lambda: N4.o1n_fc(sym, ctx, *nt),
          lambda: N4.o1n_fc_plain(sym, ctx, *nt),
          16 * sym.numel(), 8 * sym.numel(), None),
-        # the v4 bodies consumed, states in, the lane grid out
-        ("n4_decode", lambda: N4.n4_decode(*args8, Smax),
-         lambda: N4.n4_decode_plain(*args8, Smax),
-         body3 + 4 * B * K + 12 * B + B * K * Smax,
-         60 * B * K * Smax, None),
     ]
     svb_raw, _ = SV.svb16_encode(sig, n, False)
     untimed = [
@@ -299,6 +264,57 @@ def kernel_cases(seed: int):
     ]
     shapes = (f"[{B}, {L}]", f"[{B * K}, {Smax}] (drans phase-grid merge)")
     return cases, untimed, merge, shapes
+
+
+def svb_n4_cases(sig, n):
+    """(name, kernel call, plain call, bytes, ops, library call) of svb16
+    encode and decode (zd) on the raw bucket [B, L], and of kernel 8 on
+    srans3's v4 bodies of it, parsed as the srans3 decode parses them;
+    and the canned nibble tables."""
+    from honours_tpu_torch.engine import rans_n4_cuda as N4
+    from honours_tpu_torch.engine import svb16_cuda as SV
+    from honours_tpu_torch.engine.bits import read_u32le
+    from honours_tpu_torch.engine.entropy_o1 import _rd_states
+    from honours_tpu_torch.engine.pipeline import (
+        canned_o1n_device_tables,
+        press_srans3_batch,
+    )
+    from honours_tpu_torch.engine.vbbe21 import vbbe21_parse_batch, wrap_i32
+    from honours_tpu_torch.kernels.rans import K_SHARED as K
+
+    B, L = sig.shape
+    emax = max(64, L // 16)
+    Smax = L // K
+    n64 = n.to(torch.int64)
+    svb, svb_len = SV.svb16_encode(sig, n, True)
+    ntabs = canned_o1n_device_tables(sig.device)
+    nt = (ntabs["cmap"], ntabs["lo_assign"], ntabs["fcH"], ntabs["fcL"])
+    st3, sl3 = press_srans3_batch(sig, n, ntabs, emax)
+    p3 = vbbe21_parse_batch(st3, torch.full_like(n64, 2), n64 - 1, L, emax)
+    off3 = p3["end_off"]
+    dlen3 = (n64 - 1 - p3["nex"]).to(torch.int32)
+    args8 = (st3, _rd_states(st3, off3, K), dlen3,
+             wrap_i32(read_u32le(st3, off3)).to(torch.int32),
+             (off3 + 4 + 4 * K).to(torch.int32), *nt)
+    body3 = int((sl3 - off3 - 4 - 4 * K).sum())
+    nsum = int(n64.sum())
+    cases = [
+        # samples < n read (2 B), the whole stream row written
+        ("svb16_encode", lambda: SV.svb16_encode(sig, n, True),
+         lambda: SV.svb16_encode_plain(sig, n, True),
+         2 * nsum + svb.numel() + 8 * B, 12 * nsum, None),
+        # each row's stream up to its length read, [B, L] int16 written
+        ("svb16_decode", lambda: SV.svb16_decode(svb, n, L, True),
+         lambda: SV.svb16_decode_plain(svb, n, L, True),
+         int(svb_len.sum()) + 2 * B * L + 4 * B, 16 * nsum, None),
+        # the v4 bodies consumed, states in, the lane grid out; operations
+        # of the lane-steps that code a byte (two nibble steps each)
+        ("n4_decode", lambda: N4.n4_decode(*args8, Smax),
+         lambda: N4.n4_decode_plain(*args8, Smax),
+         body3 + 4 * B * K + 12 * B + B * K * Smax,
+         60 * int(dlen3.sum()), None),
+    ]
+    return cases, nt
 
 
 def compact_bytes(keep, read: int, write: int) -> int:
@@ -486,7 +502,8 @@ def check_kernels(seed: int) -> dict:
         if err != 0:
             raise AssertionError(f"{name}: kernel differs from its plain "
                                  f"version (max abs err {err})")
-        log(f"kernel {name}: equal to plain (max abs err {err})")
+        log(f"kernel {name} {bucket}: equal to plain (max abs err {err}); "
+            f"{graph_ms(kern, 20):.4f} ms on the card")
     results = {}
     for case in cases:
         results[case[0]] = r = time_case(*case)
@@ -496,7 +513,8 @@ def check_kernels(seed: int) -> dict:
     sig, n = make_bucket(seed, B=1, L=1 << 18)
     tabs = canned_o1_device_tables(sig.device)
     one_row, g = permute_fc_cases(sig, n, tabs)
-    for case in one_row + walk_cases(sig, n, g, tabs)[0]:
+    for case in (one_row + walk_cases(sig, n, g, tabs)[0]
+                 + svb_n4_cases(sig, n)[0]):
         log_case(f"[1, {sig.shape[1]}]", time_case(*case))
     log_case(merged, time_case(*merge))
     return results

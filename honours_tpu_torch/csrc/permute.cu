@@ -67,33 +67,6 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr unsigned long long AGG = 1ull << 32, INCL = 2ull << 32;
 constexpr int NO_PAIR = 0x7fffffff;  // no column of a row < 2^31 - 16
 
-__device__ __forceinline__ unsigned long long ld_status(
-    const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p));
-  return v;
-}
-
-__device__ __forceinline__ void st_status(unsigned long long* p,
-                                          unsigned long long v) {
-  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
-               : "memory");
-}
-
-// The tile of this block, counted in launch order.  A row of one tile
-// waits on no other, so it takes blockIdx and needs no scratch; wider
-// rows take an atomic ticket, so that the tiles a block waits on were
-// handed out earlier and already hold an SM.
-__device__ __forceinline__ long long take_ticket(unsigned long long* status,
-                                                 long long tiles) {
-  __shared__ long long s_ticket;
-  if (tiles == 1) return blockIdx.x;
-  if (threadIdx.x == 0)
-    s_ticket = static_cast<long long>(atomicAdd(status + gridDim.x, 1ull));
-  __syncthreads();
-  return s_ticket;
-}
-
 // Tile-local exclusive scan of one count per thread; returns the
 // thread's offset and sets `total`.  Two barriers.
 __device__ __forceinline__ int block_scan(int c, int& total) {
@@ -191,7 +164,7 @@ compact_kernel(const T* __restrict__ v, const uint8_t* __restrict__ keep,
   constexpr int VEC = 16 / sizeof(T);
   __shared__ __align__(16) T s_run[TILE + VEC];
   __shared__ long long s_prefix;
-  const long long g = take_ticket(status, tiles);
+  const long long g = htt_take_ticket(status, tiles);
   const long long row = g / tiles, t = g % tiles;
   const long long j0 = t * TILE + static_cast<long long>(threadIdx.x) * EPT;
   const long long left = N - j0;
@@ -207,12 +180,12 @@ compact_kernel(const T* __restrict__ v, const uint8_t* __restrict__ keep,
     const int lane = threadIdx.x;
     long long excl = 0;
     if (t > 0) {
-      if (lane == 0) st_status(st + t, AGG | static_cast<unsigned>(c_tile));
+      if (lane == 0) htt_st_status(st + t, AGG | static_cast<unsigned>(c_tile));
       for (long long jb = t - 1;; jb -= 32) {
         const long long idx = jb - lane;
         unsigned long long s = INCL;
         if (idx >= 0) {
-          do { s = ld_status(st + idx); } while ((s >> 32) == 0);
+          do { s = htt_ld_status(st + idx); } while ((s >> 32) == 0);
         }
         const unsigned incl = __ballot_sync(FULL, (s >> 32) == 2);
         const int stop = incl ? __ffs(incl) - 1 : 31;
@@ -224,7 +197,7 @@ compact_kernel(const T* __restrict__ v, const uint8_t* __restrict__ keep,
       }
     }
     if (lane == 0) {
-      st_status(st + t, INCL | static_cast<unsigned>(excl + c_tile));
+      htt_st_status(st + t, INCL | static_cast<unsigned>(excl + c_tile));
       s_prefix = excl;
     }
   }
@@ -278,7 +251,7 @@ expand_kernel(const T* __restrict__ v, const int* __restrict__ shift,
   __shared__ int s_base[NW];
   __shared__ long long s_next;
   const int G = TPB / rpb, grp = threadIdx.x / G, gt = threadIdx.x % G;
-  const long long g = take_ticket(status, tiles);
+  const long long g = htt_take_ticket(status, tiles);
   const long long row = tiles == 1 ? g * rpb + grp : g / tiles;
   const long long t = tiles - 1 - g % tiles;
   const long long j0 = t * per + static_cast<long long>(gt) * EPT;
@@ -323,12 +296,12 @@ expand_kernel(const T* __restrict__ v, const int* __restrict__ shift,
     long long next = W;
     if (t < tiles - 1) {
       if (lane == 0)
-        st_status(st + t, (first < W ? INCL : AGG) | static_cast<unsigned>(first));
+        htt_st_status(st + t, (first < W ? INCL : AGG) | static_cast<unsigned>(first));
       for (long long jb = t + 1;; jb += 32) {
         const long long idx = jb + lane;
         unsigned long long s = INCL | static_cast<unsigned>(W);
         if (idx < tiles) {
-          do { s = ld_status(st + idx); } while ((s >> 32) == 0);
+          do { s = htt_ld_status(st + idx); } while ((s >> 32) == 0);
         }
         const long long later = static_cast<long long>(s & FULL);
         const unsigned done = __ballot_sync(FULL, (s >> 32) == 2 || later < W);
@@ -342,7 +315,7 @@ expand_kernel(const T* __restrict__ v, const int* __restrict__ shift,
       }
     }
     if (lane == 0) {
-      st_status(st + t, INCL | static_cast<unsigned>(min(first, next)));
+      htt_st_status(st + t, INCL | static_cast<unsigned>(min(first, next)));
       s_next = next;
     }
   }

@@ -59,7 +59,8 @@
 //   end lines byte by byte), so a stream walked with the wrong table or
 //   cut short runs on to garbage without a fault or a per-byte check.
 //   The walk keeps the pointer as 32-bit ring coordinates and returns the
-//   absolute pointer.
+//   absolute pointer.  The window and the refill (htt_walk in common.cuh)
+//   are kernel 8's too.
 // - Output.  Order 1: each lane packs 16 steps' symbols in registers and
 //   stores them as one 16-byte line of its grid row (byte stores when
 //   the row is not 16-byte aligned, and for the last steps).  Order 0:
@@ -75,7 +76,6 @@ namespace {
 constexpr int FC_T = 1024;
 constexpr int K = 32;
 constexpr int MAX_CL = 64;
-constexpr unsigned RANS_L = 1u << 23;
 constexpr int CTX0 = 256;
 constexpr int FC_CMAP = 260;  // cmap words, padded so the table is 16-byte aligned
 constexpr int FC_SMEM_MAX = (FC_CMAP + MAX_CL * 256) * sizeof(int);
@@ -148,10 +148,12 @@ o1_fc_kernel(const int* __restrict__ sym, const int* __restrict__ ctx,
 // kernels 4 and 4b: the decode walks
 // ---------------------------------------------------------------------------
 
-constexpr unsigned FULL = 0xffffffffu;
-constexpr int RING = 2048;     // stream bytes a read keeps in shared memory
-constexpr int SEG = 512;       // a ring segment: 16 bytes a lane
-constexpr int SEG_SHIFT = 9;
+using htt_walk::FULL;
+using htt_walk::RING;
+using htt_walk::Window;
+using htt_walk::put_bytes;
+using htt_walk::refill;
+using htt_walk::ring_of;
 constexpr int NZW = 260;       // packed words a cluster row (<= 256 + pad)
 constexpr int PAIRS = 2048;    // order 1: slot pairs a cluster
 constexpr int O0_WORDS = 4096; // order 0: a packed word per slot
@@ -233,95 +235,6 @@ o0_prep_kernel(const int* __restrict__ cum, unsigned* __restrict__ words) {
   words[slot] = pack_word(s_cum[s], s_cum[s + 1], s);
 }
 
-// A read's window of the stream.  Ring coordinate a = p + delta holds row
-// byte p (delta = the row's offset in its 16-byte line) at ring + a % RING
-// (ring: a RING-aligned shared address), and bytes outside the row read as
-// 0.  Segments seg, seg+1 are resident, seg+2 and seg+3 in flight.  The
-// walk keeps pa = a mod 2^32 of its pointer; pa reaching edge (the start
-// of seg+1) moves the window on.
-struct Window {
-  const uint8_t* row;
-  long long delta, Mb, seg;
-  unsigned ring, pa, edge;
-  int k;
-
-  // lane k's 16 bytes of segment q: copied when inside the row, zeros
-  // when outside it, byte by byte at the row's two ends
-  __device__ __forceinline__ void fill(long long q) {
-    const long long lo = q * SEG + 16 * k - delta;  // row byte at the line start
-    const unsigned dst = ring | static_cast<unsigned>((q * SEG + 16 * k) & (RING - 1));
-    if (lo >= 0 && lo + 16 <= Mb) {
-      htt_cp_async16(dst, row + lo);
-    } else if (lo + 16 <= 0 || lo >= Mb) {
-      htt_sts_zero16(dst);
-    } else {
-      for (int j = 0; j < 16; ++j)
-        htt_sts_u8(dst + j, lo + j >= 0 && lo + j < Mb ? row[lo + j] : 0);
-    }
-    htt_cp_commit();
-  }
-
-  __device__ __forceinline__ void start(const uint8_t* row_, long long Mb_,
-                                        unsigned ring_, long long ptr,
-                                        int lane) {
-    row = row_;
-    delta = reinterpret_cast<uintptr_t>(row_) & 15;
-    ring = ring_;
-    Mb = Mb_;
-    k = lane;
-    seg = (ptr + delta) >> SEG_SHIFT;
-    pa = static_cast<unsigned>(ptr + delta);
-    edge = static_cast<unsigned>((seg + 1) * SEG);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) fill(seg + q);
-    htt_cp_wait<2>();
-    __syncwarp();
-  }
-
-  __device__ __forceinline__ unsigned byte(unsigned off) const {
-    return htt_lds_u8(ring | ((pa + off) & (RING - 1)));
-  }
-
-  // after the pointer moved (by at most 64 bytes): on entering a new
-  // segment, fetch the one three ahead into the slot just left
-  __device__ __forceinline__ void advance(unsigned n) {
-    pa += n;
-    if (static_cast<int>(pa - edge) >= 0) {
-      ++seg;
-      edge += SEG;
-      __syncwarp();
-      fill(seg + 3);
-      htt_cp_wait<2>();
-      __syncwarp();
-    }
-  }
-};
-
-// the RING-aligned shared address of warp w's ring, past `used` bytes of
-// the block's dynamic shared memory (which has RING bytes to spare)
-__device__ __forceinline__ unsigned ring_of(const uint8_t* sm, long long used,
-                                            int w) {
-  const unsigned a = htt_shared_addr(sm) + static_cast<unsigned>(used);
-  return ((a + RING - 1) & ~static_cast<unsigned>(RING - 1)) + w * RING;
-}
-
-// Both refill rounds of one step: a lane below RANS_L takes a byte in lane
-// order, and one that was below 2^15 (so still below RANS_L after it) a
-// second one after every first.
-__device__ __forceinline__ unsigned refill(unsigned x, bool active,
-                                           Window& win, unsigned lt) {
-  const bool n1 = active && x < RANS_L;
-  const bool n2 = active && x < (RANS_L >> 8);
-  const unsigned m1 = __ballot_sync(FULL, n1);
-  const unsigned m2 = __ballot_sync(FULL, n2);
-  const unsigned c1 = __popc(m1);
-  const unsigned b1 = win.byte(__popc(m1 & lt));
-  const unsigned b2 = win.byte(c1 + __popc(m2 & lt));
-  x = n2 ? (x << 16) | (b1 << 8) | b2 : n1 ? (x << 8) | b1 : x;
-  win.advance(c1 + __popc(m2));
-  return x;
-}
-
 __device__ __forceinline__ unsigned decode_state(unsigned x, unsigned w) {
   const unsigned c = w & 4095u;
   return (((w >> 12) & 4095u) + 1u - c) * (x >> 12) + (x & 4095u) - c;
@@ -353,15 +266,8 @@ __device__ __forceinline__ unsigned o1_step(unsigned& x, uint2& base,
   base.x = active ? next.x : base.x;
   base.y = active ? next.y : base.y;
   x = refill(x, active, win, lt);
+  win.keep_up();
   return sym;
-}
-
-// bytes v (one each) into g[0, n)
-__device__ __forceinline__ void put_bytes(uint8_t* g, const unsigned* v,
-                                          int n) {
-#pragma unroll
-  for (int j = 0; j < n; ++j)
-    g[j] = static_cast<uint8_t>(v[j >> 2] >> (8 * (j & 3)));
 }
 
 __global__ void __launch_bounds__(K * MAX_RPB)
@@ -420,17 +326,8 @@ o1_decode_kernel(const uint8_t* __restrict__ stream, long long Mb,
   for (; i < iend; ++i)
     g[i] = static_cast<uint8_t>(o1_step(x, base, i < n_act, s_bases, win, lt));
   if (i < T) {  // every lane is past its last active step: its symbol stays
-    // (16-byte stores: a warp's byte stores hit 32 rows, 32 sectors each)
     unsigned xd;
-    const unsigned sym = o1_lookup(base, x, &xd) >> 24;
-    const int head = min(T - i, static_cast<int>(
-        (16 - (reinterpret_cast<uintptr_t>(g + i) & 15)) & 15));
-    for (int j = 0; j < head; ++j) g[i + j] = static_cast<uint8_t>(sym);
-    i += head;
-    const unsigned s4 = sym * 0x01010101u;
-    for (; i + 16 <= T; i += 16)
-      *reinterpret_cast<uint4*>(g + i) = make_uint4(s4, s4, s4, s4);
-    for (; i < T; ++i) g[i] = static_cast<uint8_t>(sym);
+    htt_walk::fill_tail(g, i, T, o1_lookup(base, x, &xd) >> 24);
   }
   htt_cp_wait<0>();
   states_out[b * K + k] = x;
@@ -472,6 +369,7 @@ o0_decode_kernel(const uint8_t* __restrict__ stream, long long Mb,
     if (t < n_out) *op = active ? static_cast<uint8_t>(wd >> 24) : 0;
     x = active ? decode_state(x, wd) : x;
     x = refill(x, active, win, lt);
+    win.keep_up();
   }
   for (long long idx = static_cast<long long>(tend) * K + k; idx < N; idx += K)
     o[idx] = 0;

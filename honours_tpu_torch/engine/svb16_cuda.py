@@ -11,6 +11,11 @@ sample deltas (zd) or the raw uint16 sample.  Encode output is
 [B, L/8 + 2L] u8, zero past each row's length, beside the lengths
 [B] int32; decode gives [B, L] int16, zero past n.  Stream bytes outside
 a row read as 0.
+
+The decode kernel cuts every row into tiles of DECODE_TILE samples
+(`decode_tiles`) and chains a row's tiles through a zeroed scratch of one
+64-bit state per tile plus a ticket counter (`decode_scratch_words`);
+rows of one tile take none.
 """
 
 from __future__ import annotations
@@ -22,7 +27,25 @@ from honours_tpu_torch._build import check, is_cpu, kernel, stream_ptr
 from honours_tpu_torch.transforms.core import unzigdelta, zigdelta
 
 _ENCODE = kernel("svb16_encode", "svb16.cu", "htt_svb16_encode", "ppllllppp")
-_DECODE = kernel("svb16_decode", "svb16.cu", "htt_svb16_decode", "pllpllpp")
+_DECODE = kernel("svb16_decode", "svb16.cu", "htt_svb16_decode",
+                 "pllpllplpp")
+
+#: samples a decode tile takes (svb16.cu's DTILE = DT threads x DEPT)
+DECODE_TILE = 2048
+
+
+def decode_tiles(L: int) -> int:
+    """Tiles of a decode row of width L (none for L = 0)."""
+    return -(-L // DECODE_TILE)
+
+
+def decode_scratch_words(B: int, L: int) -> int:
+    """int64 words of a decode launch's look-back scratch: a state per
+    tile and the ticket counter, or 0 when each row is one tile."""
+    tiles = decode_tiles(L)
+    if B * tiles >= 1 << 31:
+        raise ValueError(f"{B} rows of {tiles} tiles: more than 2^31 tiles")
+    return B * tiles + 1 if tiles > 1 else 0
 
 
 def stream_width(L: int) -> int:
@@ -115,8 +138,13 @@ def svb16_decode(stream, n, L: int, zd: bool = True):
     B, M = stream.shape
     check(stream, "stream", (torch.uint8,))
     check(n, "n", (torch.int32,), (B,))
-    out = torch.empty((B, L), dtype=torch.int16, device=stream.device)
-    if B:
+    dev = stream.device
+    out = torch.empty((B, L), dtype=torch.int16, device=dev)
+    words = decode_scratch_words(B, L)
+    if B and L:
+        status = (torch.zeros((words,), dtype=torch.int64, device=dev)
+                  if words else None)
         _DECODE(stream.data_ptr(), B, M, n.data_ptr(), L, int(zd),
-                out.data_ptr(), stream_ptr(stream.device))
+                out.data_ptr(), decode_tiles(L),
+                0 if status is None else status.data_ptr(), stream_ptr(dev))
     return out

@@ -89,10 +89,15 @@ def test_synthesize_bucket_shape():
     ("rans_o1.cu", "MAX_RPB", rans_o1_cuda.MAX_RPB),
     ("rans_encode.cu", "MAX_RPB", rans_o1_cuda.MAX_RPB),
     ("rans_encode.cu", "RCP_WORDS", rans_encode_cuda.RCP_WORDS),
+    ("rans_n4.cu", "ROWB", rans_n4_cuda.ROWB),
+    ("rans_n4.cu", "NEXT", rans_n4_cuda.NEXT),
+    ("rans_n4.cu", "MAX_RPB", rans_o1_cuda.MAX_RPB),
+    ("svb16.cu", "DTILE", svb16_cuda.DECODE_TILE),
 ])
 def test_walk_constants_match_sources(source, name, value):
-    """The walks' table sizes and reads per block, which the wrappers use
-    to size scratch and launches, are the CUDA sources'."""
+    """The walks' table sizes and reads per block, and the svb16 decode's
+    tile, which the wrappers use to size scratch and launches, are the
+    CUDA sources'."""
     text = (_build.CSRC / source).read_text()
     m = re.search(r"constexpr int " + name + r" = ([^;]+);", text)
     assert m, f"{name} not in {source}"

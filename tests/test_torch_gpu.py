@@ -407,6 +407,138 @@ def test_o0_decode_kernel_edges(cuda, case):
     _same(O.o0_decode(*wrong), O.o0_decode_plain(*wrong))
 
 
+def _nibble_tables(kind, dev):
+    """Nibble device tables: "canned"; "one" (r = rL = 1); "spiked" (L
+    rows with cells of 1); "r64" (64 random rows, rL = 64)."""
+    from honours_tpu_torch.engine.entropy_o1n import make_o1n_tables
+    from honours_tpu_torch.engine.pipeline import canned_o1n_device_tables
+    from honours_tpu_torch.kernels.rans import normalize_freqs
+    from honours_tpu_torch.tables.o1n import build_nibble_tables
+
+    if kind == "canned":
+        return canned_o1n_device_tables(dev)
+    rng = np.random.default_rng(8)
+    if kind == "one":
+        row = normalize_freqs(rng.integers(1, 1000, 256))
+        return make_o1n_tables(
+            build_nibble_tables(np.tile(row, (257, 1)), r_lo=1), dev)
+    if kind == "spiked":
+        rows = [normalize_freqs(np.ones(256) + (np.arange(256) == 37 * i + 5)
+                                * 1e6) for i in range(8)]
+    else:
+        rows = [normalize_freqs(rng.integers(1, 1000, 256) ** 3 % 5000 + 1)
+                for _ in range(64)]
+    freqs = np.stack([rows[c % len(rows)] for c in range(257)])
+    return make_o1n_tables(build_nibble_tables(freqs), dev)
+
+
+def _n4_bodies(tabs, N, dlen, pad, width_pad, seed):
+    """v4 bodies of random bytes under `tabs`, each row shifted right by
+    `pad` bytes and the stream widened by `width_pad`: (kernel 8's
+    arguments but T, S_b, data)."""
+    from honours_tpu_torch.engine.bits import read_u32le, rowwise_concat
+    from honours_tpu_torch.engine.entropy_o1 import _rd_states
+    from honours_tpu_torch.engine.entropy_o1n import rans_o1n_encode_batch
+    from honours_tpu_torch.engine.vbbe21 import wrap_i32
+
+    dev = tabs["fcH"].device
+    B = dlen.numel()
+    g = torch.Generator().manual_seed(seed)
+    data = torch.randint(0, 256, (B, N), generator=g, dtype=torch.uint8)
+    data = torch.where(torch.arange(N)[None, :] < dlen[:, None], data, 0)
+    segs, planew = rans_o1n_encode_batch(data.to(dev), dlen.to(dev), tabs)
+    st, _ = rowwise_concat(segs, 4 + 4 * 32 + planew)
+    st = torch.nn.functional.pad(st, (pad, width_pad)).contiguous()
+    off = torch.full((B,), pad, dtype=torch.int64, device=dev)
+    S_b = wrap_i32(read_u32le(st, off)).to(torch.int32)
+    args = (st, _rd_states(st, off, 32), dlen.to(dev), S_b,
+            (off + 4 + 4 * 32).to(torch.int32), tabs["cmap"],
+            tabs["lo_assign"], tabs["fcH"], tabs["fcL"])
+    return args, S_b, data
+
+
+N4_CASES = {  # table, N, dlen, pad, width_pad
+    "canned": ("canned", 1000, RAGGED, 3, 5),
+    "one_cluster": ("one", 1000, RAGGED, 0, 0),
+    "spiked": ("spiked", 1000, RAGGED, 1, 2),
+    "r64": ("r64", 1000, RAGGED, 5, 1),
+    "long_bodies": ("canned", 48_000, [48_000, 47_999, 20_000, 31], 1, 3),
+    "one_read": ("canned", 8192 * 32, [8192 * 32 - 5], 0, 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(N4_CASES))
+def test_n4_decode_kernel_edges(cuda, case):
+    """Kernel 8 against its plain version: odd body offsets and row
+    widths, dlen 0, 1 and 31, r = 1, spiked (L cells of 1) and random
+    r = 64 tables, bodies many times the window, one read of 8192 byte
+    steps; the lane grid gives the bytes back; then a truncated stream
+    and the wrong table, which decode to garbage without a fault."""
+    from honours_tpu_torch.engine import rans_n4_cuda as R
+    from honours_tpu_torch.engine.entropy_o1 import _ungrid
+
+    kind, N, dl, pad, wpad = N4_CASES[case]
+    tabs = _nibble_tables(kind, cuda)
+    dlen = torch.tensor(dl, dtype=torch.int32)
+    args, S_b, data = _n4_bodies(tabs, N, dlen, pad, wpad, len(case))
+    Smax = -(-N // 32)
+    grid = R.n4_decode(*args, Smax)
+    _same(grid, R.n4_decode_plain(*args, Smax))
+    back = _ungrid(grid, S_b, args[2], 32, Smax, N)
+    assert torch.equal(back.cpu(), data)
+    if case == "one_read":
+        return
+    cut = (args[0][:, :200].contiguous(), *args[1:])
+    _same(R.n4_decode(*cut, Smax), R.n4_decode_plain(*cut, Smax))
+    other = _nibble_tables("one" if kind != "one" else "canned", cuda)
+    wrong = (*args[:5], other["cmap"], other["lo_assign"], other["fcH"],
+             other["fcL"])
+    _same(R.n4_decode(*wrong, Smax), R.n4_decode_plain(*wrong, Smax))
+
+
+SVB_TILE = 2048  # svb16_cuda.DECODE_TILE (held to svb16.cu on the CPU)
+
+
+@pytest.mark.parametrize("zd", [True, False])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("n", [SVB_TILE - 1, SVB_TILE, SVB_TILE + 1,
+                               (1 << 21) + 5])
+def test_svb16_decode_kernel_tiles(cuda, zd, B, n):
+    """Kernel 6 at its tile edges and over 2^21 + 5 samples (1025 tiles),
+    with a row of nanopore-like samples, one where every field takes two
+    bytes and one where none does, each a tile of zeros past n; then a
+    truncated stream and a stream view at an odd address."""
+    from honours_tpu_torch.engine import svb16_cuda as S
+
+    assert S.DECODE_TILE == SVB_TILE
+    L = -(-n // 8) * 8 + 16
+    rng = np.random.default_rng(n + B)
+    sig = np.zeros((B, L), np.int16)
+    big = np.where(rng.random(n) < 0.5, 1, -1) * rng.integers(300, 30000, n)
+    rows = [rng.integers(400, 700, n),
+            np.cumsum(big) if zd else rng.integers(256, 65536, n),
+            rng.integers(0, 100 if zd else 256, n)]
+    for i in range(B):
+        sig[i, :n] = rows[i].astype(np.uint16).view(np.int16)
+    sig = torch.from_numpy(sig).to(cuda)
+    nn = torch.full((B,), n, dtype=torch.int32, device=cuda)
+    st, ln = S.svb16_encode(sig, nn, zd)
+    _same((st, ln), S.svb16_encode_plain(sig, nn, zd))
+    if B == 3:
+        assert int(ln[1]) == -(-n // 8) + 2 * n and int(ln[2]) == -(-n // 8) + n
+    out = S.svb16_decode(st, nn, L, zd)
+    _same(out, S.svb16_decode_plain(st, nn, L, zd))
+    assert torch.equal(out, sig)
+    cut = st[:, :int(ln.min()) // 2].contiguous()
+    _same(S.svb16_decode(cut, nn, L, zd), S.svb16_decode_plain(cut, nn, L, zd))
+    W = st.shape[1]
+    buf = torch.zeros(B * W + 3, dtype=torch.uint8, device=cuda)
+    view = buf[3:].view(B, W)
+    view.copy_(st)
+    assert view.data_ptr() % 16 != 0
+    _same(S.svb16_decode(view, nn, L, zd), out)
+
+
 ENCODE_CASES = {  # B, Smax, fc offset in elements, kind
     "aligned": (8, 96, 0, "table"),
     "offset_4": (3, 70, 1, "table"),

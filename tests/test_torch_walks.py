@@ -1,15 +1,18 @@
-"""The arithmetic and tables of the rANS walks' kernels (kernels 3, 4
-and 4b), checked on the CPU against their definitions (tolerance 0):
-the encode walk's division by a reciprocal, the decode walks' lookup
-tables against a search of the CDF for every slot, and the walks'
-reads per block."""
+"""The arithmetic and tables of the rANS walks' kernels (kernels 3, 4,
+4b and 8) and kernel 6's tiling, checked on the CPU against their
+definitions (tolerance 0): the encode walk's division by a reciprocal,
+the decode walks' lookup tables and the nibble walk's count against a
+search of the CDF for every slot, the walks' reads per block, and the
+svb16 decode's tiles and look-back scratch."""
 
 import numpy as np
 import pytest
 import torch
 
 from honours_tpu_torch.engine import rans_encode_cuda as E
+from honours_tpu_torch.engine import rans_n4_cuda as N4
 from honours_tpu_torch.engine import rans_o1_cuda as O
+from honours_tpu_torch.engine import svb16_cuda as SV
 from honours_tpu_torch.kernels.rans import M
 
 F_BLOCKS = 8  # f in [1, M] split into cases of M / F_BLOCKS
@@ -129,3 +132,108 @@ def test_walk_reads_per_block(B, sms, want):
     each SM copies the walk's tables once, and never more than the
     kernels' MAX_RPB."""
     assert O.walk_reads_per_block(B, sms) == want
+
+
+def _nibble_tables(kind):
+    """Nibble tables (tables.o1n.build_nibble_tables): "canned"; "one"
+    (r = rL = 1); "spiked" (8 rows, each one symbol holding nearly all of
+    M, so L rows have cells of 1); "r64" (64 random rows, rL = 64)."""
+    from honours_tpu_torch.engine.entropy_o1n import make_o1n_tables
+    from honours_tpu_torch.kernels.rans import normalize_freqs
+    from honours_tpu_torch.tables.o1n import (
+        build_nibble_tables,
+        canned_nibble_tables,
+    )
+
+    rng = np.random.default_rng(8)
+    if kind == "canned":
+        nib = canned_nibble_tables()
+    elif kind == "one":
+        row = normalize_freqs(rng.integers(1, 1000, 256))
+        nib = build_nibble_tables(np.tile(row, (257, 1)), r_lo=1)
+    elif kind == "spiked":
+        rows = [normalize_freqs(np.ones(256) + (np.arange(256) == 37 * i + 5)
+                                * 1e6) for i in range(8)]
+        nib = build_nibble_tables(np.stack([rows[c % 8] for c in range(257)]))
+    else:
+        rows = [normalize_freqs(rng.integers(1, 1000, 256) ** 3 % 5000 + 1)
+                for _ in range(64)]
+        nib = build_nibble_tables(np.stack([rows[c % 64] for c in range(257)]))
+    return nib, make_o1n_tables(nib, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("kind", ["canned", "one", "spiked", "r64"])
+def test_n4_tables_match_cdf_search(kind):
+    """The nibble walk's tables (the plain version of its prep kernel)
+    give, for every H and L row and every slot, by the kernel's count
+    over packed 13-bit fields, the symbol s with cum[s] <= slot <
+    cum[s + 1] and its (c, f); H words carry the row's lo row, and the
+    next-row table each context's H row."""
+    nib, t = _nibble_tables(kind)
+    H, L = np.asarray(nib["H"]), np.asarray(nib["L"])
+    r, rL = H.shape[0], L.shape[0]
+    if kind == "spiked":
+        assert (L == 1).any()
+    tables = N4.n4_tables_plain(t["cmap"], t["lo_assign"], t["fcH"], t["fcL"])
+    assert tables.shape == (N4.n4_layout_bytes(r, rL),)
+    words = tables.numpy().view("<u4")
+    rows = words[:(r + rL) * N4.ROWB // 4].reshape(r + rL, N4.ROWB // 4)
+    f = np.concatenate([H, L])
+    cum = np.concatenate([np.zeros((r + rL, 1), np.int64),
+                          np.cumsum(f, 1)], 1)
+    slot = np.arange(M)
+    sym = N4.rank16_np(rows[:, None, :8], slot[None, :]).astype(np.int64)
+    want = np.stack([np.searchsorted(c, slot, side="right") - 1 for c in cum])
+    assert np.array_equal(sym, want)
+    w = np.take_along_axis(rows[:, 8:24], sym, 1).astype(np.int64)
+    assert np.array_equal(w & 0xFFF, np.take_along_axis(cum, want, 1))
+    assert np.array_equal(w >> 19, np.take_along_axis(f, want, 1))
+    gl = np.asarray(nib["lo_assign"]).reshape(r, 16)
+    assert np.array_equal((rows[:r, 8:24] >> 12) & 63, gl)
+    assert not ((rows[r:, 8:24] >> 12) & 63).any() and not rows[:, 24:].any()
+    nxt = words[(r + rL) * N4.ROWB // 4:]
+    assert nxt.shape == (N4.NEXT,)
+    assert np.array_equal(nxt[:257], np.asarray(nib["cmap"]) * N4.ROWB)
+    assert not nxt[257:].any()
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_rank16_recipe_matches_search(seed):
+    """The count by packed subtracts on monotone rows of cum[1..15],
+    zero-frequency runs and cum values at 0 and M included (the 16th
+    field 0x1FFF as the kernel stores it): the largest s with
+    cum[s] <= slot, for every slot."""
+    rng = np.random.default_rng(seed)
+    cut = np.sort(rng.integers(0, M + 1, (64, 15)), 1)
+    cut[:8, :] = 0
+    cut[8:16, 7:] = M
+    cut[16:24, 1::2] = cut[16:24, :-1:2]
+    cum = np.concatenate([np.zeros((64, 1), np.int64), cut,
+                          np.full((64, 1), M)], 1)
+    fields = cum[:, 1:].copy()
+    fields[:, 15] = 0x1FFF
+    pairs = (fields[:, 0::2] | (fields[:, 1::2] << 14)).astype(np.uint32)
+    slot = np.arange(M)
+    got = N4.rank16_np(pairs[:, None, :], slot[None, :])
+    want = np.stack([np.searchsorted(c, slot, side="right") - 1 for c in cum])
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("L,tiles", [
+    (0, 0), (8, 1), (SV.DECODE_TILE - 1, 1), (SV.DECODE_TILE, 1),
+    (SV.DECODE_TILE + 1, 2), (65536, 32), (1 << 18, 128),
+    ((1 << 21) + 5, 1025),
+])
+def test_svb16_decode_tiles(L, tiles):
+    """A decode row takes one tile per DECODE_TILE samples; a launch's
+    look-back scratch holds a state per tile and the ticket, and none
+    when rows are one tile."""
+    assert SV.decode_tiles(L) == tiles
+    for B in (1, 3, 256):
+        want = B * tiles + 1 if tiles > 1 else 0
+        assert SV.decode_scratch_words(B, L) == want
+
+
+def test_svb16_decode_scratch_limit():
+    with pytest.raises(ValueError):
+        SV.decode_scratch_words(1 << 20, SV.DECODE_TILE * 2048)
