@@ -11,9 +11,13 @@
    one, which include the wrapper's Python), beside its plain version, a
    one-call PyTorch yardstick where one exists (timed as the kernel),
    and its bound (bytes over 3.35 TB/s or integer operations
-   over 67 Tops/s, whichever is larger).  Then does the same for kernel
-   1's five entries, o1_fc, rans_encode, o1_decode (both drans phases),
-   o0_decode, svb16_encode, svb16_decode and n4_decode on one read of
+   over 67 Tops/s, whichever is larger).  The output the graph's last
+   call left after its replays must equal the plain version too, so a
+   race that shows only under load fails the run.  svb16 encode and
+   decode with zd off are held and timed the same way, on log lines of
+   their own.  Then does the same for kernel 1's five entries, o1_fc,
+   rans_encode, o1_decode (both drans phases), o0_decode, svb16_encode
+   and svb16_decode (zd on and off) and n4_decode on one read of
    L = 262144 (the one-row shape; each plain version runs once there)
    and for the drans decode's phase-grid merge (expand_u8 at [B*K,
    Smax] = [8192, 2048]), on log lines of their own.
@@ -88,9 +92,10 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def graph_ms(fn, reps: int) -> float:
+def graph_ms(fn, reps: int):
     """Device time of one call: `reps` calls captured in a CUDA graph and
-    replayed, so the host's Python between launches is not timed."""
+    replayed, so the host's Python between launches is not timed; and the
+    output the last captured call holds after the replays."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -99,7 +104,7 @@ def graph_ms(fn, reps: int) -> float:
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(reps):
-            fn()
+            out = fn()
     graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -107,7 +112,7 @@ def graph_ms(fn, reps: int) -> float:
     graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps, out
 
 
 def timed_once(fn):
@@ -219,11 +224,10 @@ def walk_cases(sig, n, g, tabs):
 def kernel_cases(seed: int):
     """(name, kernel call, plain call, bytes, ops, library call) at the
     main path's shapes, from one bucket run through the port's stages,
-    and the untimed (name, kernel call, plain call) checks of options the
-    timed cases leave out."""
+    and the same of options those cases leave out (named "kernel
+    option")."""
     from honours_tpu_torch.engine import permute_cuda as P
     from honours_tpu_torch.engine import rans_n4_cuda as N4
-    from honours_tpu_torch.engine import svb16_cuda as SV
     from honours_tpu_torch.engine.pipeline import canned_o1_device_tables
     from honours_tpu_torch.kernels.rans import K_SHARED as K
 
@@ -249,28 +253,22 @@ def kernel_cases(seed: int):
              lambda: P.expand_plain(r2, m_shift, m_valid, Smax),
              expand_bytes(r2, m_shift, m_valid, Smax), 2 * B * K * Smax, None)
 
-    svb_n4, nt = svb_n4_cases(sig, n)
+    svb_n4, options, nt = svb_n4_cases(sig, n)
     cases = perm_cases + walks + svb_n4 + [
         ("o1n_fc", lambda: N4.o1n_fc(sym, ctx, *nt),
          lambda: N4.o1n_fc_plain(sym, ctx, *nt),
          16 * sym.numel(), 8 * sym.numel(), None),
     ]
-    svb_raw, _ = SV.svb16_encode(sig, n, False)
-    untimed = [
-        ("svb16_encode zd=False", lambda: SV.svb16_encode(sig, n, False),
-         lambda: SV.svb16_encode_plain(sig, n, False)),
-        ("svb16_decode zd=False", lambda: SV.svb16_decode(svb_raw, n, L, False),
-         lambda: SV.svb16_decode_plain(svb_raw, n, L, False)),
-    ]
     shapes = (f"[{B}, {L}]", f"[{B * K}, {Smax}] (drans phase-grid merge)")
-    return cases, untimed, merge, shapes
+    return cases, options, merge, shapes
 
 
 def svb_n4_cases(sig, n):
     """(name, kernel call, plain call, bytes, ops, library call) of svb16
     encode and decode (zd) on the raw bucket [B, L], and of kernel 8 on
     srans3's v4 bodies of it, parsed as the srans3 decode parses them;
-    and the canned nibble tables."""
+    the same of svb16 encode and decode with zd off; and the canned
+    nibble tables."""
     from honours_tpu_torch.engine import rans_n4_cuda as N4
     from honours_tpu_torch.engine import svb16_cuda as SV
     from honours_tpu_torch.engine.bits import read_u32le
@@ -287,6 +285,7 @@ def svb_n4_cases(sig, n):
     Smax = L // K
     n64 = n.to(torch.int64)
     svb, svb_len = SV.svb16_encode(sig, n, True)
+    raw, raw_len = SV.svb16_encode(sig, n, False)
     ntabs = canned_o1n_device_tables(sig.device)
     nt = (ntabs["cmap"], ntabs["lo_assign"], ntabs["fcH"], ntabs["fcL"])
     st3, sl3 = press_srans3_batch(sig, n, ntabs, emax)
@@ -314,7 +313,15 @@ def svb_n4_cases(sig, n):
          body3 + 4 * B * K + 12 * B + B * K * Smax,
          60 * int(dlen3.sum()), None),
     ]
-    return cases, nt
+    options = [
+        ("svb16_encode zd=False", lambda: SV.svb16_encode(sig, n, False),
+         lambda: SV.svb16_encode_plain(sig, n, False),
+         2 * nsum + raw.numel() + 8 * B, 4 * nsum, None),
+        ("svb16_decode zd=False", lambda: SV.svb16_decode(raw, n, L, False),
+         lambda: SV.svb16_decode_plain(raw, n, L, False),
+         int(raw_len.sum()) + 2 * B * L + 4 * B, 8 * nsum, None),
+    ]
+    return cases, options, nt
 
 
 def compact_bytes(keep, read: int, write: int) -> int:
@@ -448,32 +455,40 @@ SLOW = ("rans_encode", "o1_decode", "o0_decode", "n4_decode")
 
 
 def time_case(name, kern, plain, nbytes, ops, library) -> dict:
-    """Hold one kernel call against its plain version (tolerance 0) and
-    time it, its plain version and its library yardstick; its bound from
-    the bytes and operations of this call."""
+    """Hold one kernel call against its plain version (tolerance 0), also
+    after the timed graph's replays, and time it, its plain version and
+    its library yardstick; its bound from the bytes and operations of
+    this call.  `name` is the kernel's, or "kernel option"."""
     from honours_tpu_torch._build import KERNELS
 
+    kernel = name.split()[0]
     kern()  # warm-up
     torch.cuda.synchronize()
     got = flatten(kern())
     want, plain_ms = timed_once(plain)
-    err = max_abs_err(got, flatten(want))
+    want = flatten(want)
+    err = max_abs_err(got, want)
     if err != 0:
         raise AssertionError(f"{name}: kernel differs from its plain "
                              f"version (max abs err {err})")
-    reps = 3 if name in SLOW else 20
-    ms = graph_ms(kern, reps)
+    reps = 3 if kernel in SLOW else 20
+    ms, replayed = graph_ms(kern, reps)
+    replay_err = max_abs_err(flatten(replayed), want)
+    if replay_err != 0:
+        raise AssertionError(f"{name}: output after {reps} graph replays "
+                             f"differs from the plain version (max abs err "
+                             f"{replay_err})")
     call_ms = cuda_ms(kern, reps)
     library_ms = None
     if library is not None:
         library()
-        library_ms = graph_ms(library, reps)
+        library_ms = graph_ms(library, reps)[0]
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT_OPS_PER_S * 1e3
     return {
         "name": name, "route": "cuda",
-        "source": "honours_tpu_torch/csrc/" + KERNELS[name].source,
-        "replaces": REPLACES[name], "launches": 0, "max_abs_err": err,
+        "source": "honours_tpu_torch/csrc/" + KERNELS[kernel].source,
+        "replaces": REPLACES[kernel], "launches": 0, "max_abs_err": err,
         "matches_plain": True, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -483,7 +498,8 @@ def time_case(name, kern, plain, nbytes, ops, library) -> dict:
 
 def log_case(shape: str, r: dict) -> None:
     log(f"kernel {r['name']} {shape}: equal to plain (max abs err "
-        f"{r['max_abs_err']}); {r['ms']:.4f} ms on the card "
+        f"{r['max_abs_err']}, also after the replays); {r['ms']:.4f} ms on "
+        "the card "
         f"({r['call_ms']:.4f} ms a call from the host) vs plain "
         f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
         f"({r['bound_by']})"
@@ -496,25 +512,20 @@ def check_kernels(seed: int) -> dict:
     merge; returns the bucket-shape results by kernel."""
     from honours_tpu_torch.engine.pipeline import canned_o1_device_tables
 
-    cases, untimed, merge, (bucket, merged) = kernel_cases(seed)
-    for name, kern, plain in untimed:
-        err = max_abs_err(flatten(kern()), flatten(plain()))
-        if err != 0:
-            raise AssertionError(f"{name}: kernel differs from its plain "
-                                 f"version (max abs err {err})")
-        log(f"kernel {name} {bucket}: equal to plain (max abs err {err}); "
-            f"{graph_ms(kern, 20):.4f} ms on the card")
+    cases, options, merge, (bucket, merged) = kernel_cases(seed)
     results = {}
     for case in cases:
         results[case[0]] = r = time_case(*case)
         log_case(bucket, r)
+    for case in options:
+        log_case(bucket, time_case(*case))
     # B = 1, L = 262144: one read on the runner's one-row path, where one
     # read's chain is a walk's whole launch
     sig, n = make_bucket(seed, B=1, L=1 << 18)
     tabs = canned_o1_device_tables(sig.device)
     one_row, g = permute_fc_cases(sig, n, tabs)
-    for case in (one_row + walk_cases(sig, n, g, tabs)[0]
-                 + svb_n4_cases(sig, n)[0]):
+    svb_n4, options, _ = svb_n4_cases(sig, n)
+    for case in one_row + walk_cases(sig, n, g, tabs)[0] + svb_n4 + options:
         log_case(f"[1, {sig.shape[1]}]", time_case(*case))
     log_case(merged, time_case(*merge))
     return results

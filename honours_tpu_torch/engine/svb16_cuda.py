@@ -12,10 +12,12 @@ sample deltas (zd) or the raw uint16 sample.  Encode output is
 [B] int32; decode gives [B, L] int16, zero past n.  Stream bytes outside
 a row read as 0.
 
-The decode kernel cuts every row into tiles of DECODE_TILE samples
-(`decode_tiles`) and chains a row's tiles through a zeroed scratch of one
-64-bit state per tile plus a ticket counter (`decode_scratch_words`);
-rows of one tile take none.
+Both kernels cut every row into tiles (ENCODE_TILE and DECODE_TILE
+samples; `encode_tiles`, `decode_tiles`) and chain a row's tiles through a
+zeroed scratch of one 64-bit state per tile plus a ticket counter
+(`encode_scratch_words`, `decode_scratch_words`); rows of one tile take
+none.  `encode_tile_ranges` states which tile writes each byte of an
+encoded row, as the encode kernel does.
 """
 
 from __future__ import annotations
@@ -26,12 +28,33 @@ import torch.nn.functional as F
 from honours_tpu_torch._build import check, is_cpu, kernel, stream_ptr
 from honours_tpu_torch.transforms.core import unzigdelta, zigdelta
 
-_ENCODE = kernel("svb16_encode", "svb16.cu", "htt_svb16_encode", "ppllllppp")
+_ENCODE = kernel("svb16_encode", "svb16.cu", "htt_svb16_encode",
+                 "ppllllpplpp")
 _DECODE = kernel("svb16_decode", "svb16.cu", "htt_svb16_decode",
                  "pllpllplpp")
 
+#: samples an encode tile takes (svb16.cu's ETILE = ET threads x EEPT)
+ENCODE_TILE = 2048
 #: samples a decode tile takes (svb16.cu's DTILE = DT threads x DEPT)
 DECODE_TILE = 2048
+
+
+def _scratch_words(B: int, tiles: int) -> int:
+    if B * tiles >= 1 << 31:
+        raise ValueError(f"{B} rows of {tiles} tiles: more than 2^31 tiles")
+    return B * tiles + 1 if tiles > 1 else 0
+
+
+def encode_tiles(L: int) -> int:
+    """Tiles of an encode row of width L: one per ENCODE_TILE samples, and
+    one for L = 0, which writes the row's length."""
+    return max(1, -(-L // ENCODE_TILE))
+
+
+def encode_scratch_words(B: int, L: int) -> int:
+    """int64 words of an encode launch's look-back scratch: a state per
+    tile and the ticket counter, or 0 when each row is one tile."""
+    return _scratch_words(B, encode_tiles(L))
 
 
 def decode_tiles(L: int) -> int:
@@ -42,15 +65,36 @@ def decode_tiles(L: int) -> int:
 def decode_scratch_words(B: int, L: int) -> int:
     """int64 words of a decode launch's look-back scratch: a state per
     tile and the ticket counter, or 0 when each row is one tile."""
-    tiles = decode_tiles(L)
-    if B * tiles >= 1 << 31:
-        raise ValueError(f"{B} rows of {tiles} tiles: more than 2^31 tiles")
-    return B * tiles + 1 if tiles > 1 else 0
+    return _scratch_words(B, decode_tiles(L))
 
 
 def stream_width(L: int) -> int:
     """Columns of an encoded bucket of width L (L % 8 == 0)."""
     return L // 8 + 2 * L
+
+
+def encode_tile_ranges(n: int, L: int, counts) -> list:
+    """The encode kernel's partition of a row of width L with n live
+    samples: for each tile, the byte ranges [lo, hi) it writes, as
+    (lo, hi, kind) with kind "key", "field" or "zero".  counts[t] is the
+    number of two-byte fields among tile t's samples below n."""
+    T = ENCODE_TILE
+    n = min(max(n, 0), L)
+    kl, W = -(-n // 8), stream_width(L)
+    wt = T // 8 + 2 * T  # svb16.cu's EWT
+    tiles, E = [], 0
+    for t in range(encode_tiles(L)):
+        t0, r = t * T, []
+        if t0 < n:
+            nt, c = min(n - t0, T), int(counts[t])
+            r.append((t0 // 8, -(-(t0 + nt) // 8), "key"))
+            r.append((kl + t0 + E, kl + t0 + nt + E + c, "field"))
+            r.append((kl + 2 * n - (t0 + nt - E - c), kl + 2 * n - (t0 - E),
+                      "zero"))
+            E += c
+        r.append((max(kl + 2 * n, t * wt), min(W, (t + 1) * wt), "zero"))
+        tiles.append([x for x in r if x[0] < x[1]])
+    return tiles
 
 
 def _live(n, L: int):
@@ -123,11 +167,16 @@ def svb16_encode(sig, n, zd: bool = True):
     check(sig, "sig", (torch.int16,))
     check(n, "n", (torch.int32,), (B,))
     W = stream_width(L)
-    out = torch.empty((B, W), dtype=torch.uint8, device=sig.device)
-    out_len = torch.empty((B,), dtype=torch.int32, device=sig.device)
+    dev = sig.device
+    out = torch.empty((B, W), dtype=torch.uint8, device=dev)
+    out_len = torch.empty((B,), dtype=torch.int32, device=dev)
+    words = encode_scratch_words(B, L)
     if B:
+        status = (torch.zeros((words,), dtype=torch.int64, device=dev)
+                  if words else None)
         _ENCODE(sig.data_ptr(), n.data_ptr(), B, L, W, int(zd),
-                out.data_ptr(), out_len.data_ptr(), stream_ptr(sig.device))
+                out.data_ptr(), out_len.data_ptr(), encode_tiles(L),
+                0 if status is None else status.data_ptr(), stream_ptr(dev))
     return out, out_len
 
 

@@ -93,12 +93,31 @@ def test_synthesize_bucket_shape():
     ("rans_n4.cu", "NEXT", rans_n4_cuda.NEXT),
     ("rans_n4.cu", "MAX_RPB", rans_o1_cuda.MAX_RPB),
     ("svb16.cu", "DTILE", svb16_cuda.DECODE_TILE),
+    ("svb16.cu", "ETILE", svb16_cuda.ENCODE_TILE),
 ])
 def test_walk_constants_match_sources(source, name, value):
-    """The walks' table sizes and reads per block, and the svb16 decode's
-    tile, which the wrappers use to size scratch and launches, are the
-    CUDA sources'."""
+    """The walks' table sizes and reads per block, and the svb16 encode's
+    and decode's tiles, which the wrappers use to size scratch and
+    launches, are the CUDA sources'."""
     text = (_build.CSRC / source).read_text()
     m = re.search(r"constexpr int " + name + r" = ([^;]+);", text)
     assert m, f"{name} not in {source}"
     assert int(m.group(1)) == value
+
+
+def test_encode_partition_matches_source():
+    """svb16_cuda.encode_tile_ranges gives tile t the columns
+    [t * EWT, (t + 1) * EWT) of a row's zeros past kl + 2n, EWT = ETILE/8 +
+    2 ETILE, as svb16.cu's encode does, and ETILE is 128 threads of 16
+    samples."""
+    text = (_build.CSRC / "svb16.cu").read_text()
+    assert re.search(r"constexpr long long EWT = ETILE / 8 \+ 2 \* ETILE;",
+                     text)
+    assert re.search(r"constexpr int ET = 128;", text)
+    assert re.search(r"constexpr int EEPT = 16;", text)
+    T = svb16_cuda.ENCODE_TILE
+    L = 3 * T
+    ranges = svb16_cuda.encode_tile_ranges(0, L, [0, 0, 0])
+    wt = T // 8 + 2 * T
+    assert ranges == [[(0, wt, "zero")], [(wt, 2 * wt, "zero")],
+                      [(2 * wt, svb16_cuda.stream_width(L), "zero")]]

@@ -539,6 +539,163 @@ def test_svb16_decode_kernel_tiles(cuda, zd, B, n):
     _same(S.svb16_decode(view, nn, L, zd), out)
 
 
+def _encode_poisoned(sig, n, zd):
+    """svb16_encode into memory that held 0xA5 bytes: a block of the
+    output's size is filled and freed just before the call, so the caching
+    allocator hands it to the wrapper's output."""
+    from honours_tpu_torch.engine import svb16_cuda as S
+
+    B, L = sig.shape
+    bait = torch.full((B, S.stream_width(L)), 0xA5, dtype=torch.uint8,
+                      device=sig.device)
+    ptr = bait.data_ptr()
+    del bait
+    st, ln = S.svb16_encode(sig, n, zd)
+    assert st.data_ptr() == ptr
+    return st, ln
+
+
+def _encode_same(sig, n, zd):
+    """The kernel's stream and lengths, written over poisoned memory, equal
+    the plain version's (which has no 0xA5 byte the kernel left)."""
+    from honours_tpu_torch.engine import svb16_cuda as S
+
+    got = _encode_poisoned(sig, n, zd)
+    _same(got, S.svb16_encode_plain(sig, n, zd))
+    return got
+
+
+def _svb_rows(kinds, L, n, zd, seed):
+    """Rows of n samples: nanopore-like ("mixed"), every field two bytes
+    ("two") or none ("one"); zeros from n on."""
+    rng = np.random.default_rng(seed)
+    sig = np.zeros((len(kinds), L), np.int16)
+    big = np.where(rng.random(L) < 0.5, 1, -1) * rng.integers(300, 30000, L)
+    make = {"mixed": lambda: rng.integers(400, 700, L),
+            "two": lambda: np.cumsum(big) if zd else rng.integers(256, 65536, L),
+            "one": lambda: rng.integers(0, 100 if zd else 256, L)}
+    for i, k in enumerate(kinds):
+        sig[i, :n] = make[k]()[:n].astype(np.uint16).view(np.int16)
+    return sig
+
+
+SVB_ETILE = 2048  # svb16_cuda.ENCODE_TILE (held to svb16.cu on the CPU)
+
+
+@pytest.mark.parametrize("zd", [True, False])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("n", [SVB_ETILE - 1, SVB_ETILE, SVB_ETILE + 1,
+                               (1 << 21) + 5])
+def test_svb16_encode_kernel_tiles(cuda, zd, B, n):
+    """Kernel 5 at its tile edges and over 2^21 + 5 samples (1025 live
+    tiles), on poisoned output: rows of nanopore-like samples, of fields
+    all two bytes and of none, with a tile of zeros past n."""
+    from honours_tpu_torch.engine import svb16_cuda as S
+
+    assert S.ENCODE_TILE == SVB_ETILE
+    L = -(-n // 8) * 8 + 16
+    kinds = ["mixed", "two", "one"][:B]
+    sig = torch.from_numpy(_svb_rows(kinds, L, n, zd, n + B)).to(cuda)
+    nn = torch.full((B,), n, dtype=torch.int32, device=cuda)
+    _, ln = _encode_same(sig, nn, zd)
+    if B == 3:
+        kl = -(-n // 8)
+        assert ln[1].item() == kl + 2 * n and ln[2].item() == kl + n
+
+
+@pytest.mark.parametrize("zd", [True, False])
+def test_svb16_encode_kernel_odd_width(cuda, zd):
+    """L = 4104: a row is W = 8721 bytes, odd, so 32 rows start at every
+    byte phase twice; n runs over 0 to L (0, 1, 7, 8, the tile edges, L
+    and values between), rows of every kind."""
+    L = 4104
+    ns = [0, 1, 7, 8, 9, 15, 16, SVB_ETILE - 1, SVB_ETILE, SVB_ETILE + 1,
+          4095, 4096, 4097, 4103, L, L]
+    ns += list(np.random.default_rng(7).integers(0, L + 1, 16))
+    kinds = ["mixed", "two", "one"]
+    sig = np.concatenate([_svb_rows([kinds[i % 3]], L, int(m), zd, i)
+                          for i, m in enumerate(ns)])
+    sig = torch.from_numpy(sig).to(cuda)
+    _encode_same(sig, torch.tensor(ns, dtype=torch.int32, device=cuda), zd)
+
+
+@pytest.mark.parametrize("zd", [True, False])
+def test_svb16_encode_kernel_unaligned_view(cuda, zd):
+    """A sig view at an address 2 mod 16 (scalar loads), equal to the same
+    samples from an aligned tensor."""
+    B, L = 3, 3 * SVB_ETILE + 24
+    sig = torch.from_numpy(_svb_rows(["mixed", "two", "one"], L, L, zd, 5))
+    buf = torch.zeros(B * L + 1, dtype=torch.int16, device=cuda)
+    view = buf[1:].view(B, L)
+    view.copy_(sig.to(cuda))
+    assert view.data_ptr() % 16 == 2
+    n = torch.tensor([L, L - 5, SVB_ETILE + 3], dtype=torch.int32, device=cuda)
+    st = _encode_same(view, n, zd)
+    _same(st, _encode_same(sig.to(cuda), n, zd))
+
+
+@pytest.mark.parametrize("zd", [True, False])
+def test_svb16_encode_kernel_clamps_n(cuda, zd):
+    """n below 0 encodes an empty row and n above L the whole row."""
+    from honours_tpu_torch.engine import svb16_cuda as S
+
+    L = 2 * SVB_ETILE + 8
+    sig = np.repeat(_svb_rows(["mixed"], L, L, zd, 9), 4, axis=0)
+    sig = torch.from_numpy(sig).to(cuda)
+    n = torch.tensor([-1, -(1 << 31), L + 1, (1 << 31) - 1], dtype=torch.int32,
+                     device=cuda)
+    st, ln = _encode_same(sig, n, zd)
+    assert ln[0].item() == 0 and ln[1].item() == 0 and not st[:2].any()
+    full = S.svb16_encode_plain(
+        sig[:1], torch.tensor([L], dtype=torch.int32, device=cuda), zd)
+    _same((st[2:], ln[2:]), (full[0].expand(2, -1), full[1].expand(2)))
+
+
+@pytest.mark.parametrize("B,L", [(12, 4104), (3, (1 << 21) + 8)])
+def test_svb16_encode_kernel_repeats(cuda, B, L):
+    """20 launches in a row, zd on and off in turns, each equal to the
+    plain version: a race between tiles would show in some of them."""
+    from honours_tpu_torch.engine import svb16_cuda as S
+
+    kinds = ["mixed", "two", "one"]
+    ns = np.random.default_rng(B).integers(0, L + 1, B)
+    ns[0] = L
+    sig = np.concatenate([_svb_rows([kinds[i % 3]], L, int(m), True, i)
+                          for i, m in enumerate(ns)])
+    sig = torch.from_numpy(sig).to(cuda)
+    n = torch.from_numpy(ns.astype(np.int32)).to(cuda)
+    want = {zd: S.svb16_encode_plain(sig, n, zd) for zd in (True, False)}
+    for i in range(20):
+        _same(_encode_poisoned(sig, n, i % 2 == 0), want[i % 2 == 0])
+
+
+@pytest.mark.parametrize("zd", [True, False])
+def test_svb16_encode_kernel_graph_replay(cuda, zd):
+    """Captured in a CUDA graph (scratch zeroing included) and replayed
+    three times, the output equals a direct call."""
+    from honours_tpu_torch.engine import svb16_cuda as S
+
+    B, L = 4, 3 * SVB_ETILE + 40
+    kinds = ["mixed", "two", "one", "mixed"]
+    sig = torch.from_numpy(_svb_rows(kinds, L, L - 9, zd, 11)).to(cuda)
+    n = torch.tensor([L - 9, L - 9, SVB_ETILE, 0], dtype=torch.int32,
+                     device=cuda)
+    want = S.svb16_encode(sig, n, zd)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        S.svb16_encode(sig, n, zd)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = S.svb16_encode(sig, n, zd)
+    for _ in range(3):
+        got[0].fill_(0xA5)
+        graph.replay()
+        _same(got, want)
+    _same(want, S.svb16_encode_plain(sig, n, zd))
+
+
 ENCODE_CASES = {  # B, Smax, fc offset in elements, kind
     "aligned": (8, 96, 0, "table"),
     "offset_4": (3, 70, 1, "table"),

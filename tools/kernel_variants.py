@@ -2,15 +2,15 @@
 
     python3 tools/kernel_variants.py NAME VARIANT.cu [VARIANT.cu ...]
 
-NAME is n4_decode, svb16_decode, svb16_decode_raw (zd off) or
-svb16_encode.  Each VARIANT.cu is an edited copy of the kernel's source
+NAME is n4_decode, svb16_decode, svb16_decode_raw (zd off),
+svb16_encode or svb16_encode_raw (zd off).  Each VARIANT.cu is an edited copy of the kernel's source
 (honours_tpu_torch/csrc/*.cu) whose C entries keep their signatures.
 Each is built with the package's nvcc flags (all in parallel), and its
 entry stands in for the kernel's while it is timed.  At chip_smoke.py's
 shapes, a bucket of [256, 65536] and one read of [1, 262144], every
 variant is held against the plain version (max abs err printed) and
 timed from a CUDA-graph replay, twice: in the order given, then in
-reverse.  A svb16 decode variant may change DTILE; the wrapper's tile
+reverse.  A svb16 variant may change DTILE or ETILE; the wrapper's tile
 count then follows it.  Needs CUDA.
 """
 
@@ -58,20 +58,19 @@ def use(kernel, lib, src: str) -> None:
     fn.argtypes = [_build._ARG[c] for c in kernel.signature]
     fn.restype = ctypes.c_int
     kernel._fn, kernel._lib = fn, lib
-    m = re.search(r"constexpr int DTILE = (\d+);", Path(src).read_text())
-    if m:
-        SV.DECODE_TILE = int(m.group(1))
+    text = Path(src).read_text()
+    for const, attr in (("DTILE", "DECODE_TILE"), ("ETILE", "ENCODE_TILE")):
+        m = re.search(r"constexpr int " + const + r" = (\d+);", text)
+        if m:
+            setattr(SV, attr, int(m.group(1)))
 
 
 def cases(B: int, L: int) -> dict:
     """{name: (kernel call, plain call)} at one shape."""
     sig, n = cs.make_bucket(0, B=B, L=L)
-    out = {c[0]: (c[1], c[2]) for c in cs.svb_n4_cases(sig, n)[0]}
-    raw, _ = SV.svb16_encode(sig, n, False)
-    out["svb16_decode_raw"] = (
-        lambda: SV.svb16_decode(raw, n, L, False),
-        lambda: SV.svb16_decode_plain(raw, n, L, False))
-    return out
+    main, options, _ = cs.svb_n4_cases(sig, n)
+    return {c[0].replace(" zd=False", "_raw"): (c[1], c[2])
+            for c in main + options}
 
 
 def main(argv) -> int:
@@ -82,7 +81,7 @@ def main(argv) -> int:
     kernel = _build.KERNELS[name.removesuffix("_raw")]
     _build.build()
     print(cs.nvidia_smi(), flush=True)
-    tile = SV.DECODE_TILE
+    tiles = SV.DECODE_TILE, SV.ENCODE_TILE
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         libs = build(sources, Path(tmp))
         for B, L in ((256, 1 << 16), (1, 1 << 18)):
@@ -94,9 +93,9 @@ def main(argv) -> int:
                     use(kernel, libs[src], src)
                     err = cs.max_abs_err(cs.flatten(kern()), want)
                     reps = 3 if name == "n4_decode" else 20
-                    times[src].append(f"{cs.graph_ms(kern, reps):.4f} ms "
+                    times[src].append(f"{cs.graph_ms(kern, reps)[0]:.4f} ms "
                                       f"(max abs err {err})")
-                    SV.DECODE_TILE = tile
+                    SV.DECODE_TILE, SV.ENCODE_TILE = tiles
             for src in sources:
                 print(f"[{B}, {L}] {name} {Path(src).name}: "
                       + "; ".join(times[src]), flush=True)
