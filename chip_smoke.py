@@ -15,29 +15,34 @@
    call left after its replays must equal the plain version too, so a
    race that shows only under load fails the run.  svb16 encode and
    decode with zd off are held and timed the same way, on log lines of
-   their own.  Then does the same for kernel 1's five entries, o1_fc,
-   rans_encode, o1_decode (both drans phases), o0_decode, svb16_encode
-   and svb16_decode (zd on and off) and n4_decode on one read of
-   L = 262144 (the one-row shape; each plain version runs once there)
-   and for the drans decode's phase-grid merge (expand_u8 at [B*K,
-   Smax] = [8192, 2048]), on log lines of their own.
+   their own, and so are kernel 1 on svb_zd's operands of that bucket
+   (the encode's compaction of [256, 278528] bytes, the decode's
+   expansion to [256, 262144]) and svb16 with zd off on vbsse21's
+   exception values ([256, 4096], each row's n its exception count).
+   Then does the same for kernel 1's five entries, o1_fc, rans_encode,
+   o1_decode (both drans phases), o0_decode, svb16_encode and
+   svb16_decode (zd on and off) and n4_decode on one read of L = 262144
+   (the one-row shape; each plain version runs once there) and for the
+   drans decode's phase-grid merge (expand_u8 at [B*K, Smax] = [8192,
+   2048]), on log lines of their own.
 3. Presses and depresses ~1,028 reads (1,024 synthetic reads with
    log-uniform lengths in [4,000, 250,000] samples plus edge reads, two
    of which overflow the exception cap) through
-   honours_tpu_torch.engine.runner on the card, once per codec
-   (drans_vbbe21_zd, svb12_zd, svb12, srans_vbbe21_zd,
-   srans2_vbbe21_zd, srans3_vbbe21_zd).  Each path starts with every
-   launch count at 0; it asserts every read comes back bit for bit, that
-   its own kernels were launched and that the overflow reads took the
-   one-row path, prints its ratio and encode and decode rates, and
-   checks the card's streams of a few reads against the CPU path's.
-   Every kernel must be launched by some path.
+   honours_tpu_torch.engine.runner on the card, once per codec (the 18
+   of PATHS).  Each path starts with every launch count at 0; it asserts
+   every read comes back bit for bit, that its own kernels were launched
+   and, for the capped codecs, that the overflow reads took the one-row
+   path, prints its ratio and encode and decode rates, and checks the
+   card's streams of a few reads against the CPU path's.  The four rice
+   codecs are encode only: their paths press, print the ratio and the
+   encode rate, and check the streams against the CPU path's.  Every
+   kernel must be launched by some path.
 4. The CLI: writes a BLOW5 (zlib records, svb-zd signals) of 64 of those
    reads plus the four edge reads, runs `python -m honours_tpu_torch
    press` on it (through honours_tpu_torch.cli.main) with the default
-   codec and with srans_vbbe21_zd, then `depress` on each result, and
-   asserts every signal comes back and each pressed file names its
-   codec; prints the file sizes.
+   codec, with srans_vbbe21_zd and with hasgam_vbsse21_zdq, then
+   `depress` on each result, and asserts every signal comes back and
+   each pressed file names its codec; prints the file sizes.
 5. Prints one {"kernels": [...]} line, then {"ok": true, "device": ...}.
 
 `--kernels-only` stops after step 2 and prints no result line: it times
@@ -260,7 +265,7 @@ def kernel_cases(seed: int):
          16 * sym.numel(), 8 * sym.numel(), None),
     ]
     shapes = (f"[{B}, {L}]", f"[{B * K}, {Smax}] (drans phase-grid merge)")
-    return cases, options, merge, shapes
+    return cases, options, merge, shapes, vb_cases(sig, n)
 
 
 def svb_n4_cases(sig, n):
@@ -322,6 +327,55 @@ def svb_n4_cases(sig, n):
          int(raw_len.sum()) + 2 * B * L + 4 * B, 8 * nsum, None),
     ]
     return cases, options, nt
+
+
+def vb_cases(sig, n):
+    """(shape, (name, kernel call, plain call, bytes, ops, library call))
+    of kernel 1 on svb_zd's operands of the bucket [B, L] (the encode's
+    compaction of [B, L/4 + 4L] bytes, the decode's expansion to
+    [B, 4L]) and of svb16 with zd off on vbsse21's exception values
+    ([B, round8(emax)], each row's n its exception count)."""
+    from honours_tpu_torch.engine import permute_cuda as P
+    from honours_tpu_torch.engine import svb16_cuda as SV
+    from honours_tpu_torch.engine import svb32
+    from honours_tpu_torch.engine.pipeline import _zd_parts
+    from honours_tpu_torch.engine.vb_batch import _ex_parts, _svb16_values
+    from honours_tpu_torch.transforms.core import zigdelta
+
+    B, L = sig.shape
+    emax = max(64, L // 16)
+    cat, keep = svb32._encode_operands(zigdelta(sig), n, "1234")
+    st, _ = P.compact(cat, keep)
+    data, shift, validc, _ = svb32._decode_operands(st, n, L, "1234")
+
+    n64 = n.to(torch.int64)
+    p = _ex_parts(_zd_parts(sig, n64)[1], n64 - 1, emax)
+    v16 = _svb16_values((p["ex_val"] - 256) & 0xFFFF, emax).contiguous()
+    e8 = v16.shape[1]
+    nex = p["nex"].to(torch.int32)
+    enc, enc_len = SV.svb16_encode(v16, nex, False)
+    nsum = int(nex.clamp(max=e8).sum())
+    log(f"vbsse21 exception values [{B}, {e8}]: n per row mean "
+        f"{nsum / B:.1f}, max {int(nex.max())}")
+    return [
+        # the mask, each kept byte read, every output byte and the counts
+        (f"[{B}, {cat.shape[1]}] (svb_zd encode)",
+         ("monotone_compact_u8", lambda: P.compact(cat, keep),
+          lambda: P.compact_plain(cat, keep), compact_bytes(keep, 1, 1),
+          2 * cat.numel(), None)),
+        (f"[{B}, {4 * L}] (svb_zd decode)",
+         ("monotone_expand_u8", lambda: P.expand(data, shift, validc, 4 * L),
+          lambda: P.expand_plain(data, shift, validc, 4 * L),
+          expand_bytes(data, shift, validc, 4 * L), 2 * data.numel(), None)),
+        (f"[{B}, {e8}] (vbsse21 values)",
+         ("svb16_encode zd=False", lambda: SV.svb16_encode(v16, nex, False),
+          lambda: SV.svb16_encode_plain(v16, nex, False),
+          2 * nsum + enc.numel() + 8 * B, 4 * nsum, None)),
+        (f"[{B}, {e8}] (vbsse21 values)",
+         ("svb16_decode zd=False", lambda: SV.svb16_decode(enc, nex, e8, False),
+          lambda: SV.svb16_decode_plain(enc, nex, e8, False),
+          int(enc_len.sum()) + 2 * B * e8 + 4 * B, 8 * nsum, None)),
+    ]
 
 
 def compact_bytes(keep, read: int, write: int) -> int:
@@ -441,6 +495,9 @@ REPLACES = {
 #: kernels each main path must launch
 KERNEL_1 = {"monotone_compact_u8", "monotone_compact_i32",
             "compaction_shifts", "monotone_expand_u8", "monotone_expand_i32"}
+#: kernel 1's entries on the svb32 paths, and on the rice encodes
+SVB32 = {"monotone_compact_u8", "compaction_shifts", "monotone_expand_u8"}
+RICE = {"monotone_compact_u8", "monotone_compact_i32", "monotone_expand_i32"}
 PATHS = {
     "drans_vbbe21_zd": KERNEL_1 | {"o1_fc", "rans_encode", "o1_decode"},
     "svb12_zd": {"svb16_encode", "svb16_decode"},
@@ -448,6 +505,18 @@ PATHS = {
     "srans_vbbe21_zd": KERNEL_1 | {"o1_fc", "rans_encode", "o0_decode"},
     "srans2_vbbe21_zd": KERNEL_1 | {"o1_fc", "rans_encode", "o1_decode"},
     "srans3_vbbe21_zd": KERNEL_1 | {"rans_encode", "o1n_fc", "n4_decode"},
+    "vb1e2_zd": KERNEL_1,
+    "vbe21_zd": KERNEL_1,
+    "vbbe21_zd": KERNEL_1,
+    "vbsbe21_zd": KERNEL_1,
+    "vbsse21_zd": KERNEL_1 | {"svb16_encode", "svb16_decode"},
+    "svb_zd": SVB32,
+    "svb0124_zd": SVB32,
+    "hasgam_vbsse21_zdq": KERNEL_1,
+    "rice_vbe21_zd": RICE,
+    "rice_vbbe21_zd": RICE,
+    "rice_vbsbe21_zd": RICE,
+    "rice_vbsse21_zd": RICE | {"svb16_encode"},
 }
 
 
@@ -512,13 +581,15 @@ def check_kernels(seed: int) -> dict:
     merge; returns the bucket-shape results by kernel."""
     from honours_tpu_torch.engine.pipeline import canned_o1_device_tables
 
-    cases, options, merge, (bucket, merged) = kernel_cases(seed)
+    cases, options, merge, (bucket, merged), vb = kernel_cases(seed)
     results = {}
     for case in cases:
         results[case[0]] = r = time_case(*case)
         log_case(bucket, r)
     for case in options:
         log_case(bucket, time_case(*case))
+    for shape, case in vb:
+        log_case(shape, time_case(*case))
     # B = 1, L = 262144: one read on the runner's one-row path, where one
     # read's chain is a walk's whole launch
     sig, n = make_bucket(seed, B=1, L=1 << 18)
@@ -552,10 +623,12 @@ def read_set(seed: int):
 
 
 def main_path(codec: str, reads) -> dict:
-    """Press and depress `reads` through the runner with `codec`; returns
-    this path's launch counts."""
+    """Press and depress `reads` through the runner with `codec` (press
+    only for the encode-only rice codecs); returns this path's launch
+    counts."""
     from honours_tpu_torch._build import KERNELS
     from honours_tpu_torch.engine.runner import (
+        _NEX_AT,
         ENGINE_CODECS,
         _emax,
         _nex_overflowed,
@@ -564,10 +637,14 @@ def main_path(codec: str, reads) -> dict:
     )
     from honours_tpu_torch.io.batching import bucket_reads
 
+    kind = ENGINE_CODECS[codec]
+    decodes = not kind.startswith("rice_zd:")
     lens = [r.size for r in reads]
     raw = sum(2 * r.size for r in reads)
     warm = reads[:4] + reads[-4:]
-    depress_signals(press_signals(warm, codec), [r.size for r in warm], codec)
+    st = press_signals(warm, codec)
+    if decodes:
+        depress_signals(st, [r.size for r in warm], codec)
     torch.cuda.synchronize()
 
     for k in KERNELS.values():
@@ -576,20 +653,22 @@ def main_path(codec: str, reads) -> dict:
     streams = press_signals(reads, codec)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    out = depress_signals(streams, lens, codec)
-    torch.cuda.synchronize()
+    if decodes:
+        out = depress_signals(streams, lens, codec)
+        torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = {name: k.launches for name, k in KERNELS.items()}
 
-    bad = [i for i, (a, b) in enumerate(zip(reads, out))
-           if not np.array_equal(a, b)]
-    if bad:
-        raise AssertionError(f"{codec}: reads {bad[:8]} did not round-trip")
+    if decodes:
+        bad = [i for i, (a, b) in enumerate(zip(reads, out))
+               if not np.array_equal(a, b)]
+        if bad:
+            raise AssertionError(f"{codec}: reads {bad[:8]} did not "
+                                 "round-trip")
     idle = sorted(k for k in PATHS[codec] if launches[k] == 0)
     if idle:
         raise AssertionError(f"{codec}: kernels not launched: {idle}")
-    kind = ENGINE_CODECS[codec]
-    if kind in ("drans", "srans", "srans2", "srans3"):
+    if kind.partition(":")[0] in _NEX_AT:
         # the two overflow reads are the last two: their streams carry
         # more exceptions than their bucket's cap, so they were pressed
         # (and decoded) by the one-row path, and they round-tripped
@@ -602,10 +681,15 @@ def main_path(codec: str, reads) -> dict:
                                  "overflow the exception cap")
     comp = sum(len(s) for s in streams)
     enc_s, dec_s = t1 - t0, t2 - t1
-    log(f"{codec}: all {len(reads)} reads round-trip bit for bit")
+    if decodes:
+        log(f"{codec}: all {len(reads)} reads round-trip bit for bit")
     log(f"{codec}: ratio {raw / comp:.6f}")
     log(f"{codec}: encode {enc_s:.3f} s, {raw / enc_s / 1e6:.1f} MB/s")
-    log(f"{codec}: decode {dec_s:.3f} s, {raw / dec_s / 1e6:.1f} MB/s")
+    if decodes:
+        log(f"{codec}: decode {dec_s:.3f} s, {raw / dec_s / 1e6:.1f} MB/s")
+    else:
+        log(f"{codec}: decode not ported (encode only; honours_tpu "
+            "decodes rice with its host codec, see ROADMAP.md)")
     log(f"{codec}: launches {launches}")
 
     # reference on a small input: the CPU path's bytes for a few reads
@@ -621,7 +705,7 @@ def main_path(codec: str, reads) -> dict:
 
 def cli_phase(reads) -> None:
     """press and depress a BLOW5 file through the port's CLI on the card,
-    with the default codec and with srans_vbbe21_zd."""
+    with the default codec, srans_vbbe21_zd and hasgam_vbsse21_zdq."""
     from honours_tpu_torch import cli
     from honours_tpu_torch.io import blow5
 
@@ -642,7 +726,8 @@ def cli_phase(reads) -> None:
         log(f"cli: {src.name} {len(sel)} reads, "
             f"{sum(2 * s.size for s in sel)} B int16, "
             f"{src.stat().st_size} B as svb-zd/zlib BLOW5")
-        for codec in ("drans_vbbe21_zd", "srans_vbbe21_zd"):
+        for codec in ("drans_vbbe21_zd", "srans_vbbe21_zd",
+                      "hasgam_vbsse21_zdq"):
             pressed = Path(tmp) / f"{codec}.blow5"
             back = Path(tmp) / f"{codec}.depressed.blow5"
             opt = [] if codec == "drans_vbbe21_zd" else ["--codec", codec]

@@ -10,7 +10,9 @@ a ported codec (default drans_vbbe21_zd) through the bucketed runner;
 `depress` restores a stock BLOW5 (svb-zd signal, zlib records).  The
 files are byte-identical to `python -m honours_tpu press --tpu` /
 `depress --tpu`.  Both run on the CUDA card and raise without one unless
-`--device cpu` is given.
+`--device cpu` is given.  `codecs` lists the ported codecs, the rice
+codecs marked "(encode only)": `depress` of a file they pressed raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -42,7 +44,9 @@ def main(argv=None) -> int:
     from honours_tpu_torch.engine import runner
 
     if args.cmd == "codecs":
-        print("\n".join(sorted(runner.ENGINE_CODECS)))
+        for name in sorted(runner.ENGINE_CODECS):
+            only = runner.ENGINE_CODECS[name].startswith("rice_zd:")
+            print(name + ("  (encode only)" if only else ""))
         return 0
 
     from honours_tpu_torch.device import resolve_device

@@ -1,7 +1,11 @@
 """Batched byte and bit-field building blocks.
 
-The uintx bitpack framing is MSB-first: stream bit p lives in byte p>>3
-at in-byte position 7-(p&7).  uint32 quantities are held in int64.
+Two bit orders exist in the formats:
+- MSB-first (the uintx bitpack framing): stream bit p lives in byte p>>3
+  at in-byte position 7-(p&7);
+- LSB-first (rice streams): stream bit p lives in byte p>>3 at position
+  p&7.
+uint32 quantities are held in int64.
 """
 
 from __future__ import annotations
@@ -21,7 +25,8 @@ from honours_tpu_torch.engine.permute import (
 )
 
 __all__ = [
-    "monotone_place", "pack_fields_msb", "unpack_fields_msb",
+    "monotone_place", "pack_fields_msb", "pack_fields_lsb",
+    "unpack_fields_msb",
     "rowwise_concat", "u32le_bytes", "u16le_bytes", "read_u32le",
     "read_u16le",
 ]
@@ -62,11 +67,21 @@ def read_u16le(stream, off):
     return _read_le(stream, off, 2)
 
 
-def _words_to_bytes_be(words):
+def _words_to_bytes(words, shifts):
     B, W = words.shape
-    shifts = torch.tensor([24, 16, 8, 0], device=words.device)
+    shifts = torch.tensor(shifts, device=words.device)
     return ((words[:, :, None] >> shifts) & 0xFF).to(torch.uint8).reshape(
         B, 4 * W)
+
+
+def _words_to_bytes_be(words):
+    """[B, W] uint32 (int64) -> [B, 4W] u8, big-endian per word."""
+    return _words_to_bytes(words, [24, 16, 8, 0])
+
+
+def _words_to_bytes_le(words):
+    """[B, W] uint32 (int64) -> [B, 4W] u8, little-endian per word."""
+    return _words_to_bytes(words, [0, 8, 16, 24])
 
 
 def monotone_place(values, keep, targets, width: int):
@@ -86,6 +101,24 @@ def monotone_place(values, keep, targets, width: int):
     return monotone_expand(vc, shift, valid, width)
 
 
+def _place_words(w0, w1, word, valid, n_words: int):
+    """OR each field's two word parts (w0 into its start word, w1 into
+    the next) over every field of the row -> words [B, n_words] uint32
+    (int64): a segmented OR scan, then the last field of each start word
+    places the ORs."""
+    w0 = torch.where(valid, w0, 0)
+    w1 = torch.where(valid, w1, 0)
+    seg = torch.where(valid, word, n_words + 7)
+    or0 = seg_or_scan(w0, seg)
+    or1 = seg_or_scan(w1, seg)
+    nxt = torch.nn.functional.pad(seg[:, 1:], (0, 1), value=-1)
+    last = valid & (seg != nxt)
+    seg32 = seg.to(torch.int32)
+    placed0, _ = monotone_place(u32_to_i32(or0), last, seg32, n_words + 1)
+    placed1, _ = monotone_place(u32_to_i32(or1), last, seg32 + 1, n_words + 1)
+    return (i32_to_u32(placed0) | i32_to_u32(placed1))[:, :n_words]
+
+
 def pack_fields_msb(values, bit_len, bit_off, valid, n_words: int):
     """Build an MSB-first bit stream of fields.
 
@@ -102,18 +135,22 @@ def pack_fields_msb(values, bit_len, bit_off, valid, n_words: int):
     w0 = torch.where(sh >= 0, (v << sh.clamp(0, 31)) & M32,
                      v >> (-sh).clamp(0, 31))
     w1 = torch.where(sh >= 0, 0, (v << (32 + sh).clamp(0, 31)) & M32)
-    w0 = torch.where(valid, w0, 0)
-    w1 = torch.where(valid, w1, 0)
-    seg = torch.where(valid, word, n_words + 7)
-    or0 = seg_or_scan(w0, seg)
-    or1 = seg_or_scan(w1, seg)
-    nxt = torch.nn.functional.pad(seg[:, 1:], (0, 1), value=-1)
-    last = valid & (seg != nxt)
-    seg32 = seg.to(torch.int32)
-    placed0, _ = monotone_place(u32_to_i32(or0), last, seg32, n_words + 1)
-    placed1, _ = monotone_place(u32_to_i32(or1), last, seg32 + 1, n_words + 1)
-    words = i32_to_u32(placed0) | i32_to_u32(placed1)
-    return _words_to_bytes_be(words[:, :n_words])
+    return _words_to_bytes_be(_place_words(w0, w1, word, valid, n_words))
+
+
+def pack_fields_lsb(values, bit_off, valid, n_words: int):
+    """Build an LSB-first bit stream of fields (rice order): bit j of
+    values[i] is stream bit bit_off[i] + j, bytes little-endian per
+    32-bit word.  values [B, N] uint32 (int64), each 0 above its
+    field's width, bit_off [B, N] non-decreasing, valid [B, N].  Same
+    segmented-OR scheme as pack_fields_msb.  Returns bytes
+    [B, 4 * n_words] u8."""
+    v = values.to(torch.int64) & M32
+    word = bit_off.to(torch.int64) >> 5
+    s = bit_off.to(torch.int64) & 31
+    w0 = (v << s) & M32
+    w1 = torch.where(s == 0, 0, v >> ((32 - s) & 31))
+    return _words_to_bytes_le(_place_words(w0, w1, word, valid, n_words))
 
 
 def unpack_fields_msb(stream, base_byte, mb, count, N: int, mb_cap: int = 24):

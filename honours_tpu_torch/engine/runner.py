@@ -3,20 +3,27 @@
 Reads are grouped into power-of-two padded buckets (io/batching.py),
 each bucket runs the batched engine of the codec on the device, and
 per-read streams come back in original order, byte-identical to
-honours_tpu's engine and host codec.  Codecs and their engines:
-  drans_vbbe21_zd   engine/drans.py     (batch-shared table fit)
-  srans_vbbe21_zd   engine/pipeline.py  (canned order-0 rANS)
-  srans2_vbbe21_zd  engine/pipeline.py  (canned order-1 rANS)
-  srans3_vbbe21_zd  engine/pipeline.py  (nibble order-1 rANS)
-  svb12_zd, svb12   engine/svb16.py     (VBZ container, with/without zd)
+honours_tpu's engine (and to its host codec for every read of n >= 1).
+Codecs and their engines:
+  drans_vbbe21_zd     engine/drans.py     (batch-shared table fit)
+  srans_vbbe21_zd     engine/pipeline.py  (canned order-0 rANS)
+  srans2_vbbe21_zd    engine/pipeline.py  (canned order-1 rANS)
+  srans3_vbbe21_zd    engine/pipeline.py  (nibble order-1 rANS)
+  svb12_zd, svb12     engine/svb16.py     (VBZ container, with/without zd)
+  vb1e2_zd, vbe21_zd, vbbe21_zd, vbsbe21_zd, vbsse21_zd
+                      engine/vb_batch.py  (vb exception containers)
+  svb_zd, svb0124_zd  engine/vb_batch.py  (classic svb32 over zd)
+  hasgam_vbsse21_zdq  engine/exzd.py      (ex-zd, slow5lib's variant)
+  rice_vbe21_zd, rice_vbbe21_zd, rice_vbsbe21_zd, rice_vbsse21_zd
+                      engine/rice.py      (encode only: depress raises)
 
 Two kinds of rows leave the bucket's group and run alone, as one-row
 batches with emax = L (the grouping of a single-read host press, so the
 bytes are the host codec's):
 - encode and decode rows with more exceptions than the bucket's cap
-  emax = L/16 (the vbbe21 count in the stream header is exact even when
-  the capped buffers overflowed, so such rows are found from their own
-  bytes); svb streams have no exception cap;
+  emax = L/16 (the exception count in the stream header is exact even
+  when the capped buffers overflowed, so such rows are found from their
+  own bytes); svb streams have no exception cap;
 - drans decode rows whose G header is <= 1 (streams written per read).
 """
 
@@ -32,6 +39,7 @@ from honours_tpu_torch.engine.drans import (
     depress_drans_batch,
     press_drans_batch,
 )
+from honours_tpu_torch.engine.exzd import depress_exzd_batch, press_exzd_batch
 from honours_tpu_torch.engine.pipeline import (
     canned_o1_device_tables,
     canned_o1n_device_tables,
@@ -43,13 +51,21 @@ from honours_tpu_torch.engine.pipeline import (
     press_srans3_batch,
     press_srans_batch,
 )
+from honours_tpu_torch.engine.rice import press_rice_vb_zd_batch
 from honours_tpu_torch.engine.svb16 import (
     svb16_decode_batch,
     svb16_encode_batch,
 )
+from honours_tpu_torch.engine.vb_batch import (
+    depress_svb_zd_batch,
+    depress_vb_zd_batch,
+    press_svb_zd_batch,
+    press_vb_zd_batch,
+)
 from honours_tpu_torch.io.batching import bucket_reads, restore_order
 
-#: codec name -> engine kind (as honours_tpu/engine/runner.py names them)
+#: codec name -> engine kind (as honours_tpu/engine/runner.py names them;
+#: "family:container" for the vb, svb32 and rice families)
 ENGINE_CODECS = {
     "drans_vbbe21_zd": "drans",
     "srans_vbbe21_zd": "srans",
@@ -57,11 +73,26 @@ ENGINE_CODECS = {
     "srans3_vbbe21_zd": "srans3",
     "svb12_zd": "svb16_zd",
     "svb12": "svb16",
+    "vb1e2_zd": "vb_zd:vb1e2",
+    "vbe21_zd": "vb_zd:vbe21",
+    "vbbe21_zd": "vb_zd:vbbe21",
+    "vbsbe21_zd": "vb_zd:vbsbe21",
+    "vbsse21_zd": "vb_zd:vbsse21",
+    "svb_zd": "svb32_zd:1234",
+    "svb0124_zd": "svb32_zd:0124",
+    "hasgam_vbsse21_zdq": "exzd",
+    "rice_vbe21_zd": "rice_zd:vbe21",
+    "rice_vbbe21_zd": "rice_zd:vbbe21",
+    "rice_vbsbe21_zd": "rice_zd:vbsbe21",
+    "rice_vbsse21_zd": "rice_zd:vbsse21",
 }
 
-#: byte offset of the vbbe21 exception count in each capped kind's
-#: stream: [G:u16][zd0:u16][nex:u32]... and [zd0:u16][nex:u32]...
-_NEX_AT = {"drans": 4, "srans": 2, "srans2": 2, "srans3": 2}
+#: byte offset of the exception count in each capped family's stream:
+#: [G:u16][zd0:u16][nex:u32]..., [zd0:u16][nex:u32]... and ex-zd's
+#: [ver:1][nin:u64][q:1][zd0:u16][nex:u32]...; the svb families have no
+#: cap
+_NEX_AT = {"drans": 4, "srans": 2, "srans2": 2, "srans3": 2, "vb_zd": 2,
+           "rice_zd": 2, "exzd": 12}
 
 #: capped kind -> (device tables, batched press, batched depress)
 _CAPPED = {
@@ -87,13 +118,27 @@ def engine_kind(codec_name: str) -> str:
 
 def batch_engine(codec_name: str, dev):
     """(press(sig, n, emax) -> (stream, len), depress(buf, n, L, emax) ->
-    [B, L] int16): the batched engine of a codec on device `dev`."""
+    [B, L] int16): the batched engine of a codec on device `dev`; depress
+    is None for a rice codec, whose decode is not ported."""
     kind = engine_kind(codec_name)
+    family, _, sub = kind.partition(":")
     if kind in _CAPPED:
         tables, press, depress = _CAPPED[kind]
         tabs = tables(dev)
         return (lambda sig, n, emax: press(sig, n, tabs, emax),
                 lambda buf, n, L, emax: depress(buf, n, tabs, L, emax=emax))
+    if family == "vb_zd":
+        return (lambda sig, n, emax: press_vb_zd_batch(sig, n, sub, emax),
+                lambda buf, n, L, emax: depress_vb_zd_batch(buf, n, sub, L,
+                                                            emax))
+    if family == "svb32_zd":
+        return (lambda sig, n, emax: press_svb_zd_batch(sig, n, sub),
+                lambda buf, n, L, emax: depress_svb_zd_batch(buf, n, L, sub))
+    if family == "exzd":
+        return press_exzd_batch, depress_exzd_batch
+    if family == "rice_zd":
+        return (lambda sig, n, emax: press_rice_vb_zd_batch(sig, n, sub,
+                                                            emax), None)
     zd = kind == "svb16_zd"
     return (lambda sig, n, emax: svb16_encode_batch(sig, n, zd),
             lambda buf, n, L, emax: svb16_decode_batch(buf, n, L, zd))
@@ -105,7 +150,7 @@ def _emax(L: int) -> int:
 
 def _nex_overflowed(blob: bytes, kind: str, emax: int) -> bool:
     """The exact exception count in the stream header exceeds emax."""
-    at = _NEX_AT.get(kind)
+    at = _NEX_AT.get(kind.partition(":")[0])
     if at is None or len(blob) < at + 4:
         return False
     (nex,) = struct.unpack_from("<I", blob, at)
@@ -161,8 +206,16 @@ def press_signals(signals, codec_name: str = "drans_vbbe21_zd",
 def depress_signals(streams, lengths, codec_name: str = "drans_vbbe21_zd",
                     max_b: int = 256, device="cuda"):
     """Decode per-read streams (from either package) -> int16 arrays in
-    original order.  The bucketing must match the encoder's max_b."""
+    original order.  The bucketing must match the encoder's max_b.
+    Raises NotImplementedError for a rice codec, whose decode is not
+    ported."""
     kind = engine_kind(codec_name)
+    if kind.startswith("rice_zd:"):
+        raise NotImplementedError(
+            f"{codec_name} decode is not ported: a rice stream is one "
+            "serial bit stream per read, which honours_tpu decodes with "
+            "its host codec (honours_tpu/codecs/rice.py); see ROADMAP.md, "
+            "'Modules to port'")
     dev = resolve_device(device)
     _, depress = batch_engine(codec_name, dev)
     buckets = bucket_reads([np.zeros(int(m), np.int16) for m in lengths],

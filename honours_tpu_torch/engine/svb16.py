@@ -24,3 +24,9 @@ def svb16_decode_batch(stream, n, L: int, zd: bool = True):
     """Decode [B, M] u8 with lengths n -> [B, L] int16 (zero past n)."""
     return svb16_decode(stream.contiguous(), n.to(torch.int32).contiguous(),
                         L, zd)
+
+
+def _interleave2(a, b):
+    """[B, L] x2 -> [B, 2L] with a at even, b at odd columns."""
+    B, L = a.shape
+    return torch.stack([a, b], dim=2).reshape(B, 2 * L)

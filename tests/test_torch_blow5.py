@@ -23,7 +23,10 @@ from test_torch_runner import mixed_reads  # noqa: F401  (fixture)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FIXTURE = ROOT / "tests" / "data" / "three-reads.blow5"
-CLI_CODECS = ["drans_vbbe21_zd", "srans_vbbe21_zd", "srans2_vbbe21_zd"]
+CLI_CODECS = ["drans_vbbe21_zd", "srans_vbbe21_zd", "srans2_vbbe21_zd",
+              "hasgam_vbsse21_zdq"]
+RICE = ["rice_vbe21_zd", "rice_vbbe21_zd", "rice_vbsbe21_zd",
+        "rice_vbsse21_zd"]
 
 FIELDS = ("read_id", "read_group", "digitisation", "offset", "range",
           "sampling_rate", "aux")
@@ -120,7 +123,7 @@ def test_cli_files_match_reference_and_cross_decode(tmp_path, src_file,
 def test_cli_rules(tmp_path, src_file, capsys):
     """Default device is the card (RuntimeError here without one);
     codecs the port does not run raise NotImplementedError; `codecs`
-    lists the six ported codecs."""
+    lists the 18 ported codecs, the four rice codecs as encode only."""
     out = str(tmp_path / "out.blow5")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -132,12 +135,40 @@ def test_cli_rules(tmp_path, src_file, capsys):
                   "shuffman_vbbe21_zd", "--device", "cpu"])
     f5 = tb.read_blow5(str(src_file))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tb.write_blow5(out, f5, signal_codec="vbbe21_zd",
+        tb.write_blow5(out, f5, signal_codec="dstall_drans",
                        signal_streams=[b""] * len(f5.reads))
     assert cli.main(["codecs"]) == 0
-    assert capsys.readouterr().out.split() == sorted([
+    lines = capsys.readouterr().out.splitlines()
+    assert [ln.split()[0] for ln in lines] == sorted([
         "drans_vbbe21_zd", "srans_vbbe21_zd", "srans2_vbbe21_zd",
-        "srans3_vbbe21_zd", "svb12_zd", "svb12"])
+        "srans3_vbbe21_zd", "svb12_zd", "svb12", "vb1e2_zd", "vbe21_zd",
+        "vbbe21_zd", "vbsbe21_zd", "vbsse21_zd", "svb_zd", "svb0124_zd",
+        "hasgam_vbsse21_zdq", *RICE])
+    assert sorted(ln.split()[0] for ln in lines
+                  if ln.endswith("(encode only)")) == sorted(RICE)
+
+
+@pytest.mark.parametrize("codec", RICE)
+def test_cli_rice_file_presses_and_depress_raises(tmp_path, src_file,
+                                                  mixed_reads, codec):
+    """A rice file's streams are the runner's and the host codec decodes
+    them; depress raises the runner's NotImplementedError."""
+    from honours_tpu.codecs import base as registry
+    from honours_tpu_torch.engine import runner
+
+    ours = tmp_path / "ours.blow5"
+    assert cli.main(["press", str(src_file), str(ours), "--codec", codec,
+                     "--device", "cpu"]) == 0
+    f5 = tb.read_blow5(str(ours), decode_signal=False)
+    assert tb.htpu_codec_name(f5.header) == codec
+    streams = [r.signal_stream for r in f5.reads]
+    assert streams == runner.press_signals(mixed_reads, codec, device="cpu")
+    host = registry.get(codec)
+    for st, s in zip(streams, mixed_reads):
+        assert np.array_equal(host.depress(st, s.size), s)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli.main(["depress", str(ours), str(tmp_path / "back.blow5"),
+                  "--device", "cpu"])
 
 
 def test_module_entry_point_loads_no_jax(tmp_path, src_file):

@@ -162,6 +162,51 @@ def _svb_batch(seed, B, L):
     return torch.from_numpy(sig), torch.from_numpy(n)
 
 
+@pytest.mark.parametrize("B,L", [(1, 1 << 16), (3, 1 << 16), (2, 1 << 18)])
+def test_permute_kernels_at_svb32_widths(cuda, B, L):
+    """Kernel 1 on svb_zd's operands: the encode's compaction of [B,
+    L/4 + 4L] bytes (1,114,112 wide at L = 2^18) and the decode's
+    compaction shifts and expansion to [B, 4L], with odd row counts."""
+    from honours_tpu_torch.engine import permute_cuda as P
+    from honours_tpu_torch.engine import svb32
+    from honours_tpu_torch.synth import synthesize_bucket
+    from honours_tpu_torch.transforms.core import zigdelta
+
+    sig, n = synthesize_bucket(B, L, seed=B)
+    sig, n = torch.from_numpy(sig).to(cuda), torch.from_numpy(n).to(cuda)
+    cat, keep = svb32._encode_operands(zigdelta(sig), n, "1234")
+    assert cat.shape == (B, L // 4 + 4 * L)
+    st = P.compact(cat, keep)
+    _same(st, P.compact_plain(cat, keep))
+    ops = svb32._decode_operands(st[0], n, L, "1234")
+    # the shift-left compaction and the compaction shifts, against the
+    # same operands built by the plain versions on the CPU
+    _same(ops, svb32._decode_operands(st[0].cpu(), n.cpu(), L, "1234"))
+    data, shift, validc, _ = ops
+    _same(P.expand(data, shift, validc, 4 * L),
+          P.expand_plain(data, shift, validc, 4 * L))
+
+
+@pytest.mark.parametrize("L", [64, 1024, 4096])
+def test_svb16_zd_off_short_rows(cuda, L):
+    """vbsse21's exception values: svb16 with zd off on rows of width
+    round8(emax) holding n << L values, and n = 0."""
+    from honours_tpu_torch.engine import svb16_cuda as S
+
+    g = torch.Generator().manual_seed(L)
+    B = 5
+    v = torch.randint(-(2 ** 15), 2 ** 15, (B, L), generator=g)
+    v = v.to(torch.int16).to(cuda)
+    n = torch.tensor([0, 1, 3, 37, min(L, 90)], dtype=torch.int32,
+                     device=cuda)
+    st = S.svb16_encode(v, n, False)
+    _same(st, S.svb16_encode_plain(v, n, False))
+    _same(S.svb16_decode(st[0], n, L, False),
+          S.svb16_decode_plain(st[0], n, L, False))
+    zero = torch.zeros_like(n)
+    _same(S.svb16_encode(v, zero, False), S.svb16_encode_plain(v, zero, False))
+
+
 @pytest.mark.parametrize("zd", [True, False])
 @pytest.mark.parametrize("B,L", [(8, 256), (12, 4104), (4, 1 << 18)])
 def test_svb16_kernels_match_plain(cuda, zd, B, L):
@@ -746,6 +791,9 @@ def test_rans_encode_kernel_edges(cuda, case):
 
 KERNEL_1 = {"monotone_compact_u8", "monotone_compact_i32",
             "compaction_shifts", "monotone_expand_u8", "monotone_expand_i32"}
+#: kernel 1's entries on the svb32 paths, and on the rice encodes
+SVB32 = {"monotone_compact_u8", "compaction_shifts", "monotone_expand_u8"}
+RICE = {"monotone_compact_u8", "monotone_compact_i32", "monotone_expand_i32"}
 KERNELS_OF = {
     "drans_vbbe21_zd": KERNEL_1 | {"o1_fc", "rans_encode", "o1_decode"},
     "srans_vbbe21_zd": KERNEL_1 | {"o1_fc", "rans_encode", "o0_decode"},
@@ -753,6 +801,18 @@ KERNELS_OF = {
     "svb12_zd": {"svb16_encode", "svb16_decode"},
     "svb12": {"svb16_encode", "svb16_decode"},
     "srans3_vbbe21_zd": KERNEL_1 | {"rans_encode", "o1n_fc", "n4_decode"},
+    "vb1e2_zd": KERNEL_1,
+    "vbe21_zd": KERNEL_1,
+    "vbbe21_zd": KERNEL_1,
+    "vbsbe21_zd": KERNEL_1,
+    "vbsse21_zd": KERNEL_1 | {"svb16_encode", "svb16_decode"},
+    "svb_zd": SVB32,
+    "svb0124_zd": SVB32,
+    "hasgam_vbsse21_zdq": KERNEL_1,
+    "rice_vbe21_zd": RICE,
+    "rice_vbbe21_zd": RICE,
+    "rice_vbsbe21_zd": RICE,
+    "rice_vbsse21_zd": RICE | {"svb16_encode"},
 }
 
 
@@ -768,8 +828,9 @@ def test_decode_kernel_and_runner_round_trip(cuda, codec):
     before = {k: v.launches for k, v in KERNELS.items()}
     streams = press_signals(reads, codec, device=cuda)
     assert streams == press_signals(reads, codec, device="cpu")
-    out = depress_signals(streams, [r.size for r in reads], codec,
-                          device=cuda)
-    assert all(np.array_equal(a, b) for a, b in zip(reads, out))
+    if not codec.startswith("rice_"):  # rice decode is not ported
+        out = depress_signals(streams, [r.size for r in reads], codec,
+                              device=cuda)
+        assert all(np.array_equal(a, b) for a, b in zip(reads, out))
     grown = {k for k, v in KERNELS.items() if v.launches > before[k]}
     assert grown == KERNELS_OF[codec]
