@@ -19,31 +19,44 @@
    (the encode's compaction of [256, 278528] bytes, the decode's
    expansion to [256, 262144]) and svb16 with zd off on vbsse21's
    exception values ([256, 4096], each row's n its exception count).
-   Then does the same for kernel 1's five entries, o1_fc, rans_encode,
-   o1_decode (both drans phases), o0_decode, svb16_encode and
-   svb16_decode (zd on and off) and n4_decode on one read of L = 262144
-   (the one-row shape; each plain version runs once there) and for the
-   drans decode's phase-grid merge (expand_u8 at [B*K, Smax] = [8192,
-   2048]), on log lines of their own.
+   Kernel A (the stall segmenter, find_stall) and kernel B (rice_decode,
+   on rice_vbbe21_zd's residual streams of the bucket) are held and
+   timed the same way.  Then does the same for kernel 1's five entries,
+   o1_fc, rans_encode, o1_decode (both drans phases), o0_decode,
+   svb16_encode and svb16_decode (zd on and off), n4_decode and
+   find_stall on one read of L = 262144 (the one-row shape; each plain
+   version runs once there), for the drans decode's phase-grid merge
+   (expand_u8 at [B*K, Smax] = [8192, 2048]), and for find_stall on the
+   three fixture reads (tests/data/three-reads.blow5) and on the stall
+   set (16 reads: 500 random samples, a stall of 30,000 at 460 +- 4, a
+   60,000-step random walk), on log lines of their own.
 3. Presses and depresses ~1,028 reads (1,024 synthetic reads with
    log-uniform lengths in [4,000, 250,000] samples plus edge reads, two
    of which overflow the exception cap) through
-   honours_tpu_torch.engine.runner on the card, once per codec (the 18
+   honours_tpu_torch.engine.runner on the card, once per codec (the 20
    of PATHS).  Each path starts with every launch count at 0; it asserts
    every read comes back bit for bit, that its own kernels were launched
    and, for the capped codecs, that the overflow reads took the one-row
-   path, prints its ratio and encode and decode rates, and checks the
-   card's streams of a few reads against the CPU path's.  The four rice
-   codecs are encode only: their paths press, print the ratio and the
-   encode rate, and check the streams against the CPU path's.  Every
-   kernel must be launched by some path.
-4. The CLI: writes a BLOW5 (zlib records, svb-zd signals) of 64 of those
+   path, prints its ratio, encode and decode rates and, for the two
+   dstall codecs, its split rows (flag byte 1), and checks the card's
+   streams of a few reads against the CPU path's.  Every kernel must be
+   launched by some path.
+4. The stall phase: dstall_srans2 and dstall_drans press and depress the
+   fixture reads and the stall set through the runner on the card, every
+   read back bit for bit, with their split rows printed; dstall_drans
+   must split some row of the stall set.  dstall_srans2's canned model
+   gains nothing from a split there, so its split path is driven by
+   hand: split streams of the stall set built from press_srans2_batch's
+   streams on the card ([1][start:u16][length:u16][stall_len:u32][stall
+   blob][ns_len:u32][nonstall blob]) must decode through
+   depress_dstall_batch on the card.
+5. The CLI: writes a BLOW5 (zlib records, svb-zd signals) of 64 of those
    reads plus the four edge reads, runs `python -m honours_tpu_torch
    press` on it (through honours_tpu_torch.cli.main) with the default
    codec, with srans_vbbe21_zd and with hasgam_vbsse21_zdq, then
    `depress` on each result, and asserts every signal comes back and
    each pressed file names its codec; prints the file sizes.
-5. Prints one {"kernels": [...]} line, then {"ok": true, "device": ...}.
+6. Prints one {"kernels": [...]} line, then {"ok": true, "device": ...}.
 
 `--kernels-only` stops after step 2 and prints no result line: it times
 the kernels of whichever honours_tpu_torch is imported, e.g. an older
@@ -61,6 +74,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import struct
 import subprocess
 import sys
 import tempfile
@@ -149,6 +163,77 @@ def make_bucket(seed: int, B: int = 256, L: int = 1 << 16):
 
     sig, n = synthesize_bucket(B, L, seed)
     return torch.from_numpy(sig).cuda(), torch.from_numpy(n).cuda()
+
+
+def rows_on_card(reads, L: int = None):
+    """Reads padded to [B, L] int16 (L the longest read by default) and
+    their lengths, on the card."""
+    L = L or max(r.size for r in reads)
+    sig = np.zeros((len(reads), L), np.int16)
+    for i, r in enumerate(reads):
+        sig[i, : r.size] = r
+    n = np.array([r.size for r in reads], np.int32)
+    return torch.from_numpy(sig).cuda(), torch.from_numpy(n).cuda()
+
+
+def fixture_reads():
+    """The three reads of tests/data/three-reads.blow5."""
+    from honours_tpu_torch.io import blow5
+
+    path = Path(__file__).resolve().parent / "tests/data/three-reads.blow5"
+    return [r.signal for r in blow5.read_blow5(str(path), device="cpu").reads]
+
+
+def stall_set(seed: int):
+    """16 reads, each 500 random samples in [300, 900), a stall of 30,000
+    samples at 460 +- 4, then a 60,000-step random walk (steps in [-40,
+    40]) from 460, clipped to [0, 1200]."""
+    rng = np.random.default_rng(seed)
+    reads = []
+    for _ in range(16):
+        walk = np.clip(460 + np.cumsum(rng.integers(-40, 41, 60000)), 0, 1200)
+        reads.append(np.concatenate([
+            rng.integers(300, 900, 500), 460 + rng.integers(-4, 5, 30000),
+            walk]).astype(np.int16))
+    return reads
+
+
+def stall_case(sig, n):
+    """(name, kernel call, plain call, bytes, ops, library call) of kernel
+    A on the rows [B, L]: each sample below n read once (2 B), n read and
+    the three outputs written (13 B a row); about 15 operations a sample
+    over the three passes."""
+    from honours_tpu_torch.segment import segment_cuda as S
+
+    n32 = n.to(torch.int32).contiguous()
+    nsum = int(n32.to(torch.int64).clamp(0, sig.shape[1]).sum())
+    return ("find_stall", lambda: S.find_stall(sig, n32),
+            lambda: S.find_stall_plain(sig, n32),
+            2 * nsum + 13 * sig.shape[0], 15 * nsum, None)
+
+
+def rice_case(sig, n):
+    """(name, kernel call, plain call, bytes, ops, library call) of kernel
+    B on rice_vbbe21_zd's residual streams of the bucket [B, L], parsed
+    as its decode parses them: each row's stream from its offset to its
+    end read, [B, L] bytes and the offsets and counts written or read;
+    about 12 operations a value."""
+    from honours_tpu_torch.engine import rice_cuda as R
+    from honours_tpu_torch.engine.rice import press_rice_vb_zd_batch
+    from honours_tpu_torch.engine.vb_batch import parse_exblock_batch
+
+    B, L = sig.shape
+    emax = max(64, L // 16)
+    n64 = n.to(torch.int64)
+    stream, slen = press_rice_vb_zd_batch(sig, n, "vbbe21", emax)
+    p = parse_exblock_batch("vbbe21", stream, torch.full_like(n64, 2),
+                            n64 - 1, L, emax)
+    off = p["end_off"].clamp(0, stream.shape[1]).to(torch.int32)
+    cnt = (n64 - 1 - p["nex"]).clamp(0, L).to(torch.int32)
+    body = int((slen - off.to(torch.int64)).sum())
+    return ("rice_decode", lambda: R.rice_decode(stream, off, cnt, L),
+            lambda: R.rice_decode_plain(stream, off, cnt, L),
+            body + B * L + 8 * B, 12 * int(cnt.sum()), None)
 
 
 def walk_cases(sig, n, g, tabs):
@@ -263,6 +348,8 @@ def kernel_cases(seed: int):
         ("o1n_fc", lambda: N4.o1n_fc(sym, ctx, *nt),
          lambda: N4.o1n_fc_plain(sym, ctx, *nt),
          16 * sym.numel(), 8 * sym.numel(), None),
+        stall_case(sig, n),
+        rice_case(sig, n),
     ]
     shapes = (f"[{B}, {L}]", f"[{B * K}, {Smax}] (drans phase-grid merge)")
     return cases, options, merge, shapes, vb_cases(sig, n)
@@ -490,14 +577,18 @@ REPLACES = {
     "svb16_decode": "honours_tpu/engine/svb16_fused.py:266",
     "o1n_fc": "honours_tpu/engine/rans_n4_pallas.py:77",
     "n4_decode": "honours_tpu/engine/rans_n4_pallas.py:245",
+    # no TPU kernel: the segmenter's lax.scan, and the host rice decode
+    "find_stall": "honours_tpu/segment/__init__.py:132",
+    "rice_decode": "honours_tpu/codecs/rice.py:66",
 }
 
 #: kernels each main path must launch
 KERNEL_1 = {"monotone_compact_u8", "monotone_compact_i32",
             "compaction_shifts", "monotone_expand_u8", "monotone_expand_i32"}
-#: kernel 1's entries on the svb32 paths, and on the rice encodes
+#: kernel 1's entries on the svb32 paths
 SVB32 = {"monotone_compact_u8", "compaction_shifts", "monotone_expand_u8"}
-RICE = {"monotone_compact_u8", "monotone_compact_i32", "monotone_expand_i32"}
+RICE = KERNEL_1 | {"rice_decode"}
+DSTALL = KERNEL_1 | {"o1_fc", "rans_encode", "o1_decode", "find_stall"}
 PATHS = {
     "drans_vbbe21_zd": KERNEL_1 | {"o1_fc", "rans_encode", "o1_decode"},
     "svb12_zd": {"svb16_encode", "svb16_decode"},
@@ -516,11 +607,14 @@ PATHS = {
     "rice_vbe21_zd": RICE,
     "rice_vbbe21_zd": RICE,
     "rice_vbsbe21_zd": RICE,
-    "rice_vbsse21_zd": RICE | {"svb16_encode"},
+    "rice_vbsse21_zd": RICE | {"svb16_encode", "svb16_decode"},
+    "dstall_srans2": DSTALL,
+    "dstall_drans": DSTALL,
 }
 
 
-SLOW = ("rans_encode", "o1_decode", "o0_decode", "n4_decode")
+SLOW = ("rans_encode", "o1_decode", "o0_decode", "n4_decode", "find_stall",
+        "rice_decode")
 
 
 def time_case(name, kern, plain, nbytes, ops, library) -> dict:
@@ -596,9 +690,20 @@ def check_kernels(seed: int) -> dict:
     tabs = canned_o1_device_tables(sig.device)
     one_row, g = permute_fc_cases(sig, n, tabs)
     svb_n4, options, _ = svb_n4_cases(sig, n)
-    for case in one_row + walk_cases(sig, n, g, tabs)[0] + svb_n4 + options:
+    for case in (one_row + walk_cases(sig, n, g, tabs)[0] + svb_n4 + options
+                 + [stall_case(sig, n)]):
         log_case(f"[1, {sig.shape[1]}]", time_case(*case))
     log_case(merged, time_case(*merge))
+    # kernel A on reads with stalls: the fixture reads and the stall set
+    for label, reads in (("fixture reads", fixture_reads()),
+                         ("stall set", stall_set(seed))):
+        sig, n = rows_on_card(reads)
+        case = stall_case(sig, n)
+        found = case[1]()[0]
+        log_case(f"[{sig.shape[0]}, {sig.shape[1]}] ({label})",
+                 time_case(*case))
+        log(f"find_stall on the {label}: a stall in {int(found.sum())} of "
+            f"{len(reads)} reads")
     return results
 
 
@@ -622,10 +727,14 @@ def read_set(seed: int):
     return reads
 
 
+def split_rows(streams) -> int:
+    """Rows of a dstall codec's streams that took the split (flag 1)."""
+    return sum(s[0] == 1 for s in streams)
+
+
 def main_path(codec: str, reads) -> dict:
-    """Press and depress `reads` through the runner with `codec` (press
-    only for the encode-only rice codecs); returns this path's launch
-    counts."""
+    """Press and depress `reads` through the runner with `codec`; returns
+    this path's launch counts."""
     from honours_tpu_torch._build import KERNELS
     from honours_tpu_torch.engine.runner import (
         _NEX_AT,
@@ -638,13 +747,11 @@ def main_path(codec: str, reads) -> dict:
     from honours_tpu_torch.io.batching import bucket_reads
 
     kind = ENGINE_CODECS[codec]
-    decodes = not kind.startswith("rice_zd:")
     lens = [r.size for r in reads]
     raw = sum(2 * r.size for r in reads)
     warm = reads[:4] + reads[-4:]
     st = press_signals(warm, codec)
-    if decodes:
-        depress_signals(st, [r.size for r in warm], codec)
+    depress_signals(st, [r.size for r in warm], codec)
     torch.cuda.synchronize()
 
     for k in KERNELS.values():
@@ -653,18 +760,15 @@ def main_path(codec: str, reads) -> dict:
     streams = press_signals(reads, codec)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    if decodes:
-        out = depress_signals(streams, lens, codec)
-        torch.cuda.synchronize()
+    out = depress_signals(streams, lens, codec)
+    torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = {name: k.launches for name, k in KERNELS.items()}
 
-    if decodes:
-        bad = [i for i, (a, b) in enumerate(zip(reads, out))
-               if not np.array_equal(a, b)]
-        if bad:
-            raise AssertionError(f"{codec}: reads {bad[:8]} did not "
-                                 "round-trip")
+    bad = [i for i, (a, b) in enumerate(zip(reads, out))
+           if not np.array_equal(a, b)]
+    if bad:
+        raise AssertionError(f"{codec}: reads {bad[:8]} did not round-trip")
     idle = sorted(k for k in PATHS[codec] if launches[k] == 0)
     if idle:
         raise AssertionError(f"{codec}: kernels not launched: {idle}")
@@ -681,15 +785,12 @@ def main_path(codec: str, reads) -> dict:
                                  "overflow the exception cap")
     comp = sum(len(s) for s in streams)
     enc_s, dec_s = t1 - t0, t2 - t1
-    if decodes:
-        log(f"{codec}: all {len(reads)} reads round-trip bit for bit")
+    log(f"{codec}: all {len(reads)} reads round-trip bit for bit")
     log(f"{codec}: ratio {raw / comp:.6f}")
     log(f"{codec}: encode {enc_s:.3f} s, {raw / enc_s / 1e6:.1f} MB/s")
-    if decodes:
-        log(f"{codec}: decode {dec_s:.3f} s, {raw / dec_s / 1e6:.1f} MB/s")
-    else:
-        log(f"{codec}: decode not ported (encode only; honours_tpu "
-            "decodes rice with its host codec, see ROADMAP.md)")
+    log(f"{codec}: decode {dec_s:.3f} s, {raw / dec_s / 1e6:.1f} MB/s")
+    if codec.startswith("dstall"):
+        log(f"{codec}: split rows {split_rows(streams)} of {len(reads)}")
     log(f"{codec}: launches {launches}")
 
     # reference on a small input: the CPU path's bytes for a few reads
@@ -701,6 +802,76 @@ def main_path(codec: str, reads) -> dict:
     log(f"{codec}: card streams equal the CPU path's on {len(small)} "
         "small reads")
     return launches
+
+
+def stall_phase(seed: int) -> None:
+    """dstall_srans2 and dstall_drans through the runner on the card over
+    the fixture reads and the stall set; dstall_srans2's split streams
+    built by hand from press_srans2_batch on the card, decoded by
+    depress_dstall_batch on the card."""
+    from honours_tpu_torch.engine.dstall import (
+        _split_batch,
+        depress_dstall_batch,
+    )
+    from honours_tpu_torch.engine.pipeline import (
+        canned_o1_device_tables,
+        press_srans2_batch,
+    )
+    from honours_tpu_torch.engine.runner import depress_signals, press_signals
+
+    stalls = stall_set(seed)
+    for label, reads in (("fixture reads", fixture_reads()),
+                         ("stall set", stalls)):
+        lens = [r.size for r in reads]
+        for codec in ("dstall_srans2", "dstall_drans"):
+            streams = press_signals(reads, codec)
+            out = depress_signals(streams, lens, codec)
+            if not all(np.array_equal(a, b) for a, b in zip(reads, out)):
+                raise AssertionError(f"{codec}: the {label} did not "
+                                     "round-trip")
+            k = split_rows(streams)
+            log(f"{codec} on the {label}: every read back, split rows {k} "
+                f"of {len(reads)}, ratio "
+                f"{sum(2 * m for m in lens) / sum(map(len, streams)):.6f}")
+            if codec == "dstall_drans" and label == "stall set" and k == 0:
+                raise AssertionError("dstall_drans split no row of the "
+                                     "stall set")
+
+    # dstall_srans2's split path, its streams built by hand for the reads
+    # of the stall set that have a split
+    sig, n = rows_on_card(stalls)
+    L = sig.shape[1]
+    tabs = canned_o1_device_tables(sig.device)
+    ok, start, length = _split_batch(sig, n)
+    rows = torch.nonzero(ok).flatten().tolist()
+    if not rows:
+        raise AssertionError("no read of the stall set has a split")
+    stalls = [stalls[i] for i in rows]
+    n = n[rows]
+    start, length = start[rows].tolist(), length[rows].tolist()
+    stall = [r[a: a + m] for r, a, m in zip(stalls, start, length)]
+    rest = [np.concatenate([r[:a], r[a + m:]])
+            for r, a, m in zip(stalls, start, length)]
+    blobs = []
+    for part in (stall, rest):
+        st, sl = press_srans2_batch(*rows_on_card(part, L), tabs, L)
+        blobs.append([st[i, : int(sl[i])].cpu().numpy().tobytes()
+                      for i in range(len(part))])
+    streams = [b"\x01" + struct.pack("<HHI", a, m, len(s)) + s
+               + struct.pack("<I", len(ns)) + ns
+               for a, m, s, ns in zip(start, length, *blobs)]
+    W = -(-max(map(len, streams)) // 128) * 128
+    buf = np.zeros((len(streams), W), np.uint8)
+    for i, s in enumerate(streams):
+        buf[i, : len(s)] = np.frombuffer(s, np.uint8)
+    out = depress_dstall_batch(torch.from_numpy(buf).to(sig.device), n,
+                               tabs, L, L).cpu().numpy()
+    if not all(np.array_equal(out[i, : r.size], r)
+               for i, r in enumerate(stalls)):
+        raise AssertionError("dstall_srans2: hand-built split streams did "
+                             "not decode")
+    log(f"dstall_srans2: {len(streams)} hand-built split streams of the "
+        "stall set decode through depress_dstall_batch on the card")
 
 
 def cli_phase(reads) -> None:
@@ -785,6 +956,7 @@ def main(argv=None) -> int:
     for codec in PATHS:
         for k, c in main_path(codec, reads).items():
             results[k]["launches"] += c
+    stall_phase(args.seed)
     cli_phase(reads)
     idle = [k for k, r in results.items() if r["launches"] == 0]
     if idle:

@@ -1,9 +1,11 @@
 """PyTorch/CUDA port of the honours_tpu batched codec engines.
 
-The package runs the batched encode and decode of drans_vbbe21_zd,
-srans_vbbe21_zd, srans2_vbbe21_zd, srans3_vbbe21_zd and the VBZ
-container's svb12_zd / svb12 on an NVIDIA Hopper card, with hand-written
-CUDA kernels (csrc/) in place of the JAX package's Pallas kernels.
+The package runs the batched encode and decode of 20 of the JAX
+package's 21 engine codecs (engine/runner.py ENGINE_CODECS; all but
+shuffman_vbbe21_zd) on an NVIDIA Hopper card, with hand-written CUDA
+kernels (csrc/) in place of the JAX package's Pallas kernels, and for
+the stall segmenter and the rice decode, which the JAX package runs as
+a lax.scan and on the host.
 Every kernel wrapper routes by the device of the tensors it is given:
 CUDA tensors launch the kernel, CPU tensors run the plain PyTorch
 version beside it.  Entry points: honours_tpu_torch.engine.runner

@@ -10,9 +10,9 @@ a ported codec (default drans_vbbe21_zd) through the bucketed runner;
 `depress` restores a stock BLOW5 (svb-zd signal, zlib records).  The
 files are byte-identical to `python -m honours_tpu press --tpu` /
 `depress --tpu`.  Both run on the CUDA card and raise without one unless
-`--device cpu` is given.  `codecs` lists the ported codecs, the rice
-codecs marked "(encode only)": `depress` of a file they pressed raises
-NotImplementedError.
+`--device cpu` is given.  `codecs` lists the 20 ported codecs; `press`
+with shuffman_vbbe21_zd, the one codec of honours_tpu's engine not
+ported yet, raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -45,8 +45,7 @@ def main(argv=None) -> int:
 
     if args.cmd == "codecs":
         for name in sorted(runner.ENGINE_CODECS):
-            only = runner.ENGINE_CODECS[name].startswith("rice_zd:")
-            print(name + ("  (encode only)" if only else ""))
+            print(name)
         return 0
 
     from honours_tpu_torch.device import resolve_device

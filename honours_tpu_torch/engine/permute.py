@@ -9,6 +9,7 @@ expansion (element j lands at j + shift[j], shift non-decreasing).
   compaction_shifts(keep)                 — holes before each kept one
   monotone_expand(values, shift, valid)   — element j lands at j + shift[j]
   rowwise_shift_left(buf, shift, width)   — whole-row shift by a row scalar
+  rowwise_shift_right(buf, shift, width)  — the same, to the right
   rowwise_concat(segments, total)         — ragged row concatenation
   forward_fill / seg_or_scan              — run fills and segmented ORs
 
@@ -101,6 +102,24 @@ def rowwise_shift_left(buf, shift, width: int):
     if width > M:
         out = torch.nn.functional.pad(out, (0, width - M))
     return out[:, :width]
+
+
+def rowwise_shift_right(buf, shift, width: int):
+    """Shift each row right by its own amount (zero fill); out width
+    `width`, elements shifted past it dropped.  A whole-row right shift
+    is an expansion with a constant shift per row (elements that would
+    land past `width` invalid), as honours_tpu's Pallas route computes
+    it.  Callers keep 0 <= shift <= width."""
+    B, M = buf.shape
+    if width > M:
+        buf = torch.nn.functional.pad(buf, (0, width - M))
+    buf = buf[:, :width]
+    cols = torch.arange(width, device=buf.device)[None, :]
+    shift = shift.to(torch.int64)[:, None]
+    valid = cols < width - shift
+    sh = torch.where(valid, shift, 0).expand(B, width)
+    out, _ = monotone_expand(buf, sh, valid, width)
+    return out
 
 
 def rowwise_concat(segments, total_cols: int):

@@ -1,4 +1,4 @@
-"""Batched Golomb-Rice encode (the rice_vb*_zd family).
+"""Batched Golomb-Rice encode and decode (the rice_vb*_zd family).
 
 The reference's rice coder (press/press.c:4854-5391) emits, for each
 residual byte v: q = v >> k ones, a zero, then the k low bits of v
@@ -10,9 +10,14 @@ at each value's terminator position, so a run of any length costs
 nothing.
 
 Streams equal honours_tpu's engine byte for byte, and its host codec
-(codecs/rice.py) for every read of n >= 1.  Decode is not ported: a
-rice stream is one serial bit stream per read with data-dependent
-record lengths (see ROADMAP.md).
+(codecs/rice.py) for every read of n >= 1.
+
+Decode: a rice stream is one serial bit stream per read with
+data-dependent record lengths, so kernel B (rice_cuda.py) walks it, a
+read a thread.  honours_tpu decodes it on the host only
+(codecs/rice.py RiceVbZdCodec.depress); the port parses the exception
+block as the vb_zd decode does, rice-decodes the n - 1 - nex residual
+bytes after it and fills them in around the exceptions.
 """
 
 from __future__ import annotations
@@ -22,12 +27,18 @@ import torch
 from honours_tpu_torch.engine.bits import (
     _words_to_bytes_le,
     pack_fields_lsb,
+    read_u16le,
     rowwise_concat,
     u16le_bytes,
 )
 from honours_tpu_torch.engine.permute import M32
-from honours_tpu_torch.engine.pipeline import _zd_parts
-from honours_tpu_torch.engine.vb_batch import _exblock_parts
+from honours_tpu_torch.engine.pipeline import _zd_merge, _zd_parts
+from honours_tpu_torch.engine.rice_cuda import rice_decode
+from honours_tpu_torch.engine.vb_batch import (
+    _exblock_parts,
+    parse_exblock_batch,
+)
+from honours_tpu_torch.engine.vbbe21 import vbbe21_fill_batch
 
 
 def rice_encode_batch(data, dlen):
@@ -91,3 +102,17 @@ def press_rice_vb_zd_batch(sig, n, kind: str, emax: int = None):
     two = torch.full((B,), 2, dtype=torch.int64, device=sig.device)
     segs = [(u16le_bytes(zd0), two)] + segs + [(blob, blob_len)]
     return rowwise_concat(segs, 2 + 32 + 7 * emax + blob.shape[1])
+
+
+def depress_rice_vb_zd_batch(stream, n, kind: str, L: int, emax: int = None):
+    """Batched rice_<kind>_zd decode -> [B, L] int16 (zero past n)."""
+    B, M = stream.shape
+    n = n.to(torch.int64)
+    zero = torch.zeros((B,), dtype=torch.int64, device=stream.device)
+    zd0 = read_u16le(stream, zero)
+    parsed = parse_exblock_batch(kind, stream, zero + 2, n - 1, L, emax)
+    ndata = (n - 1 - parsed["nex"]).clamp(0, L)
+    data = rice_decode(stream, parsed["end_off"].clamp(0, M).to(torch.int32),
+                       ndata.to(torch.int32), L)
+    vals = vbbe21_fill_batch(parsed, data, n - 1, L)
+    return _zd_merge(zd0, vals, n, L)

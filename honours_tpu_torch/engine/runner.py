@@ -15,16 +15,22 @@ Codecs and their engines:
   svb_zd, svb0124_zd  engine/vb_batch.py  (classic svb32 over zd)
   hasgam_vbsse21_zdq  engine/exzd.py      (ex-zd, slow5lib's variant)
   rice_vbe21_zd, rice_vbbe21_zd, rice_vbsbe21_zd, rice_vbsse21_zd
-                      engine/rice.py      (encode only: depress raises)
+                      engine/rice.py      (rice-coded residual bytes)
+  dstall_srans2       engine/dstall.py    (stall split, srans2 branches)
+  dstall_drans        engine/dstall_drans.py (stall split, drans branches)
+The one codec of honours_tpu's ENGINE_CODECS not ported is
+shuffman_vbbe21_zd (ROADMAP.md).
 
 Two kinds of rows leave the bucket's group and run alone, as one-row
 batches with emax = L (the grouping of a single-read host press, so the
 bytes are the host codec's):
 - encode and decode rows with more exceptions than the bucket's cap
-  emax = L/16 (the exception count in the stream header is exact even
-  when the capped buffers overflowed, so such rows are found from their
-  own bytes); svb streams have no exception cap;
-- drans decode rows whose G header is <= 1 (streams written per read).
+  emax = L/16 (the exception count in the stream header, or in each
+  branch blob's header for the dstall codecs, is exact even when the
+  capped buffers overflowed, so such rows are found from their own
+  bytes); svb streams have no exception cap;
+- drans and dstall_drans decode rows whose (largest branch) G header is
+  <= 1 (streams written per read).
 """
 
 from __future__ import annotations
@@ -39,6 +45,14 @@ from honours_tpu_torch.engine.drans import (
     depress_drans_batch,
     press_drans_batch,
 )
+from honours_tpu_torch.engine.dstall import (
+    depress_dstall_batch,
+    press_dstall_batch,
+)
+from honours_tpu_torch.engine.dstall_drans import (
+    depress_dstall_drans_batch,
+    press_dstall_drans_batch,
+)
 from honours_tpu_torch.engine.exzd import depress_exzd_batch, press_exzd_batch
 from honours_tpu_torch.engine.pipeline import (
     canned_o1_device_tables,
@@ -51,7 +65,10 @@ from honours_tpu_torch.engine.pipeline import (
     press_srans3_batch,
     press_srans_batch,
 )
-from honours_tpu_torch.engine.rice import press_rice_vb_zd_batch
+from honours_tpu_torch.engine.rice import (
+    depress_rice_vb_zd_batch,
+    press_rice_vb_zd_batch,
+)
 from honours_tpu_torch.engine.svb16 import (
     svb16_decode_batch,
     svb16_encode_batch,
@@ -85,14 +102,17 @@ ENGINE_CODECS = {
     "rice_vbbe21_zd": "rice_zd:vbbe21",
     "rice_vbsbe21_zd": "rice_zd:vbsbe21",
     "rice_vbsse21_zd": "rice_zd:vbsse21",
+    "dstall_srans2": "dstall",
+    "dstall_drans": "dstall_drans",
 }
 
 #: byte offset of the exception count in each capped family's stream:
 #: [G:u16][zd0:u16][nex:u32]..., [zd0:u16][nex:u32]... and ex-zd's
-#: [ver:1][nin:u64][q:1][zd0:u16][nex:u32]...; the svb families have no
+#: [ver:1][nin:u64][q:1][zd0:u16][nex:u32]...; for the dstall families,
+#: in each branch blob (srans2's and drans's); the svb families have no
 #: cap
 _NEX_AT = {"drans": 4, "srans": 2, "srans2": 2, "srans3": 2, "vb_zd": 2,
-           "rice_zd": 2, "exzd": 12}
+           "rice_zd": 2, "exzd": 12, "dstall": 2, "dstall_drans": 4}
 
 #: capped kind -> (device tables, batched press, batched depress)
 _CAPPED = {
@@ -103,6 +123,10 @@ _CAPPED = {
                depress_srans2_batch),
     "srans3": (canned_o1n_device_tables, press_srans3_batch,
                depress_srans3_batch),
+    "dstall": (canned_o1_device_tables, press_dstall_batch,
+               depress_dstall_batch),
+    "dstall_drans": (canned_o1_device_tables, press_dstall_drans_batch,
+                     depress_dstall_drans_batch),
 }
 
 
@@ -112,14 +136,14 @@ def engine_kind(codec_name: str) -> str:
     if codec_name not in ENGINE_CODECS:
         raise NotImplementedError(
             f"{codec_name} is not ported yet: this port runs "
-            f"{', '.join(ENGINE_CODECS)}; see ROADMAP.md, 'Modules to port'")
+            f"{', '.join(ENGINE_CODECS)}; shuffman_vbbe21_zd is still to "
+            "port, see ROADMAP.md, 'Modules to port'")
     return ENGINE_CODECS[codec_name]
 
 
 def batch_engine(codec_name: str, dev):
     """(press(sig, n, emax) -> (stream, len), depress(buf, n, L, emax) ->
-    [B, L] int16): the batched engine of a codec on device `dev`; depress
-    is None for a rice codec, whose decode is not ported."""
+    [B, L] int16): the batched engine of a codec on device `dev`."""
     kind = engine_kind(codec_name)
     family, _, sub = kind.partition(":")
     if kind in _CAPPED:
@@ -138,7 +162,9 @@ def batch_engine(codec_name: str, dev):
         return press_exzd_batch, depress_exzd_batch
     if family == "rice_zd":
         return (lambda sig, n, emax: press_rice_vb_zd_batch(sig, n, sub,
-                                                            emax), None)
+                                                            emax),
+                lambda buf, n, L, emax: depress_rice_vb_zd_batch(
+                    buf, n, sub, L, emax))
     zd = kind == "svb16_zd"
     return (lambda sig, n, emax: svb16_encode_batch(sig, n, zd),
             lambda buf, n, L, emax: svb16_decode_batch(buf, n, L, zd))
@@ -150,17 +176,52 @@ def _emax(L: int) -> int:
 
 def _nex_overflowed(blob: bytes, kind: str, emax: int) -> bool:
     """The exact exception count in the stream header exceeds emax."""
-    at = _NEX_AT.get(kind.partition(":")[0])
+    family = kind.partition(":")[0]
+    at = _NEX_AT.get(family)
+    if family in ("dstall", "dstall_drans"):
+        return _dstall_overflowed(blob, at, emax)
     if at is None or len(blob) < at + 4:
         return False
     (nex,) = struct.unpack_from("<I", blob, at)
     return nex > emax
 
 
+def _dstall_overflowed(blob: bytes, at: int, emax: int) -> bool:
+    """A dstall stream's branch blob, [0][len:u32][blob] or [1][start:u16]
+    [length:u16][stall_len:u32][stall blob][ns_len:u32][nonstall blob],
+    has its exception count (at byte `at` of the blob) above emax; a
+    split stream too short to hold its nonstall blob's count counts as
+    overflowed."""
+    if len(blob) < 9 + at:
+        return False
+    if not blob[0]:
+        return struct.unpack_from("<I", blob, 5 + at)[0] > emax
+    (stall_len,) = struct.unpack_from("<I", blob, 5)
+    ns_off = 9 + stall_len + 4
+    if len(blob) < ns_off + at + 4:
+        return True
+    return (struct.unpack_from("<I", blob, 9 + at)[0] > emax
+            or struct.unpack_from("<I", blob, ns_off + at)[0] > emax)
+
+
+def _gmax(blob: bytes) -> int:
+    """The largest branch-blob G header of a dstall_drans stream."""
+    if not blob[0]:
+        return struct.unpack_from("<H", blob, 5)[0]
+    (stall_len,) = struct.unpack_from("<I", blob, 5)
+    g1 = struct.unpack_from("<H", blob, 9)[0] if stall_len >= 2 else 0
+    off = 9 + stall_len
+    (ns_len,) = struct.unpack_from("<I", blob, off)
+    g2 = struct.unpack_from("<H", blob, off + 4)[0] if ns_len >= 2 else 0
+    return max(g1, g2)
+
+
 def _per_read(blob: bytes, kind: str) -> bool:
-    """drans streams with G <= 1 were pressed alone and decode alone."""
-    return (kind == "drans" and len(blob) >= 2
-            and struct.unpack_from("<H", blob, 0)[0] <= 1)
+    """drans and dstall_drans streams with G <= 1 were pressed alone and
+    decode alone."""
+    if kind == "drans":
+        return len(blob) >= 2 and struct.unpack_from("<H", blob, 0)[0] <= 1
+    return kind == "dstall_drans" and _gmax(blob) <= 1
 
 
 def _press_one(press, sig: np.ndarray, L: int, dev) -> bytes:
@@ -206,16 +267,8 @@ def press_signals(signals, codec_name: str = "drans_vbbe21_zd",
 def depress_signals(streams, lengths, codec_name: str = "drans_vbbe21_zd",
                     max_b: int = 256, device="cuda"):
     """Decode per-read streams (from either package) -> int16 arrays in
-    original order.  The bucketing must match the encoder's max_b.
-    Raises NotImplementedError for a rice codec, whose decode is not
-    ported."""
+    original order.  The bucketing must match the encoder's max_b."""
     kind = engine_kind(codec_name)
-    if kind.startswith("rice_zd:"):
-        raise NotImplementedError(
-            f"{codec_name} decode is not ported: a rice stream is one "
-            "serial bit stream per read, which honours_tpu decodes with "
-            "its host codec (honours_tpu/codecs/rice.py); see ROADMAP.md, "
-            "'Modules to port'")
     dev = resolve_device(device)
     _, depress = batch_engine(codec_name, dev)
     buckets = bucket_reads([np.zeros(int(m), np.int16) for m in lengths],

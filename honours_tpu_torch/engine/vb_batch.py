@@ -354,6 +354,20 @@ def press_vb_zd_batch(sig, n, kind: str, emax: int = None):
     return rowwise_concat([(u16le_bytes(zd0), two)] + segs, 2 + width)
 
 
+def parse_exblock_batch(kind: str, stream, base_off, n, L: int,
+                        emax: int = None):
+    """Parse the exception block of a container other than vb1e2 at
+    base_off -> {ex_grid, ex_mask, nex, end_off}."""
+    if kind == "vbe21":
+        return vbe21_parse_batch(stream, base_off, n, L, emax)
+    if kind == "vbbe21":
+        return vbbe21_parse_batch(stream, base_off, n, L, emax)
+    if kind in ("vbsbe21", "vbsse21"):
+        return vbs_parse_batch(stream, base_off, n, L, kind == "vbsse21",
+                               emax)
+    raise KeyError(kind)
+
+
 def depress_vb_zd_batch(stream, n, kind: str, L: int, emax: int = None):
     """Batched <kind>_zd decode -> [B, L] int16 (zero past n)."""
     B = stream.shape[0]
@@ -364,15 +378,7 @@ def depress_vb_zd_batch(stream, n, kind: str, L: int, emax: int = None):
     if kind == "vb1e2":
         vals = vb1e2_decode_batch(stream, base, n - 1, L, emax)
     else:
-        if kind == "vbe21":
-            parsed = vbe21_parse_batch(stream, base, n - 1, L, emax)
-        elif kind == "vbbe21":
-            parsed = vbbe21_parse_batch(stream, base, n - 1, L, emax)
-        elif kind in ("vbsbe21", "vbsse21"):
-            parsed = vbs_parse_batch(stream, base, n - 1, L,
-                                     kind == "vbsse21", emax)
-        else:
-            raise KeyError(kind)
+        parsed = parse_exblock_batch(kind, stream, base, n - 1, L, emax)
         data = rowwise_shift_left(stream, parsed["end_off"], L)
         vals = vbbe21_fill_batch(parsed, data, n - 1, L)
     return _zd_merge(zd0, vals, n, L)

@@ -197,8 +197,7 @@ def read_blow5(path: str, decode_signal: bool = True,
                device="cuda") -> Blow5File:
     """Parse a BLOW5 file.  Signals compressed with a ported codec are
     decoded on `device` by one engine.runner.depress_signals call over
-    the whole file, which raises NotImplementedError for the
-    encode-only rice codecs; decode_signal=False leaves them as streams
+    the whole file; decode_signal=False leaves them as streams
     (read.signal_stream / read.signal_len)."""
     with open(path, "rb") as f:
         data = f.read()

@@ -123,7 +123,7 @@ def test_cli_files_match_reference_and_cross_decode(tmp_path, src_file,
 def test_cli_rules(tmp_path, src_file, capsys):
     """Default device is the card (RuntimeError here without one);
     codecs the port does not run raise NotImplementedError; `codecs`
-    lists the 18 ported codecs, the four rice codecs as encode only."""
+    lists the 20 ported codecs, with no mark."""
     out = str(tmp_path / "out.blow5")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -135,24 +135,22 @@ def test_cli_rules(tmp_path, src_file, capsys):
                   "shuffman_vbbe21_zd", "--device", "cpu"])
     f5 = tb.read_blow5(str(src_file))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tb.write_blow5(out, f5, signal_codec="dstall_drans",
+        tb.write_blow5(out, f5, signal_codec="shuffman_vbbe21_zd",
                        signal_streams=[b""] * len(f5.reads))
     assert cli.main(["codecs"]) == 0
     lines = capsys.readouterr().out.splitlines()
-    assert [ln.split()[0] for ln in lines] == sorted([
+    assert lines == sorted([
         "drans_vbbe21_zd", "srans_vbbe21_zd", "srans2_vbbe21_zd",
         "srans3_vbbe21_zd", "svb12_zd", "svb12", "vb1e2_zd", "vbe21_zd",
         "vbbe21_zd", "vbsbe21_zd", "vbsse21_zd", "svb_zd", "svb0124_zd",
-        "hasgam_vbsse21_zdq", *RICE])
-    assert sorted(ln.split()[0] for ln in lines
-                  if ln.endswith("(encode only)")) == sorted(RICE)
+        "hasgam_vbsse21_zdq", *RICE, "dstall_srans2", "dstall_drans"])
 
 
 @pytest.mark.parametrize("codec", RICE)
 def test_cli_rice_file_presses_and_depress_raises(tmp_path, src_file,
                                                   mixed_reads, codec):
     """A rice file's streams are the runner's and the host codec decodes
-    them; depress raises the runner's NotImplementedError."""
+    them; depress raises nothing and gives the reads back."""
     from honours_tpu.codecs import base as registry
     from honours_tpu_torch.engine import runner
 
@@ -166,9 +164,10 @@ def test_cli_rice_file_presses_and_depress_raises(tmp_path, src_file,
     host = registry.get(codec)
     for st, s in zip(streams, mixed_reads):
         assert np.array_equal(host.depress(st, s.size), s)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["depress", str(ours), str(tmp_path / "back.blow5"),
-                  "--device", "cpu"])
+    back = tmp_path / "back.blow5"
+    assert cli.main(["depress", str(ours), str(back), "--device", "cpu"]) == 0
+    got = tb.read_blow5(str(back)).reads
+    assert all(np.array_equal(r.signal, s) for r, s in zip(got, mixed_reads))
 
 
 def test_module_entry_point_loads_no_jax(tmp_path, src_file):

@@ -789,11 +789,182 @@ def test_rans_encode_kernel_edges(cuda, case):
     _same(E.encode_core(view, Smax), E.encode_core_plain(view, Smax))
 
 
+# ---------------------------------------------------------------------------
+# kernel A (the stall segmenter) and kernel B (rice decode)
+# ---------------------------------------------------------------------------
+
+
+def _stall_row(rng, m, stall=0, at=0, n_rest=2000):
+    """m samples: alternating extremes (never in band) with `stall`
+    in-band samples at 460 +- 4 from `at`, then up to n_rest more."""
+    x = np.empty(m, np.int64)
+    x[0::2] = rng.integers(0, 60, x[0::2].size)
+    x[1::2] = rng.integers(1100, 1200, x[1::2].size)
+    x[at: at + stall] = 460 + rng.integers(-4, 5, min(stall, m - at))
+    return x.astype(np.int16)
+
+
+def _padded(reads, L=None):
+    L = L or max(r.size for r in reads)
+    sig = np.zeros((len(reads), L), np.int16)
+    for i, r in enumerate(reads):
+        sig[i, : r.size] = r
+    return (torch.from_numpy(sig),
+            torch.tensor([r.size for r in reads], dtype=torch.int32))
+
+
+def _stall_same(cuda, sig, n):
+    from honours_tpu_torch.segment import segment_cuda as S
+
+    got = S.find_stall(sig.to(cuda), n.to(cuda))
+    torch.cuda.synchronize()
+    _same(got, S.find_stall_plain(sig, n))
+    return got
+
+
+@pytest.mark.parametrize("m", [0, 1, 37, 38, 149, 150, 151])
+def test_find_stall_short_reads(cuda, m):
+    """Reads of n = m in-band samples, alone and in a batch of 3 beside
+    longer reads with a run of m in-band samples (a segment once the run
+    and its 5 tolerated excursions reach 38 = window * stall_len), at
+    widths L % 8 == 0 and not."""
+    rng = np.random.default_rng(m)
+    head = (460 + rng.integers(-4, 5, m)).astype(np.int16)
+    reads = [head, np.concatenate([head, _stall_row(rng, 300)]),
+             _stall_row(rng, 2000, stall=m, at=700)]
+    _stall_same(cuda, *_padded(reads[:1], max(m, 1)))
+    for L in (2301, 2304):
+        got = _stall_same(cuda, *_padded(reads, L))
+        assert got[0].tolist() == [False, m >= 33, m >= 33]
+
+
+def test_find_stall_fixture_and_stall_set(cuda):
+    """chip_smoke.py's fixture reads and stall set."""
+    from chip_smoke import fixture_reads, stall_set
+
+    got = _stall_same(cuda, *_padded(fixture_reads()))
+    assert got[0].all()
+    got = _stall_same(cuda, *_padded(stall_set(0)))
+    assert int(got[0].sum()) >= 12
+
+
+def test_find_stall_float_stress_and_late_stall(cuda):
+    """120,000 alternating extremes after a 700-sample stall (the float
+    sums' stress case), and a stall from sample 70,000 (past uint16)."""
+    rng = np.random.default_rng(77)
+    x = _stall_row(rng, 120000, stall=700)
+    late = _stall_row(rng, 73500, stall=3000, at=70000)
+    got = _stall_same(cuda, *_padded([x, late]))
+    assert got[1].tolist()[1] >= 70000
+
+
+@pytest.mark.parametrize("B", [1, 3, 256])
+def test_find_stall_batches(cuda, B):
+    """Synthetic buckets, at L = 65536 and at an odd width from a view 2
+    bytes into its storage (the one-sample-a-load path), n clamped."""
+    from honours_tpu_torch.synth import synthesize_bucket
+
+    sig, n = synthesize_bucket(B, 1 << 16, seed=B)
+    sig, n = torch.from_numpy(sig), torch.from_numpy(n)
+    _stall_same(cuda, sig, n)
+    L = 9999
+    store = torch.zeros(B * L + 8, dtype=torch.int16)
+    store[1: 1 + B * L] = sig[:, :L].reshape(-1)
+    view = store.to(cuda)[1: 1 + B * L].view(B, L)
+    assert view.data_ptr() % 16 == 2
+    from honours_tpu_torch.segment import segment_cuda as S
+
+    n2 = (n % 12000).to(torch.int32)
+    _same(S.find_stall(view, n2.to(cuda)), S.find_stall_plain(view.cpu(), n2))
+
+
+def _rice_rows(seed=0):
+    """Residual byte rows whose rice streams take every k, runs of 255
+    under small k, all-255 rows, one value and none; and their streams
+    from the port's encoder."""
+    from honours_tpu_torch.engine.rice import rice_encode_batch
+
+    rng = np.random.default_rng(seed)
+    rows = [rng.geometric(1 / s, 700).clip(1, 256).astype(np.int64) - 1
+            for s in (1.2, 2, 4, 8, 16, 32, 64, 110, 200)]
+    for k_lo in (0, 1, 2):
+        r = rng.integers(0, 1 << k_lo, 300)
+        r[::150] = 255
+        rows.append(r)
+    rows += [np.full(500, 255), np.full(33, 255), np.array([200]),
+             np.array([0]), np.zeros(0, np.int64)]
+    N = max(r.size for r in rows)
+    data = np.zeros((len(rows), N), np.uint8)
+    for i, r in enumerate(rows):
+        data[i, : r.size] = r
+    cnt = torch.tensor([r.size for r in rows], dtype=torch.int32)
+    blob, blen = rice_encode_batch(torch.from_numpy(data), cnt)
+    return rows, [blob[i, : int(blen[i])].numpy().tobytes()
+                  for i in range(len(rows))], cnt
+
+
+@pytest.mark.parametrize("pad", [0, 1, 2, 3, 5])
+@pytest.mark.parametrize("N", [700, 701])
+def test_rice_decode_kernel_matches_plain(cuda, pad, N):
+    """Every k, empty rows, one value, runs of 255, streams of every
+    length mod 4 (some ending on a word edge) starting pad + row % 4
+    bytes into rows of garbage, on a view at an odd address; N % 4 == 0
+    (word stores) and not."""
+    from honours_tpu_torch.engine import rice_cuda as R
+
+    rows, blobs, cnt = _rice_rows()
+    ks = {(b[0] & 1) << 2 | (b[0] >> 1 & 1) << 1 | (b[0] >> 2 & 1)
+          for b in blobs}
+    assert ks == set(range(8))
+    assert {len(b) % 4 for b in blobs} == {0, 1, 2, 3}
+    M = max(len(b) for b in blobs) + pad + 3
+    st = np.full((len(rows), M), 0xFF, np.uint8)
+    off = np.zeros(len(rows), np.int32)
+    for i, b in enumerate(blobs):
+        o = pad + i % 4
+        st[i, o: o + len(b)] = np.frombuffer(b, np.uint8)
+        st[i, o + len(b):] = 0
+        off[i] = o
+    store = torch.zeros(st.size + 16, dtype=torch.uint8)
+    store[3: 3 + st.size] = torch.from_numpy(st).reshape(-1)
+    view = store.to(cuda)[3: 3 + st.size].view(st.shape)
+    assert view.data_ptr() % 4 == 3
+    off, cnt = torch.from_numpy(off), cnt.clamp(max=N)
+    got = R.rice_decode(view, off.to(cuda), cnt.to(cuda), N)
+    torch.cuda.synchronize()
+    want = R.rice_decode_plain(view.cpu(), off, cnt, N)
+    _same(got, want)
+    for i, r in enumerate(rows):
+        assert np.array_equal(want[i, : r.size].numpy(), r[:N]), i
+
+
+def test_rice_decode_kernel_cut_streams_and_counts(cuda):
+    """Streams cut short, offsets past the row, counts past N or
+    negative: the kernel reads zeros past each row and faults nowhere."""
+    from honours_tpu_torch.engine import rice_cuda as R
+
+    rows, blobs, _ = _rice_rows(1)
+    M = 40
+    st = np.zeros((len(rows), M), np.uint8)
+    for i, b in enumerate(blobs):
+        st[i, : min(M, len(b))] = np.frombuffer(b[:M], np.uint8)
+    st = torch.from_numpy(st)
+    off = torch.tensor([i % 3 * 20 for i in range(len(rows))],
+                       dtype=torch.int32)
+    cnt = torch.tensor([(-5, 10, 700, 5000)[i % 4] for i in range(len(rows))],
+                       dtype=torch.int32)
+    for N in (0, 1, 700):
+        got = R.rice_decode(st.to(cuda), off.to(cuda), cnt.to(cuda), N)
+        torch.cuda.synchronize()
+        _same(got, R.rice_decode_plain(st, off, cnt, N))
+
+
 KERNEL_1 = {"monotone_compact_u8", "monotone_compact_i32",
             "compaction_shifts", "monotone_expand_u8", "monotone_expand_i32"}
-#: kernel 1's entries on the svb32 paths, and on the rice encodes
+#: kernel 1's entries on the svb32 paths
 SVB32 = {"monotone_compact_u8", "compaction_shifts", "monotone_expand_u8"}
-RICE = {"monotone_compact_u8", "monotone_compact_i32", "monotone_expand_i32"}
+RICE = KERNEL_1 | {"rice_decode"}
+DSTALL = KERNEL_1 | {"o1_fc", "rans_encode", "o1_decode", "find_stall"}
 KERNELS_OF = {
     "drans_vbbe21_zd": KERNEL_1 | {"o1_fc", "rans_encode", "o1_decode"},
     "srans_vbbe21_zd": KERNEL_1 | {"o1_fc", "rans_encode", "o0_decode"},
@@ -812,7 +983,9 @@ KERNELS_OF = {
     "rice_vbe21_zd": RICE,
     "rice_vbbe21_zd": RICE,
     "rice_vbsbe21_zd": RICE,
-    "rice_vbsse21_zd": RICE | {"svb16_encode"},
+    "rice_vbsse21_zd": RICE | {"svb16_encode", "svb16_decode"},
+    "dstall_srans2": DSTALL,
+    "dstall_drans": DSTALL,
 }
 
 
@@ -828,9 +1001,8 @@ def test_decode_kernel_and_runner_round_trip(cuda, codec):
     before = {k: v.launches for k, v in KERNELS.items()}
     streams = press_signals(reads, codec, device=cuda)
     assert streams == press_signals(reads, codec, device="cpu")
-    if not codec.startswith("rice_"):  # rice decode is not ported
-        out = depress_signals(streams, [r.size for r in reads], codec,
-                              device=cuda)
-        assert all(np.array_equal(a, b) for a, b in zip(reads, out))
+    out = depress_signals(streams, [r.size for r in reads], codec,
+                          device=cuda)
+    assert all(np.array_equal(a, b) for a, b in zip(reads, out))
     grown = {k for k, v in KERNELS.items() if v.launches > before[k]}
     assert grown == KERNELS_OF[codec]

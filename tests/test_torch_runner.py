@@ -81,7 +81,8 @@ def test_unported_codec_raises():
         runner.press_signals([np.zeros(3, np.int16)], "shuffman_vbbe21_zd",
                              device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        runner.depress_signals([b""], [3], "dstall_drans", device="cpu")
+        runner.depress_signals([b""], [3], "shuffman_vbbe21_zd",
+                               device="cpu")
 
 
 def test_default_device_needs_cuda():
