@@ -19,13 +19,16 @@
    (the encode's compaction of [256, 278528] bytes, the decode's
    expansion to [256, 262144]) and svb16 with zd off on vbsse21's
    exception values ([256, 4096], each row's n its exception count).
-   Kernel A (the stall segmenter, find_stall) and kernel B (rice_decode,
-   on rice_vbbe21_zd's residual streams of the bucket) are held and
-   timed the same way.  Then does the same for kernel 1's five entries,
-   o1_fc, rans_encode, o1_decode (both drans phases), o0_decode,
-   svb16_encode and svb16_decode (zd on and off), n4_decode and
-   find_stall on one read of L = 262144 (the one-row shape; each plain
-   version runs once there), for the drans decode's phase-grid merge
+   Kernel A (the stall segmenter, find_stall), kernel B (rice_decode,
+   on rice_vbbe21_zd's residual streams of the bucket) and kernel C
+   (huffman_decode, on shuffman_vbbe21_zd's bit streams of the bucket)
+   are held and timed the same way.  Then does the same for kernel 1's
+   five entries, o1_fc, rans_encode, o1_decode (both drans phases),
+   o0_decode, svb16_encode and svb16_decode (zd on and off), n4_decode,
+   find_stall and huffman_decode on one read of L = 262144 (the one-row
+   shape; each plain version runs once there), for huffman_decode on a
+   row of 2,000 x symbol 255 (the longest code, 22 bits), for the drans
+   decode's phase-grid merge
    (expand_u8 at [B*K, Smax] = [8192, 2048]), and for find_stall on the
    three fixture reads (tests/data/three-reads.blow5) and on the stall
    set (16 reads: 500 random samples, a stall of 30,000 at 460 +- 4, a
@@ -33,7 +36,7 @@
 3. Presses and depresses ~1,028 reads (1,024 synthetic reads with
    log-uniform lengths in [4,000, 250,000] samples plus edge reads, two
    of which overflow the exception cap) through
-   honours_tpu_torch.engine.runner on the card, once per codec (the 20
+   honours_tpu_torch.engine.runner on the card, once per codec (the 21
    of PATHS).  Each path starts with every launch count at 0; it asserts
    every read comes back bit for bit, that its own kernels were launched
    and, for the capped codecs, that the overflow reads took the one-row
@@ -53,7 +56,8 @@
 5. The CLI: writes a BLOW5 (zlib records, svb-zd signals) of 64 of those
    reads plus the four edge reads, runs `python -m honours_tpu_torch
    press` on it (through honours_tpu_torch.cli.main) with the default
-   codec, with srans_vbbe21_zd and with hasgam_vbsse21_zdq, then
+   codec, with srans_vbbe21_zd, hasgam_vbsse21_zdq and
+   shuffman_vbbe21_zd, then
    `depress` on each result, and asserts every signal comes back and
    each pressed file names its codec; prints the file sizes.
 6. Prints one {"kernels": [...]} line, then {"ok": true, "device": ...}.
@@ -236,6 +240,85 @@ def rice_case(sig, n):
             body + B * L + 8 * B, 12 * int(cnt.sum()), None)
 
 
+def huffman_case(sig, n):
+    """(name, kernel call, plain call, bytes, ops, library call) of kernel
+    C on shuffman_vbbe21_zd's bit streams of the rows [B, L], in rows as
+    wide as the longest stream (as the runner's) and parsed as its decode
+    parses them: each row's bits from their offset to the stream's end
+    read, [B, L] bytes out, the offsets, counts and decoded counts; about
+    10 operations a symbol."""
+    from honours_tpu_torch.engine import huffdec_cuda as H
+    from honours_tpu_torch.engine.bits import read_u32be
+    from honours_tpu_torch.engine.pipeline import (
+        canned_huffman_tables,
+        press_shuff_batch,
+    )
+    from honours_tpu_torch.engine.vbbe21 import vbbe21_parse_batch
+
+    B, L = sig.shape
+    emax = max(64, L // 16)
+    n64 = n.to(torch.int64)
+    tabs = canned_huffman_tables(sig.device)
+    stream, slen = press_shuff_batch(sig, n, tabs, emax)
+    stream = stream[:, : int(slen.max())].contiguous()
+    p = vbbe21_parse_batch(stream, torch.full_like(n64, 2), n64 - 1, L, emax)
+    cnt = torch.minimum(read_u32be(stream, p["end_off"]),
+                        (n64 - 1 - p["nex"]).clamp(min=0)).to(torch.int32)
+    off = (p["end_off"] + 4).clamp(0, stream.shape[1]).to(torch.int32)
+    bits = int((slen - off).clamp(min=0).sum())
+    b = int(cnt.argmax())
+    steps, longs = walk_steps(stream[b, int(off[b]):], int(cnt[b]), tabs)
+    log(f"kernel C on [{B}, {L}]: its longest row, {int(cnt[b])} symbols, "
+        f"takes {steps} steps ({steps / max(int(cnt[b]), 1):.4f} a symbol), "
+        f"{longs} of them through the 22-bit table")
+    return ("huffman_decode", lambda: H.huffman_decode(stream, off, cnt, L,
+                                                       tabs),
+            lambda: H.huffman_decode_plain(stream, off, cnt, L, tabs),
+            bits + B * L + 12 * B, 10 * int(cnt.sum()), None)
+
+
+def walk_steps(row, count: int, tabs) -> tuple[int, int]:
+    """The steps kernel C's walk takes over one stream (its first-level
+    lookups: a step emits two symbols where l1 holds two), and those of
+    them that read the 22-bit table in device memory, counted on the
+    host from the same tables."""
+    row = np.concatenate([row.cpu().numpy(), np.zeros(8, np.uint8)])
+    bits = np.unpackbits(row, bitorder="little").astype(np.int64)
+    weights = 1 << np.arange(22)
+    l1, lut = tabs["l1"].cpu().numpy(), tabs["lut"].cpu().numpy()
+    p = i = steps = longs = 0
+    while i < count:
+        w = int(bits[p: p + 22] @ weights)
+        e = int(l1[w & 0xFFF])
+        n, ln = 1, e >> 8 & 31
+        if ln == 0:
+            ln, longs = int(lut[w]) >> 8, longs + 1
+        elif e >> 24 and i + 1 < count:
+            n, ln = 2, e >> 24
+        p, i, steps = p + ln, i + n, steps + 1
+    return steps, longs
+
+
+def longest_code_case(dev):
+    """Kernel C on one row of 2,000 x symbol 255, whose code is the
+    longest (22 bits): every step takes the LUT in device memory."""
+    from honours_tpu_torch.engine import huffdec_cuda as H
+    from honours_tpu_torch.engine.entropy import shuff_encode_batch
+    from honours_tpu_torch.engine.pipeline import canned_huffman_tables
+
+    m = 2000
+    tabs = canned_huffman_tables(dev)
+    cnt = torch.tensor([m], dtype=torch.int32, device=dev)
+    blob, blen = shuff_encode_batch(
+        torch.full((1, m), 255, dtype=torch.uint8, device=dev), cnt, tabs)
+    blob = blob[:, : int(blen[0])].contiguous()
+    off = torch.full((1,), 4, dtype=torch.int32, device=dev)
+    return ("huffman_decode",
+            lambda: H.huffman_decode(blob, off, cnt, m, tabs),
+            lambda: H.huffman_decode_plain(blob, off, cnt, m, tabs),
+            int(blen[0]) - 4 + m + 12, 10 * m, None)
+
+
 def walk_cases(sig, n, g, tabs):
     """(name, kernel call, plain call, bytes, ops, library call) of the
     three walks on one bucket [B, L] with the inputs the main paths give
@@ -350,6 +433,7 @@ def kernel_cases(seed: int):
          16 * sym.numel(), 8 * sym.numel(), None),
         stall_case(sig, n),
         rice_case(sig, n),
+        huffman_case(sig, n),
     ]
     shapes = (f"[{B}, {L}]", f"[{B * K}, {Smax}] (drans phase-grid merge)")
     return cases, options, merge, shapes, vb_cases(sig, n)
@@ -577,9 +661,11 @@ REPLACES = {
     "svb16_decode": "honours_tpu/engine/svb16_fused.py:266",
     "o1n_fc": "honours_tpu/engine/rans_n4_pallas.py:77",
     "n4_decode": "honours_tpu/engine/rans_n4_pallas.py:245",
-    # no TPU kernel: the segmenter's lax.scan, and the host rice decode
+    # no TPU kernel: the segmenter's lax.scan, and the host rice and
+    # static-Huffman decodes
     "find_stall": "honours_tpu/segment/__init__.py:132",
     "rice_decode": "honours_tpu/codecs/rice.py:66",
+    "huffman_decode": "honours_tpu/native/huffdec.c:13",
 }
 
 #: kernels each main path must launch
@@ -596,6 +682,7 @@ PATHS = {
     "srans_vbbe21_zd": KERNEL_1 | {"o1_fc", "rans_encode", "o0_decode"},
     "srans2_vbbe21_zd": KERNEL_1 | {"o1_fc", "rans_encode", "o1_decode"},
     "srans3_vbbe21_zd": KERNEL_1 | {"rans_encode", "o1n_fc", "n4_decode"},
+    "shuffman_vbbe21_zd": KERNEL_1 | {"huffman_decode"},
     "vb1e2_zd": KERNEL_1,
     "vbe21_zd": KERNEL_1,
     "vbbe21_zd": KERNEL_1,
@@ -614,7 +701,7 @@ PATHS = {
 
 
 SLOW = ("rans_encode", "o1_decode", "o0_decode", "n4_decode", "find_stall",
-        "rice_decode")
+        "rice_decode", "huffman_decode")
 
 
 def time_case(name, kern, plain, nbytes, ops, library) -> dict:
@@ -670,9 +757,10 @@ def log_case(shape: str, r: dict) -> None:
 
 
 def check_kernels(seed: int) -> dict:
-    """Every kernel at the main path's bucket shape, then kernel 1, o1_fc
-    and the three walks at the one-row shape and the drans phase-grid
-    merge; returns the bucket-shape results by kernel."""
+    """Every kernel at the main path's bucket shape, then kernel 1, o1_fc,
+    the walks and kernels A and C at the one-row shape, kernel C on the
+    longest-code row and the drans phase-grid merge, then kernel A on
+    reads with stalls; returns the bucket-shape results by kernel."""
     from honours_tpu_torch.engine.pipeline import canned_o1_device_tables
 
     cases, options, merge, (bucket, merged), vb = kernel_cases(seed)
@@ -691,8 +779,10 @@ def check_kernels(seed: int) -> dict:
     one_row, g = permute_fc_cases(sig, n, tabs)
     svb_n4, options, _ = svb_n4_cases(sig, n)
     for case in (one_row + walk_cases(sig, n, g, tabs)[0] + svb_n4 + options
-                 + [stall_case(sig, n)]):
+                 + [stall_case(sig, n), huffman_case(sig, n)]):
         log_case(f"[1, {sig.shape[1]}]", time_case(*case))
+    log_case("[1, 2000] (2,000 x symbol 255)",
+             time_case(*longest_code_case(sig.device)))
     log_case(merged, time_case(*merge))
     # kernel A on reads with stalls: the fixture reads and the stall set
     for label, reads in (("fixture reads", fixture_reads()),
@@ -876,7 +966,8 @@ def stall_phase(seed: int) -> None:
 
 def cli_phase(reads) -> None:
     """press and depress a BLOW5 file through the port's CLI on the card,
-    with the default codec, srans_vbbe21_zd and hasgam_vbsse21_zdq."""
+    with the default codec, srans_vbbe21_zd, hasgam_vbsse21_zdq and
+    shuffman_vbbe21_zd."""
     from honours_tpu_torch import cli
     from honours_tpu_torch.io import blow5
 
@@ -898,7 +989,7 @@ def cli_phase(reads) -> None:
             f"{sum(2 * s.size for s in sel)} B int16, "
             f"{src.stat().st_size} B as svb-zd/zlib BLOW5")
         for codec in ("drans_vbbe21_zd", "srans_vbbe21_zd",
-                      "hasgam_vbsse21_zdq"):
+                      "hasgam_vbsse21_zdq", "shuffman_vbbe21_zd"):
             pressed = Path(tmp) / f"{codec}.blow5"
             back = Path(tmp) / f"{codec}.depressed.blow5"
             opt = [] if codec == "drans_vbbe21_zd" else ["--codec", codec]

@@ -10,9 +10,8 @@ a ported codec (default drans_vbbe21_zd) through the bucketed runner;
 `depress` restores a stock BLOW5 (svb-zd signal, zlib records).  The
 files are byte-identical to `python -m honours_tpu press --tpu` /
 `depress --tpu`.  Both run on the CUDA card and raise without one unless
-`--device cpu` is given.  `codecs` lists the 20 ported codecs; `press`
-with shuffman_vbbe21_zd, the one codec of honours_tpu's engine not
-ported yet, raises NotImplementedError.
+`--device cpu` is given.  `codecs` lists the 21 engine codecs; `press`
+with any other name raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -53,7 +52,7 @@ def main(argv=None) -> int:
 
     dev = resolve_device(args.device)
     if args.cmd == "press":
-        runner.engine_kind(args.codec)  # NotImplementedError if not ported
+        runner.engine_kind(args.codec)  # NotImplementedError if unknown
         f5 = blow5.read_blow5(args.infile, device=dev)
         streams = runner.press_signals([r.signal for r in f5.reads],
                                        args.codec, device=dev)

@@ -268,3 +268,56 @@ __device__ __forceinline__ void fill_tail(uint8_t* g, int i, int T,
 }
 
 }  // namespace htt_walk
+
+// ---------------------------------------------------------------------------
+// One-thread-a-read walks over LSB-first bit streams (kernels B and C)
+// ---------------------------------------------------------------------------
+
+namespace htt_serial {
+
+// The stream of one row from byte `pos` on, LSB-first: `buf` holds nb
+// bits, `pend` the next 4 bytes, loaded one refill ahead of their use.
+// Loads are 4-byte words at word-aligned addresses (a row starts at any
+// byte, so up to 3 bytes come one at a time first); bytes at or past M
+// read as 0, so nothing past the row is read.
+struct BitReader {
+  const uint8_t* row;
+  long long M, pos;
+  unsigned long long buf = 0;
+  int nb = 0;
+  unsigned pend = 0;
+
+  __device__ __forceinline__ unsigned byte_at(long long p) const {
+    return p < M ? __ldg(row + p) : 0u;
+  }
+  __device__ __forceinline__ unsigned word_at(long long p) const {
+    if (p + 4 <= M) return __ldg(reinterpret_cast<const unsigned*>(row + p));
+    return byte_at(p) | byte_at(p + 1) << 8 | byte_at(p + 2) << 16 |
+           byte_at(p + 3) << 24;
+  }
+  // at most 3 bytes (24 bits) into buf, then the first word into pend
+  __device__ __forceinline__ void start() {
+    while (reinterpret_cast<uintptr_t>(row + pos) & 3) {
+      buf |= static_cast<unsigned long long>(byte_at(pos)) << nb;
+      nb += 8;
+      ++pos;
+    }
+    pend = word_at(pos);
+    pos += 4;
+  }
+  // at least 33 bits in buf afterwards, from at least 1 before
+  __device__ __forceinline__ void refill() {
+    if (nb <= 32) {
+      buf |= static_cast<unsigned long long>(pend) << nb;
+      nb += 32;
+      pend = word_at(pos);
+      pos += 4;
+    }
+  }
+  __device__ __forceinline__ void drop(int bits) {
+    buf >>= bits;
+    nb -= bits;
+  }
+};
+
+}  // namespace htt_serial

@@ -29,47 +29,36 @@
 
 namespace {
 
-// The stream of one row from byte `pos` on, LSB-first: `buf` holds nb
-// bits, `pend` the next 4 bytes, loaded one refill ahead of their use.
-// Loads are 4-byte words at word-aligned addresses (a row starts at any
-// byte, so up to 3 bytes come one at a time first); bytes at or past M
-// read as 0.
-struct BitReader {
-  const uint8_t* row;
-  long long M, pos;
-  unsigned long long buf = 0;
-  int nb = 0;
-  unsigned pend = 0;
+// A row of N output bytes written in order: four to a 32-bit word where
+// WORD (N % 4 == 0, so the wrapper's rows are word-aligned), else a byte
+// at a time; finish() writes zeros from the next byte to N.
+template <bool WORD>
+struct ByteRow {
+  uint8_t* o;
+  unsigned word = 0;
 
-  __device__ __forceinline__ unsigned byte_at(long long p) const {
-    return p < M ? __ldg(row + p) : 0u;
-  }
-  __device__ __forceinline__ unsigned word_at(long long p) const {
-    if (p + 4 <= M) return __ldg(reinterpret_cast<const unsigned*>(row + p));
-    return byte_at(p) | byte_at(p + 1) << 8 | byte_at(p + 2) << 16 |
-           byte_at(p + 3) << 24;
-  }
-  __device__ __forceinline__ void start() {
-    while (reinterpret_cast<uintptr_t>(row + pos) & 3) {
-      buf |= static_cast<unsigned long long>(byte_at(pos)) << nb;
-      nb += 8;
-      ++pos;
-    }
-    pend = word_at(pos);
-    pos += 4;
-  }
-  // at least 33 bits in buf afterwards, from at least 1 before
-  __device__ __forceinline__ void refill() {
-    if (nb <= 32) {
-      buf |= static_cast<unsigned long long>(pend) << nb;
-      nb += 32;
-      pend = word_at(pos);
-      pos += 4;
+  __device__ __forceinline__ void put(long long i, unsigned x) {
+    if (WORD) {
+      word |= (x & 0xFFu) << (8 * (i & 3));
+      if ((i & 3) == 3) {
+        reinterpret_cast<unsigned*>(o)[i >> 2] = word;
+        word = 0;
+      }
+    } else {
+      o[i] = static_cast<uint8_t>(x);
     }
   }
-  __device__ __forceinline__ void drop(int bits) {
-    buf >>= bits;
-    nb -= bits;
+  // i: the bytes put so far
+  __device__ __forceinline__ void finish(long long i, long long N) {
+    if (WORD) {
+      if (i & 3) {  // the last partial word, zeros after its bytes
+        reinterpret_cast<unsigned*>(o)[i >> 2] = word;
+        i = (i + 3) & ~3LL;
+      }
+      for (; i < N; i += 4) reinterpret_cast<unsigned*>(o)[i >> 2] = 0u;
+    } else {
+      for (; i < N; ++i) o[i] = 0;
+    }
   }
 };
 
@@ -83,15 +72,14 @@ __global__ void __launch_bounds__(1)
   long long cnt = count[b];
   cnt = cnt < 0 ? 0 : (cnt > N ? N : cnt);
   const long long start = off[b] < 0 ? 0 : off[b];
-  BitReader in{stream + b * M, M, start};
-  uint8_t* o = out + b * N;
+  htt_serial::BitReader in{stream + b * M, M, start};
+  ByteRow<WORD> o{out + b * N};
 
   in.start();  // at most 3 bytes, 24 bits
   in.refill();
   const int k = static_cast<int>(((in.buf & 1) << 2) | (in.buf & 2) |
                                  ((in.buf >> 2) & 1));
   in.drop(3);
-  unsigned word = 0;
   long long i = 0;
   for (; i < cnt; ++i) {
     unsigned q = 0;
@@ -111,26 +99,9 @@ __global__ void __launch_bounds__(1)
     const unsigned bits = static_cast<unsigned>(in.buf) & ((1u << k) - 1u);
     const unsigned v = k ? __brev(bits) >> (32 - k) : 0u;
     in.drop(k);
-    const unsigned x = ((q << k) | v) & 0xFFu;
-    if (WORD) {
-      word |= x << (8 * (i & 3));
-      if ((i & 3) == 3) {
-        reinterpret_cast<unsigned*>(o)[i >> 2] = word;
-        word = 0;
-      }
-    } else {
-      o[i] = static_cast<uint8_t>(x);
-    }
+    o.put(i, (q << k) | v);
   }
-  if (WORD) {
-    if (i & 3) {  // the last partial word, zeros after its values
-      reinterpret_cast<unsigned*>(o)[i >> 2] = word;
-      i = (i + 3) & ~3LL;
-    }
-    for (; i < N; i += 4) reinterpret_cast<unsigned*>(o)[i >> 2] = 0u;
-  } else {
-    for (; i < N; ++i) o[i] = 0;
-  }
+  o.finish(i, N);
 }
 
 }  // namespace

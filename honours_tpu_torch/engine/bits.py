@@ -28,7 +28,7 @@ __all__ = [
     "monotone_place", "pack_fields_msb", "pack_fields_lsb",
     "unpack_fields_msb",
     "rowwise_concat", "u32le_bytes", "u16le_bytes", "read_u32le",
-    "read_u16le",
+    "read_u16le", "read_u32be",
 ]
 
 
@@ -48,13 +48,13 @@ def u16le_bytes(x):
     return _le_bytes(x, 2)
 
 
-def _read_le(stream, off, nbytes: int):
+def _read_le(stream, off, nbytes: int, big: bool = False):
     M = stream.shape[1]
     idx = off.to(torch.int64)[:, None] + torch.arange(
         nbytes, device=stream.device)[None, :]
     b = torch.gather(stream, 1, idx.clamp(0, M - 1)).to(torch.int64)
     shifts = torch.arange(0, 8 * nbytes, 8, device=stream.device)[None, :]
-    return (b << shifts).sum(dim=1)
+    return (b << (shifts.flip(1) if big else shifts)).sum(dim=1)
 
 
 def read_u32le(stream, off):
@@ -65,6 +65,11 @@ def read_u32le(stream, off):
 
 def read_u16le(stream, off):
     return _read_le(stream, off, 2)
+
+
+def read_u32be(stream, off):
+    """As read_u32le, big-endian."""
+    return _read_le(stream, off, 4, big=True)
 
 
 def _words_to_bytes(words, shifts):

@@ -1,4 +1,15 @@
-"""Batched order-0 static-CDF rANS (wire format v2), the body of srans.
+"""Batched entropy stages: static-Huffman encode (the body of shuffman)
+and order-0 static-CDF rANS (wire format v2, the body of srans).
+
+shuff encode: per-byte code lengths -> bit-offset prefix sum -> LSB-first
+field pack (press/huffman do_memory_encode's bit order), behind its
+[dataBytes:u32 BE] header.  Byte-exact with honours_tpu's host coder
+kernels.huffman_np.huffman_encode, and with its engine
+(engine/entropy.py shuff_encode_batch) wherever that engine's bits fit
+the 2N + 8 bytes it sizes them for (ROADMAP.md watch list): here a row
+holds N codes of up to 22 bits.
+
+rANS v2:
 
 K = 32 lanes per read share one stream, in decoder consumption order,
 with round-robin lanes: step t of lane k codes byte t*K + k.  The body
@@ -15,10 +26,36 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from honours_tpu_torch.engine.bits import (
+    pack_fields_lsb,
+    rowwise_concat,
+    u32le_bytes,
+)
 from honours_tpu_torch.engine.entropy_o1 import _u32le_grid, read_states
 from honours_tpu_torch.engine.rans_encode_cuda import encode_core
 from honours_tpu_torch.engine.rans_o1_cuda import o0_decode, o1_fc
 from honours_tpu_torch.kernels.rans import CTX0, K_SHARED, M
+
+
+def shuff_encode_batch(data, dlen, tabs):
+    """[B, N] u8 (first dlen valid) -> shuffman blob [dataBytes:u32 BE]
+    [bits] (dataBytes = dlen as uint32, so 0xFFFFFFFF for -1) as (blob
+    [B, W] u8, len [B]).  tabs["lengths"], tabs["codes"]: [256] int64,
+    the table's codes of 1 to 22 bits."""
+    B, N = data.shape
+    dev = data.device
+    pos = torch.arange(N, device=dev)[None, :]
+    valid = pos < dlen.to(torch.int64)[:, None]
+    d = data.to(torch.int64)
+    lens = torch.where(valid, tabs["lengths"][d], 0)
+    ends = torch.cumsum(lens, dim=1)
+    total_bits = ends[:, -1]
+    n_words = (22 * N + 31) // 32
+    bits = pack_fields_lsb(torch.where(valid, tabs["codes"][d], 0),
+                           ends - lens, valid, n_words)
+    return rowwise_concat(
+        [(u32le_bytes(dlen).flip(1), torch.full((B,), 4, device=dev)),
+         (bits, (total_bits + 7) // 8)], 4 * n_words + 4)
 
 
 def make_tables(freqs_np: np.ndarray, device) -> dict:

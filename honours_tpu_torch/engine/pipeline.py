@@ -1,23 +1,36 @@
 """The zigzag-delta split shared by the vbbe21_zd pipelines, the canned
-tables on a device, and the srans family's pipelines.
+tables on a device, and the srans family's and shuffman's pipelines.
 
-Each srans stream is [zd0:u16][vbbe21 exception block][entropy body]:
-  srans_vbbe21_zd   v2 body, canned order-0 table (engine/entropy.py)
-  srans2_vbbe21_zd  v3 body, canned order-1 table (engine/entropy_o1.py)
-  srans3_vbbe21_zd  v4 body, canned nibble tables (engine/entropy_o1n.py)
+Each stream is [zd0:u16][vbbe21 exception block][entropy body]:
+  srans_vbbe21_zd     v2 body, canned order-0 table (engine/entropy.py)
+  srans2_vbbe21_zd    v3 body, canned order-1 table (engine/entropy_o1.py)
+  srans3_vbbe21_zd    v4 body, canned nibble tables (engine/entropy_o1n.py)
+  shuffman_vbbe21_zd  [dataBytes:u32 BE][LSB-first bits], canned NA12878
+                      Huffman table (engine/entropy.py encode, kernel C
+                      decode, engine/huffdec_cuda.py)
 Byte-exact with honours_tpu's engines and host codecs per row (no
-batch-shared state, so any grouping gives the same bytes).
+batch-shared state, so any grouping gives the same bytes); for shuffman,
+with the host codec where honours_tpu's engine cuts a row's bits
+(engine/entropy.py).
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from honours_tpu_torch.engine.bits import read_u16le, rowwise_concat, u16le_bytes
+from honours_tpu_torch.engine.bits import (
+    read_u16le,
+    read_u32be,
+    rowwise_concat,
+    u16le_bytes,
+)
 from honours_tpu_torch.engine.entropy import (
     make_tables,
     rans_decode_batch,
     rans_encode_batch,
+    shuff_encode_batch,
 )
 from honours_tpu_torch.engine.entropy_o1 import (
     make_o1_tables,
@@ -29,12 +42,14 @@ from honours_tpu_torch.engine.entropy_o1n import (
     rans_o1n_decode_batch,
     rans_o1n_encode_batch,
 )
+from honours_tpu_torch.engine.huffdec_cuda import decode_tables, huffman_decode
 from honours_tpu_torch.engine.vbbe21 import (
     vbbe21_fill_batch,
     vbbe21_parse_batch,
     vbbe21_parts_batch,
 )
 from honours_tpu_torch.kernels.rans import K_SHARED
+from honours_tpu_torch.tables.huffman import na12878_table
 from honours_tpu_torch.tables.na12878_freq import canned_freqs
 from honours_tpu_torch.tables.o1 import canned_o1_freqs
 from honours_tpu_torch.transforms.core import unzigdelta, zigdelta
@@ -43,7 +58,8 @@ __all__ = [
     "canned_rans_tables", "canned_o1_device_tables",
     "canned_o1n_device_tables", "press_srans_batch", "depress_srans_batch",
     "press_srans2_batch", "depress_srans2_batch", "press_srans3_batch",
-    "depress_srans3_batch",
+    "depress_srans3_batch", "canned_huffman_tables", "press_shuff_batch",
+    "depress_shuff_batch",
 ]
 
 
@@ -72,6 +88,22 @@ def canned_rans_tables(device) -> dict:
 
 def canned_o1_device_tables(device) -> dict:
     return make_o1_tables(canned_o1_freqs(), device)
+
+
+def canned_huffman_tables(device) -> dict:
+    """The canned NA12878 Huffman table on a device, built once a device:
+    lengths and codes [256] int64 (the encode), and kernel C's decode
+    tables (engine/huffdec_cuda.py decode_tables)."""
+    return _huffman_tables(str(torch.device(device)))
+
+
+@functools.cache
+def _huffman_tables(device: str) -> dict:
+    t = na12878_table()
+    return {"lengths": torch.as_tensor(t.lengths, dtype=torch.int64,
+                                       device=device),
+            "codes": torch.as_tensor(t.codes.astype("int64"), device=device),
+            **decode_tables(t, device)}
 
 
 def _press_zd_vbbe21(sig, n, emax, encode_body, hdr: int):
@@ -150,3 +182,33 @@ def depress_srans3_batch(stream, n, tabs, L: int, emax: int = None):
     return _depress_zd_vbbe21(
         stream, n, L, emax,
         lambda st, off, dl, N: rans_o1n_decode_batch(st, off, dl, tabs, N))
+
+
+def press_shuff_batch(sig, n, tabs, emax: int = None):
+    """Batched shuffman_vbbe21_zd encode; `tabs` from
+    canned_huffman_tables.  Without emax, the exception buffers are
+    uncapped, as in honours_tpu's engine."""
+    def encode_body(data, dlen):
+        blob, blen = shuff_encode_batch(data, dlen, tabs)
+        return [(blob, blen)], blob.shape[1]
+
+    return _press_zd_vbbe21(sig, n, emax, encode_body, 0)
+
+
+def depress_shuff_batch(stream, n, tabs, L: int, emax: int = None):
+    """Batched shuffman_vbbe21_zd decode -> [B, L] int16 (the contract of
+    honours_tpu's host ShuffmanVbZd.depress).  Each row decodes its
+    dataBytes symbols, at most n - 1 - nex (so an empty read's
+    0xFFFFFFFF decodes none); ValueError if a row's walk stops short (a
+    cut or corrupt stream)."""
+    def decode_body(st, off, dlen, N):
+        cnt = torch.minimum(read_u32be(st, off), dlen.clamp(min=0))
+        data, got = huffman_decode(
+            st, (off + 4).clamp(0, st.shape[1]).to(torch.int32),
+            cnt.to(torch.int32), N, tabs)
+        if bool((got < cnt).any()):
+            raise ValueError("shuffman stream corrupt: a row decoded fewer "
+                             "symbols than its dataBytes")
+        return data
+
+    return _depress_zd_vbbe21(stream, n, L, emax, decode_body)

@@ -3,12 +3,15 @@
 Reads are grouped into power-of-two padded buckets (io/batching.py),
 each bucket runs the batched engine of the codec on the device, and
 per-read streams come back in original order, byte-identical to
-honours_tpu's engine (and to its host codec for every read of n >= 1).
+honours_tpu's engine (and to its host codec for every read of n >= 1;
+for shuffman, to the host codec where that engine cuts a row's bits,
+engine/entropy.py).
 Codecs and their engines:
   drans_vbbe21_zd     engine/drans.py     (batch-shared table fit)
   srans_vbbe21_zd     engine/pipeline.py  (canned order-0 rANS)
   srans2_vbbe21_zd    engine/pipeline.py  (canned order-1 rANS)
   srans3_vbbe21_zd    engine/pipeline.py  (nibble order-1 rANS)
+  shuffman_vbbe21_zd  engine/pipeline.py  (canned static Huffman)
   svb12_zd, svb12     engine/svb16.py     (VBZ container, with/without zd)
   vb1e2_zd, vbe21_zd, vbbe21_zd, vbsbe21_zd, vbsse21_zd
                       engine/vb_batch.py  (vb exception containers)
@@ -18,8 +21,9 @@ Codecs and their engines:
                       engine/rice.py      (rice-coded residual bytes)
   dstall_srans2       engine/dstall.py    (stall split, srans2 branches)
   dstall_drans        engine/dstall_drans.py (stall split, drans branches)
-The one codec of honours_tpu's ENGINE_CODECS not ported is
-shuffman_vbbe21_zd (ROADMAP.md).
+These are the 21 codecs of honours_tpu's ENGINE_CODECS; where its
+runner decodes on the host (shuffman and rice), the port decodes on the
+device.
 
 Two kinds of rows leave the bucket's group and run alone, as one-row
 batches with emax = L (the grouping of a single-read host press, so the
@@ -55,12 +59,15 @@ from honours_tpu_torch.engine.dstall_drans import (
 )
 from honours_tpu_torch.engine.exzd import depress_exzd_batch, press_exzd_batch
 from honours_tpu_torch.engine.pipeline import (
+    canned_huffman_tables,
     canned_o1_device_tables,
     canned_o1n_device_tables,
     canned_rans_tables,
+    depress_shuff_batch,
     depress_srans2_batch,
     depress_srans3_batch,
     depress_srans_batch,
+    press_shuff_batch,
     press_srans2_batch,
     press_srans3_batch,
     press_srans_batch,
@@ -88,6 +95,7 @@ ENGINE_CODECS = {
     "srans_vbbe21_zd": "srans",
     "srans2_vbbe21_zd": "srans2",
     "srans3_vbbe21_zd": "srans3",
+    "shuffman_vbbe21_zd": "shuff",
     "svb12_zd": "svb16_zd",
     "svb12": "svb16",
     "vb1e2_zd": "vb_zd:vb1e2",
@@ -111,8 +119,9 @@ ENGINE_CODECS = {
 #: [ver:1][nin:u64][q:1][zd0:u16][nex:u32]...; for the dstall families,
 #: in each branch blob (srans2's and drans's); the svb families have no
 #: cap
-_NEX_AT = {"drans": 4, "srans": 2, "srans2": 2, "srans3": 2, "vb_zd": 2,
-           "rice_zd": 2, "exzd": 12, "dstall": 2, "dstall_drans": 4}
+_NEX_AT = {"drans": 4, "srans": 2, "srans2": 2, "srans3": 2, "shuff": 2,
+           "vb_zd": 2, "rice_zd": 2, "exzd": 12, "dstall": 2,
+           "dstall_drans": 4}
 
 #: capped kind -> (device tables, batched press, batched depress)
 _CAPPED = {
@@ -123,6 +132,7 @@ _CAPPED = {
                depress_srans2_batch),
     "srans3": (canned_o1n_device_tables, press_srans3_batch,
                depress_srans3_batch),
+    "shuff": (canned_huffman_tables, press_shuff_batch, depress_shuff_batch),
     "dstall": (canned_o1_device_tables, press_dstall_batch,
                depress_dstall_batch),
     "dstall_drans": (canned_o1_device_tables, press_dstall_drans_batch,
@@ -131,13 +141,12 @@ _CAPPED = {
 
 
 def engine_kind(codec_name: str) -> str:
-    """The engine kind of a ported codec; NotImplementedError for any
+    """The engine kind of an engine codec; NotImplementedError for any
     other name."""
     if codec_name not in ENGINE_CODECS:
         raise NotImplementedError(
-            f"{codec_name} is not ported yet: this port runs "
-            f"{', '.join(ENGINE_CODECS)}; shuffman_vbbe21_zd is still to "
-            "port, see ROADMAP.md, 'Modules to port'")
+            f"{codec_name} is not one of the {len(ENGINE_CODECS)} engine "
+            f"codecs this port runs: {', '.join(ENGINE_CODECS)}")
     return ENGINE_CODECS[codec_name]
 
 

@@ -249,7 +249,7 @@ def write_blow5(path: str, f5: Blow5File, signal_codec: str = None,
     if signal_codec is not None:
         from honours_tpu_torch.engine.runner import engine_kind
 
-        engine_kind(signal_codec)  # NotImplementedError if not ported
+        engine_kind(signal_codec)  # NotImplementedError if unknown
         if signal_streams is None or len(signal_streams) != len(f5.reads):
             raise ValueError("signal_codec needs one pressed stream per read")
         f5.signal_press = SIGNAL_PRESS_HTPU

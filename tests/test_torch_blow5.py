@@ -122,28 +122,31 @@ def test_cli_files_match_reference_and_cross_decode(tmp_path, src_file,
 
 def test_cli_rules(tmp_path, src_file, capsys):
     """Default device is the card (RuntimeError here without one);
-    codecs the port does not run raise NotImplementedError; `codecs`
-    lists the 20 ported codecs, with no mark."""
+    codecs outside the 21 engine codecs raise NotImplementedError;
+    `codecs` lists the 21, with no mark."""
     out = str(tmp_path / "out.blow5")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(["press", str(src_file), out])
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(["depress", str(src_file), out])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError,
+                       match="not one of the 21 engine codecs"):
         cli.main(["press", str(src_file), out, "--codec",
-                  "shuffman_vbbe21_zd", "--device", "cpu"])
+                  "huffman_vbbe21_zd", "--device", "cpu"])
     f5 = tb.read_blow5(str(src_file))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tb.write_blow5(out, f5, signal_codec="shuffman_vbbe21_zd",
+    with pytest.raises(NotImplementedError,
+                       match="not one of the 21 engine codecs"):
+        tb.write_blow5(out, f5, signal_codec="huffman_vbbe21_zd",
                        signal_streams=[b""] * len(f5.reads))
     assert cli.main(["codecs"]) == 0
     lines = capsys.readouterr().out.splitlines()
     assert lines == sorted([
         "drans_vbbe21_zd", "srans_vbbe21_zd", "srans2_vbbe21_zd",
-        "srans3_vbbe21_zd", "svb12_zd", "svb12", "vb1e2_zd", "vbe21_zd",
-        "vbbe21_zd", "vbsbe21_zd", "vbsse21_zd", "svb_zd", "svb0124_zd",
-        "hasgam_vbsse21_zdq", *RICE, "dstall_srans2", "dstall_drans"])
+        "srans3_vbbe21_zd", "shuffman_vbbe21_zd", "svb12_zd", "svb12",
+        "vb1e2_zd", "vbe21_zd", "vbbe21_zd", "vbsbe21_zd", "vbsse21_zd",
+        "svb_zd", "svb0124_zd", "hasgam_vbsse21_zdq", *RICE,
+        "dstall_srans2", "dstall_drans"])
 
 
 @pytest.mark.parametrize("codec", RICE)

@@ -11,6 +11,7 @@ from honours_tpu_torch import _build
 
 # import every wrapper module so the registry is complete
 from honours_tpu_torch.engine import (  # noqa: F401
+    huffdec_cuda,
     permute_cuda,
     rans_encode_cuda,
     rans_n4_cuda,
@@ -33,7 +34,7 @@ def test_registry_holds_every_kernel():
         "monotone_compact_u8", "monotone_compact_i32", "compaction_shifts",
         "monotone_expand_u8", "monotone_expand_i32", "o1_fc", "rans_encode",
         "o1_decode", "o0_decode", "svb16_encode", "svb16_decode", "o1n_fc",
-        "n4_decode", "find_stall", "rice_decode"])
+        "n4_decode", "find_stall", "rice_decode", "huffman_decode"])
     for k in _build.KERNELS.values():
         assert k.source in _build.SOURCES
 

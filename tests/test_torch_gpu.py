@@ -790,7 +790,8 @@ def test_rans_encode_kernel_edges(cuda, case):
 
 
 # ---------------------------------------------------------------------------
-# kernel A (the stall segmenter) and kernel B (rice decode)
+# kernel A (the stall segmenter), kernel B (rice decode) and kernel C
+# (static-Huffman decode)
 # ---------------------------------------------------------------------------
 
 
@@ -959,6 +960,147 @@ def test_rice_decode_kernel_cut_streams_and_counts(cuda):
         _same(got, R.rice_decode_plain(st, off, cnt, N))
 
 
+def _huffman_rows(seed=0):
+    """Residual byte rows for kernel C: random, few symbols, zeros, one
+    symbol, 2,000 x 255 (the longest code, 22 bits) and an empty row;
+    their streams from the port's encoder and the canned tables on the
+    CPU."""
+    from honours_tpu_torch.engine.entropy import shuff_encode_batch
+    from honours_tpu_torch.engine.pipeline import canned_huffman_tables
+
+    rng = np.random.default_rng(seed)
+    rows = [rng.integers(0, 256, 5000), rng.integers(0, 40, 3000),
+            np.zeros(100, np.int64), np.array([rng.integers(0, 256)]),
+            np.full(2000, 255), np.zeros(0, np.int64)]
+    N = max(r.size for r in rows)
+    data = np.zeros((len(rows), N), np.uint8)
+    for i, r in enumerate(rows):
+        data[i, : r.size] = r
+    cnt = torch.tensor([r.size for r in rows], dtype=torch.int32)
+    tabs = canned_huffman_tables("cpu")
+    blob, blen = shuff_encode_batch(torch.from_numpy(data), cnt, tabs)
+    # the bit streams, past each blob's 4-byte dataBytes header
+    return rows, [blob[i, 4: int(blen[i])].numpy().tobytes()
+                  for i in range(len(rows))], cnt, tabs
+
+
+def _huffman_same(cuda, st, off, cnt, N, tabs):
+    """Kernel C on the card equals its plain version; returns the plain
+    (out, got)."""
+    from honours_tpu_torch.engine import huffdec_cuda as H
+    from honours_tpu_torch.engine.pipeline import canned_huffman_tables
+
+    got = H.huffman_decode(st.to(cuda) if st.device.type == "cpu" else st,
+                           off.to(cuda), cnt.to(cuda), N,
+                           canned_huffman_tables(cuda))
+    torch.cuda.synchronize()
+    want = H.huffman_decode_plain(st.cpu(), off, cnt, N, tabs)
+    _same(got, want)
+    return want
+
+
+@pytest.mark.parametrize("pad", [0, 1, 2, 3, 5])
+@pytest.mark.parametrize("N", [5000, 5003])
+def test_huffman_decode_kernel_matches_plain(cuda, pad, N):
+    """Random, longest-code, single-symbol and empty rows, starting
+    pad + row % 4 bytes into rows of garbage, on a view at an odd
+    address; N % 4 == 0 (word stores) and not."""
+    rows, streams, cnt, tabs = _huffman_rows()
+    M = max(len(b) for b in streams) + pad + 3
+    st = np.full((len(rows), M), 0xEE, np.uint8)
+    off = np.zeros(len(rows), np.int32)
+    for i, b in enumerate(streams):
+        o = pad + i % 4
+        st[i, o:] = 0
+        st[i, o: o + len(b)] = np.frombuffer(b, np.uint8)
+        off[i] = o
+    store = torch.zeros(st.size + 16, dtype=torch.uint8)
+    store[3: 3 + st.size] = torch.from_numpy(st).reshape(-1)
+    view = store.to(cuda)[3: 3 + st.size].view(st.shape)
+    assert view.data_ptr() % 4 == 3
+    out, got = _huffman_same(cuda, view, torch.from_numpy(off), cnt, N, tabs)
+    assert got.tolist() == cnt.tolist()
+    for i, r in enumerate(rows):
+        assert np.array_equal(out[i, : r.size].numpy(), r), i
+
+
+def test_huffman_decode_kernel_poisoned_output(cuda):
+    """The output block held 0xA5 bytes just before the call: the kernel
+    writes every byte of it, each row's symbols up to its count (some
+    counts below the row's symbols) and zeros after."""
+    from honours_tpu_torch.engine import huffdec_cuda as H
+    from honours_tpu_torch.engine.pipeline import canned_huffman_tables
+
+    rows, streams, cnt, tabs = _huffman_rows(1)
+    M = max(len(b) for b in streams)
+    st = np.zeros((len(rows), M), np.uint8)
+    for i, b in enumerate(streams):
+        st[i, : len(b)] = np.frombuffer(b, np.uint8)
+    cnt = torch.tensor([r.size // (1 + i % 3) for i, r in enumerate(rows)],
+                       dtype=torch.int32)
+    N = 5000
+    stc, off = torch.from_numpy(st).to(cuda), torch.zeros(
+        len(rows), dtype=torch.int32)
+    bait = torch.full((len(rows), N), 0xA5, dtype=torch.uint8, device=cuda)
+    ptr = bait.data_ptr()
+    del bait
+    out, got = H.huffman_decode(stc, off.to(cuda), cnt.to(cuda), N,
+                                canned_huffman_tables(cuda))
+    assert out.data_ptr() == ptr
+    torch.cuda.synchronize()
+    want = H.huffman_decode_plain(torch.from_numpy(st), off, cnt, N, tabs)
+    _same((out, got), want)
+    for i, r in enumerate(rows):
+        c = int(cnt[i])
+        assert np.array_equal(want[0][i, :c].numpy(), r[:c]), i
+        assert not want[0][i, c:].any(), i
+
+
+def test_huffman_decode_kernel_stream_at_row_end(cuda):
+    """Each row's stream ends at the last byte of its buffer row (its
+    last code ending on a byte edge or not; one row is all stream)."""
+    rows, streams, cnt, tabs = _huffman_rows(2)
+    M = max(len(b) for b in streams)
+    st = np.full((len(rows), M), 0xEE, np.uint8)
+    off = np.array([M - len(b) for b in streams], np.int32)
+    for i, b in enumerate(streams):
+        st[i, off[i]:] = np.frombuffer(b, np.uint8)
+    assert 0 in off
+    out, got = _huffman_same(cuda, torch.from_numpy(st),
+                             torch.from_numpy(off), cnt, 5000, tabs)
+    assert got.tolist() == cnt.tolist()
+    for i, r in enumerate(rows):
+        assert np.array_equal(out[i, : r.size].numpy(), r), i
+
+
+def test_huffman_decode_kernel_cut_streams_and_counts(cuda):
+    """Streams cut short, offsets at and past the row's end, counts past
+    N or negative: the walk stops where a code would leave the row, and
+    faults nowhere."""
+    rows, streams, _, tabs = _huffman_rows(3)
+    M = 60
+    st = np.zeros((len(rows), M), np.uint8)
+    for i, b in enumerate(streams):
+        st[i, : min(M, len(b))] = np.frombuffer(b[:M], np.uint8)
+    off = torch.tensor([(0, 7, M, M + 9)[i % 4] for i in range(len(rows))],
+                       dtype=torch.int32)
+    cnt = torch.tensor([(-5, 10, 700, 9000)[i % 4] for i in range(len(rows))],
+                       dtype=torch.int32)
+    for N in (0, 1, 700, 701):
+        _huffman_same(cuda, torch.from_numpy(st), off, cnt, N, tabs)
+
+
+def test_shuffman_cut_stream_raises_on_card(cuda):
+    from honours_tpu_torch.engine.runner import depress_signals, press_signals
+    from honours_tpu_torch.synth import synthesize_corpus
+
+    read = synthesize_corpus(20_000, seed=4)
+    st = press_signals([read], "shuffman_vbbe21_zd", device=cuda)[0]
+    with pytest.raises(ValueError, match="corrupt"):
+        depress_signals([st[: len(st) // 2]], [read.size],
+                        "shuffman_vbbe21_zd", device=cuda)
+
+
 KERNEL_1 = {"monotone_compact_u8", "monotone_compact_i32",
             "compaction_shifts", "monotone_expand_u8", "monotone_expand_i32"}
 #: kernel 1's entries on the svb32 paths
@@ -972,6 +1114,7 @@ KERNELS_OF = {
     "svb12_zd": {"svb16_encode", "svb16_decode"},
     "svb12": {"svb16_encode", "svb16_decode"},
     "srans3_vbbe21_zd": KERNEL_1 | {"rans_encode", "o1n_fc", "n4_decode"},
+    "shuffman_vbbe21_zd": KERNEL_1 | {"huffman_decode"},
     "vb1e2_zd": KERNEL_1,
     "vbe21_zd": KERNEL_1,
     "vbbe21_zd": KERNEL_1,

@@ -77,11 +77,16 @@ def test_fixture_ratio_equals_jax(fixture_reads):
 
 
 def test_unported_codec_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        runner.press_signals([np.zeros(3, np.int16)], "shuffman_vbbe21_zd",
+    """A registry codec outside the 21 engine codecs (honours_tpu's
+    ENGINE_CODECS, all of which the port runs) raises."""
+    assert sorted(runner.ENGINE_CODECS) == jrunner.engine_codec_names()
+    with pytest.raises(NotImplementedError,
+                       match="not one of the 21 engine codecs"):
+        runner.press_signals([np.zeros(3, np.int16)], "huffman_vbbe21_zd",
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        runner.depress_signals([b""], [3], "shuffman_vbbe21_zd",
+    with pytest.raises(NotImplementedError,
+                       match="not one of the 21 engine codecs"):
+        runner.depress_signals([b""], [3], "huffman_vbbe21_zd",
                                device="cpu")
 
 
