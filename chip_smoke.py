@@ -25,14 +25,24 @@
    are held and timed the same way.  Then does the same for kernel 1's
    five entries, o1_fc, rans_encode, o1_decode (both drans phases),
    o0_decode, svb16_encode and svb16_decode (zd on and off), n4_decode,
-   find_stall and huffman_decode on one read of L = 262144 (the one-row
-   shape; each plain version runs once there), for huffman_decode on a
-   row of 2,000 x symbol 255 (the longest code, 22 bits), for the drans
+   find_stall, rice_decode and huffman_decode on one read of L = 262144
+   (the one-row shape; each plain version runs once there), for
+   huffman_decode on a row of 2,000 x symbol 255 (the longest code, 22
+   bits), for rice_decode and huffman_decode on the adversarial rows of
+   their chunked decode (tests/chunked_rows.py: unary runs across chunk
+   ends, chunk ends at every bit offset of a code, two tiles, counts
+   mid-chunk and past the codes, all-0xFF rows, the zero window's tail,
+   a window no code starts before and after the count, cut streams,
+   wild offsets and counts), for the drans
    decode's phase-grid merge
    (expand_u8 at [B*K, Smax] = [8192, 2048]), and for find_stall on the
    three fixture reads (tests/data/three-reads.blow5) and on the stall
    set (16 reads: 500 random samples, a stall of 30,000 at 460 +- 4, a
-   60,000-step random walk), on log lines of their own.
+   60,000-step random walk), on log lines of their own.  For kernels B
+   and C at each shape it logs, counted on the host, the tiles, chunks,
+   chunk entries whose first guess was wrong and fix-point rounds of
+   the longest row's chunked decode (chunk_sync), and for C the steps
+   of its walk (walk_steps).
 3. Presses and depresses ~1,028 reads (1,024 synthetic reads with
    log-uniform lengths in [4,000, 250,000] samples plus edge reads, two
    of which overflow the exception cap) through
@@ -235,6 +245,7 @@ def rice_case(sig, n):
     off = p["end_off"].clamp(0, stream.shape[1]).to(torch.int32)
     cnt = (n64 - 1 - p["nex"]).clamp(0, L).to(torch.int32)
     body = int((slen - off.to(torch.int64)).sum())
+    log_sync("B", f"[{B}, {L}]", "rice", stream, off, cnt)
     return ("rice_decode", lambda: R.rice_decode(stream, off, cnt, L),
             lambda: R.rice_decode_plain(stream, off, cnt, L),
             body + B * L + 8 * B, 12 * int(cnt.sum()), None)
@@ -271,6 +282,7 @@ def huffman_case(sig, n):
     log(f"kernel C on [{B}, {L}]: its longest row, {int(cnt[b])} symbols, "
         f"takes {steps} steps ({steps / max(int(cnt[b]), 1):.4f} a symbol), "
         f"{longs} of them through the 22-bit table")
+    log_sync("C", f"[{B}, {L}]", "huffman", stream, off, cnt, tabs)
     return ("huffman_decode", lambda: H.huffman_decode(stream, off, cnt, L,
                                                        tabs),
             lambda: H.huffman_decode_plain(stream, off, cnt, L, tabs),
@@ -299,6 +311,139 @@ def walk_steps(row, count: int, tabs) -> tuple[int, int]:
     return steps, longs
 
 
+def chunk_sync(nxt, first: int, E: int, count: int):
+    """The fix-point of kernels B and C's chunked decode (csrc/common.cuh
+    htt_chunked) over one row, counted on the host: (tiles, chunks,
+    chunks whose first guess of an entry was wrong, fix-point rounds,
+    chain: over the tiles, the most codes one chunk walks in its
+    speculation and its emit).  nxt(p) is the position after the code at
+    bit p (None at a stop); E the bits up to the stream's last nonzero
+    byte."""
+    from honours_tpu_torch.engine.rice_cuda import CHUNK_BITS, THREADS
+
+    tile = THREADS * CHUNK_BITS
+    tiles = chunks = wrong = rounds = chain = 0
+    entry, S = first, 0
+    while entry is not None and entry < E and S < count:
+        tb = entry - entry % tile
+        cs = [tb + j * CHUNK_BITS for j in range(THREADS)]
+        live = [c for c in cs if c < E]
+
+        def walk(j, e):  # -> (exit, codes) of chunk j from e
+            end, n = min(cs[j] + CHUNK_BITS, E), 0
+            while e is not None and e < end:
+                e, n = nxt(e), n + 1
+            return e, n
+
+        guess = [max(c, entry) for c in live]
+        ent = list(guess)
+        ex = [walk(j, e) for j, e in enumerate(ent)]
+        spec = [n for _, n in ex]
+        while True:  # each round reads the exits of the round before
+            rounds += 1
+            new = [ex[0]] + [walk(j, ex[j - 1][0]) if ex[j - 1][0] != ent[j]
+                             else ex[j] for j in range(1, len(live))]
+            ent = [ent[0]] + [x[0] for x in ex[:-1]]
+            moved = any(a[0] != b[0] for a, b in zip(new, ex))
+            ex = new
+            if not moved:
+                break
+        tiles += 1
+        chunks += len(live)
+        wrong += sum(a != b for a, b in zip(ent, guess))
+        chain += max(a + n for a, (_, n) in zip(spec, ex))
+        S += sum(n for _, n in ex)
+        entry = ex[-1][0]
+    return tiles, chunks, wrong, rounds, chain
+
+
+def row_sync(kind: str, row, off: int, count: int, tabs=None):
+    """chunk_sync of one row of kernel B ("rice") or C ("huffman")."""
+    start = min(max(off, 0), row.size)
+    body = row[start:]
+    nz = np.flatnonzero(body)
+    E = 8 * (int(nz[-1]) + 1) if nz.size else 0
+    bits = np.unpackbits(np.concatenate([body, np.zeros(8, np.uint8)]),
+                         bitorder="little")
+    if kind == "rice":
+        k = int(bits[0]) << 2 | int(bits[1]) << 1 | int(bits[2])
+        zero_at = np.where(bits == 0, np.arange(bits.size), bits.size)
+        next_zero = np.minimum.accumulate(zero_at[::-1])[::-1]
+        return chunk_sync(lambda p: int(next_zero[p]) + 1 + k, 3, E, count)
+    lut = tabs["lut"].cpu().numpy().astype(np.int64) >> 8
+    limit = 8 * body.size
+    w = sum(bits[j: j + max(E, 1)].astype(np.int64) << j for j in range(22))
+
+    def nxt(p):
+        n = int(lut[w[p]])
+        return p + n if n and p + n <= limit else None
+
+    return chunk_sync(nxt, 0, E, count)
+
+
+def log_sync(kernel: str, shape: str, kind: str, stream, off, cnt,
+             tabs=None) -> None:
+    from honours_tpu_torch.engine import rice_cuda
+
+    if not hasattr(rice_cuda, "CHUNK_BITS"):
+        return  # a tree whose kernels B and C walk each row whole
+    b = int(cnt.argmax())
+    t, c, wrong, r, chain = row_sync(kind, stream[b].cpu().numpy(),
+                                     int(off[b]), int(cnt[b]), tabs)
+    log(f"kernel {kernel} on {shape}: its longest row, {int(cnt[b])} "
+        f"codes: {t} tiles, {c} chunks, {wrong} first guesses of a chunk's "
+        f"entry wrong, {r} fix-point rounds, a chain of {chain} codes "
+        "(host count)")
+
+
+def adversarial_cases(dev):
+    """(shape, case) of kernels B and C on tests/chunked_rows.py's rows
+    for the chunked decode (runs across chunk ends, chunk ends at every
+    bit offset, two tiles, counts mid-chunk and past the codes, all-0xFF
+    rows, the zero window's tail, a window no code starts, cut streams,
+    wild offsets and counts); bytes: the rows from their offsets, the
+    output and the offsets and counts; about 12 (B) and 10 (C)
+    operations a code."""
+    import importlib.util
+
+    from honours_tpu_torch.engine import huffdec_cuda as H
+    from honours_tpu_torch.engine import rice_cuda as R
+
+    path = Path(__file__).resolve().parent / "tests" / "chunked_rows.py"
+    spec = importlib.util.spec_from_file_location("chunked_rows", path)
+    rows = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(rows)
+    out = []
+    for name, (st, off, cnt, N) in rows.rice_cases().items():
+        st, off, cnt = (torch.from_numpy(x).to(dev) for x in (st, off, cnt))
+        body = int((st.shape[1] - off.clamp(0, st.shape[1])).sum())
+        c = int(cnt.clamp(0, N).sum())
+        log_sync("B", f"[{st.shape[0]}, {st.shape[1]}] ({name})", "rice", st,
+                 off, cnt.clamp(0, N))
+        out.append((f"[{st.shape[0]}, {st.shape[1]}] ({name})", (
+            "rice_decode",
+            lambda st=st, off=off, cnt=cnt, N=N: R.rice_decode(st, off, cnt,
+                                                               N),
+            lambda st=st, off=off, cnt=cnt, N=N: R.rice_decode_plain(
+                st, off, cnt, N),
+            body + st.shape[0] * (N + 8), 12 * c, None)))
+    for name, (st, off, cnt, N, tabs) in rows.huffman_cases().items():
+        st, off, cnt = (torch.from_numpy(x).to(dev) for x in (st, off, cnt))
+        tabs = {k: v.to(dev) for k, v in tabs.items()}
+        body = int((st.shape[1] - off.clamp(0, st.shape[1])).sum())
+        c = int(cnt.clamp(0, N).sum())
+        log_sync("C", f"[{st.shape[0]}, {st.shape[1]}] ({name})", "huffman",
+                 st, off, cnt.clamp(0, N), tabs)
+        out.append((f"[{st.shape[0]}, {st.shape[1]}] ({name})", (
+            "huffman_decode",
+            lambda st=st, off=off, cnt=cnt, N=N, t=tabs: H.huffman_decode(
+                st, off, cnt, N, t),
+            lambda st=st, off=off, cnt=cnt, N=N, t=tabs:
+                H.huffman_decode_plain(st, off, cnt, N, t),
+            body + st.shape[0] * (N + 12), 10 * c, None)))
+    return out
+
+
 def longest_code_case(dev):
     """Kernel C on one row of 2,000 x symbol 255, whose code is the
     longest (22 bits): every step takes the LUT in device memory."""
@@ -313,6 +458,8 @@ def longest_code_case(dev):
         torch.full((1, m), 255, dtype=torch.uint8, device=dev), cnt, tabs)
     blob = blob[:, : int(blen[0])].contiguous()
     off = torch.full((1,), 4, dtype=torch.int32, device=dev)
+    log_sync("C", "[1, 2000] (2,000 x symbol 255)", "huffman", blob, off,
+             cnt, tabs)
     return ("huffman_decode",
             lambda: H.huffman_decode(blob, off, cnt, m, tabs),
             lambda: H.huffman_decode_plain(blob, off, cnt, m, tabs),
@@ -758,9 +905,10 @@ def log_case(shape: str, r: dict) -> None:
 
 def check_kernels(seed: int) -> dict:
     """Every kernel at the main path's bucket shape, then kernel 1, o1_fc,
-    the walks and kernels A and C at the one-row shape, kernel C on the
-    longest-code row and the drans phase-grid merge, then kernel A on
-    reads with stalls; returns the bucket-shape results by kernel."""
+    the walks and kernels A, B and C at the one-row shape, kernel C on
+    the longest-code row, kernels B and C on their adversarial rows and
+    the drans phase-grid merge, then kernel A on reads with stalls;
+    returns the bucket-shape results by kernel."""
     from honours_tpu_torch.engine.pipeline import canned_o1_device_tables
 
     cases, options, merge, (bucket, merged), vb = kernel_cases(seed)
@@ -779,10 +927,13 @@ def check_kernels(seed: int) -> dict:
     one_row, g = permute_fc_cases(sig, n, tabs)
     svb_n4, options, _ = svb_n4_cases(sig, n)
     for case in (one_row + walk_cases(sig, n, g, tabs)[0] + svb_n4 + options
-                 + [stall_case(sig, n), huffman_case(sig, n)]):
+                 + [stall_case(sig, n), rice_case(sig, n),
+                    huffman_case(sig, n)]):
         log_case(f"[1, {sig.shape[1]}]", time_case(*case))
     log_case("[1, 2000] (2,000 x symbol 255)",
              time_case(*longest_code_case(sig.device)))
+    for shape, case in adversarial_cases(sig.device):
+        log_case(shape, time_case(*case))
     log_case(merged, time_case(*merge))
     # kernel A on reads with stalls: the fixture reads and the stall set
     for label, reads in (("fixture reads", fixture_reads()),

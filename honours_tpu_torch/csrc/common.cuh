@@ -270,54 +270,460 @@ __device__ __forceinline__ void fill_tail(uint8_t* g, int i, int T,
 }  // namespace htt_walk
 
 // ---------------------------------------------------------------------------
-// One-thread-a-read walks over LSB-first bit streams (kernels B and C)
+// Chunked, self-synchronising decode of LSB-first prefix-code streams
+// (kernels B and C), after Weissenberger and Schmidt (2018).
+//
+// One block decodes one row.  The row's stream bits [0, E) are cut into
+// tiles of TILE_BITS, taken one after another, and a tile into THREADS
+// chunks of CHUNK_BITS, chunk j to thread j.  The walk from a bit position
+// depends on that position alone (a code policy's step reads the bits
+// there, and for C the stop conditions are properties of the position),
+// so two walks that meet a common codeword start agree from there on.
+//   1. Speculate: thread j walks from its chunk's first bit (the tile's
+//      true entry for the chunk holding it) until its position reaches the
+//      chunk's end, recording the codeword starts it visits in a bitmap
+//      (one bit a stream bit, shared memory), their count and its exit
+//      position (STOP where the walk met a stop).
+//   2. Synchronise: round after round, thread j takes thread j-1's exit e
+//      as its entry.  If e is past its chunk, the chunk holds no start
+//      (count 0, exit e); if e is a start in its bitmap, the walk from e is
+//      its own from there (count = the starts from e on, exit unchanged);
+//      else it walks again from e until it meets a start of its old walk
+//      (or its chunk's end), rewriting the bitmap up to there.  Rounds
+//      repeat, under __syncthreads_or, until no exit changes.  After round
+//      r chunks 0..r are exact, so this ends, whatever the codes' lengths
+//      (a garbage rice run has no bound).
+//   3. Scan: an exclusive block scan of the counts gives each chunk's
+//      first symbol; the tile's total adds to the row's.
+//   4. Emit: thread j walks its chunk again from its true entry and writes
+//      its symbols; the next tile starts at the tile's last chunk's exit.
+// The chunks cover the stream up to its last nonzero byte, found first
+// (a row's stream is mostly followed by zero padding).  Over zero bits
+// both codes are of one length, so a walk in the wrong phase there never
+// meets the true one; instead the walk's rest from its exit e past the
+// last nonzero byte is known without walking it: the zero window's code
+// (Code::tail) repeated up to the stream's end.  Chunks past the last
+// nonzero byte take no part in the rounds, and a tile's exit is that of
+// its last chunk before it.  The row's walk ends at a stop, at the end of
+// the stream's bits, or once `count` symbols are decoded; got =
+// min(count, symbols decoded).
+//
+// Output ownership (no byte has two writers): thread j of the tile whose
+// symbols start at S writes row bytes [S + start_j, S + start_j + count_j)
+// cut to [0, got), in 32-bit words where a whole aligned word lies inside
+// that range and bytes elsewhere.  After the last tile the block writes
+// [S, got) (the tail's symbols, S the symbols of all tiles) and then
+// [got, N) (zeros), each range's aligned words by thread (word index mod
+// THREADS) and its unaligned bytes at either end by thread 0.  Symbol
+// ranges of one tile are disjoint (the scan), tiles follow each other,
+// and every range lies below the next.
 // ---------------------------------------------------------------------------
 
-namespace htt_serial {
+namespace htt_chunked {
 
-// The stream of one row from byte `pos` on, LSB-first: `buf` holds nb
-// bits, `pend` the next 4 bytes, loaded one refill ahead of their use.
-// Loads are 4-byte words at word-aligned addresses (a row starts at any
-// byte, so up to 3 bytes come one at a time first); bytes at or past M
-// read as 0, so nothing past the row is read.
-struct BitReader {
-  const uint8_t* row;
-  long long M, pos;
-  unsigned long long buf = 0;
-  int nb = 0;
-  unsigned pend = 0;
+constexpr int THREADS = 512;
+constexpr int CHUNK_BITS = 256;
+constexpr int CHUNK_WORDS = CHUNK_BITS / 32;
+constexpr unsigned TILE_BITS = THREADS * CHUNK_BITS;
+constexpr int WARPS = THREADS / 32;
+// A tile's stream words in shared memory: its bits, a word of alignment
+// and a spill of 128 bytes for the codes that cross its end (longer
+// ones, only in garbage, read device memory).  Word r of the stage lies
+// at (r % CHUNK_WORDS) * STAGE_COLS + r / CHUNK_WORDS: a thread's chunk
+// is column j, so the lanes of a warp, each walking its own chunk, read
+// distinct banks; STAGE_COLS = 32 / CHUNK_WORDS mod 32 keeps the staging
+// stores (CHUNK_WORDS words a row of consecutive lanes) on distinct banks
+// too.
+constexpr int STAGE_WORDS = TILE_BITS / 32 + 4 + 32;
+constexpr int STAGE_COLS = (STAGE_WORDS / CHUNK_WORDS + 32) / 32 * 32 +
+                           32 / CHUNK_WORDS;
+constexpr int STAGE_SIZE = CHUNK_WORDS * STAGE_COLS;
+constexpr unsigned STOP = 0xffffffffu;  // the exit of a walk that stopped
 
-  __device__ __forceinline__ unsigned byte_at(long long p) const {
-    return p < M ? __ldg(row + p) : 0u;
+// dynamic shared memory of the decode, in 32-bit words: bitmap, stage,
+// two exit buffers, warp sums
+constexpr int SMEM_WORDS = CHUNK_WORDS * THREADS + STAGE_SIZE + 2 * THREADS
+                           + WARPS;
+static_assert(CHUNK_BITS % 32 == 0 && THREADS % 32 == 0, "word chunks");
+static_assert((STAGE_WORDS - 1) / CHUNK_WORDS < STAGE_COLS &&
+              STAGE_COLS % 32 == 32 / CHUNK_WORDS, "stage columns");
+
+// One row's stream: byte j is row[start + j] while start + j < M, else 0.
+// Words are read in aligned coordinates: aligned byte a is stream byte
+// a - lo, lo = (row + start) mod 16, so aligned word i lies at the 4-byte
+// aligned address base + 4i (base = row + start - lo).  A tile's words
+// [w0, w0 + nw) sit in shared memory; others are loaded, nothing outside
+// the stream's bytes is read.
+struct Source {
+  const uint8_t* base;
+  unsigned lo, hi;  // aligned bytes [lo, hi) hold the stream
+  const unsigned* stage;
+  unsigned w0, nw;
+
+  __device__ __forceinline__ unsigned byte_at(unsigned a) const {
+    return a >= lo && a < hi ? __ldg(base + a) : 0u;
   }
-  __device__ __forceinline__ unsigned word_at(long long p) const {
-    if (p + 4 <= M) return __ldg(reinterpret_cast<const unsigned*>(row + p));
-    return byte_at(p) | byte_at(p + 1) << 8 | byte_at(p + 2) << 16 |
-           byte_at(p + 3) << 24;
+  __device__ __forceinline__ unsigned global_word(unsigned i) const {
+    const unsigned a = 4u * i;
+    if (a >= lo && a + 4 <= hi)
+      return __ldg(reinterpret_cast<const unsigned*>(base + a));
+    return byte_at(a) | byte_at(a + 1) << 8 | byte_at(a + 2) << 16 |
+           byte_at(a + 3) << 24;
   }
-  // at most 3 bytes (24 bits) into buf, then the first word into pend
-  __device__ __forceinline__ void start() {
-    while (reinterpret_cast<uintptr_t>(row + pos) & 3) {
-      buf |= static_cast<unsigned long long>(byte_at(pos)) << nb;
-      nb += 8;
-      ++pos;
+  __device__ __forceinline__ unsigned staged(unsigned r) const {
+    return stage[(r % CHUNK_WORDS) * STAGE_COLS + r / CHUNK_WORDS];
+  }
+  // the stream bits from bit p on, bit p lowest: 64 of them, or 32
+  __device__ __forceinline__ unsigned long long peek64(unsigned p) const {
+    const unsigned q = 8 * lo + p, i = q >> 5, sh = q & 31, r = i - w0;
+    unsigned x, y, z;
+    if (__builtin_expect(r < nw && r + 2 < nw, 1)) {
+      x = staged(r);
+      y = staged(r + 1);
+      z = staged(r + 2);
+    } else {
+      x = global_word(i);
+      y = global_word(i + 1);
+      z = global_word(i + 2);
     }
-    pend = word_at(pos);
-    pos += 4;
+    return static_cast<unsigned long long>(__funnelshift_r(y, z, sh)) << 32 |
+           __funnelshift_r(x, y, sh);
   }
-  // at least 33 bits in buf afterwards, from at least 1 before
-  __device__ __forceinline__ void refill() {
-    if (nb <= 32) {
-      buf |= static_cast<unsigned long long>(pend) << nb;
-      nb += 32;
-      pend = word_at(pos);
-      pos += 4;
+  __device__ __forceinline__ unsigned peek32(unsigned p) const {
+    const unsigned q = 8 * lo + p, i = q >> 5, sh = q & 31, r = i - w0;
+    unsigned x, y;
+    if (__builtin_expect(r < nw && r + 1 < nw, 1)) {
+      x = staged(r);
+      y = staged(r + 1);
+    } else {
+      x = global_word(i);
+      y = global_word(i + 1);
     }
-  }
-  __device__ __forceinline__ void drop(int bits) {
-    buf >>= bits;
-    nb -= bits;
+    return __funnelshift_r(x, y, sh);
   }
 };
 
-}  // namespace htt_serial
+// the stream of a row of M bytes from byte start (0 <= start <= M < 2^28)
+__device__ __forceinline__ Source make_source(const uint8_t* row, long long M,
+                                              long long start) {
+  Source s;
+  const unsigned lo = static_cast<unsigned>(
+      reinterpret_cast<uintptr_t>(row + start) & 15);
+  s.base = row + start - lo;
+  s.lo = lo;
+  s.hi = lo + static_cast<unsigned>(M - start);
+  s.stage = nullptr;
+  s.w0 = 0;
+  s.nw = 0;
+  return s;
+}
+
+// The block copies the words of the tile from bit tb on into the stage
+// (coalesced loads, zeros outside the stream).
+__device__ __forceinline__ void stage_tile(Source& s, unsigned* stage,
+                                           unsigned tb) {
+  s.stage = stage;
+  s.w0 = (s.lo + tb / 8) >> 2;
+  s.nw = STAGE_WORDS;
+  for (unsigned r = threadIdx.x; r < STAGE_WORDS; r += THREADS)
+    stage[(r % CHUNK_WORDS) * STAGE_COLS + r / CHUNK_WORDS] =
+        s.global_word(s.w0 + r);
+  __syncthreads();
+}
+
+// A thread's chunk [c, end) of the tile (empty where end <= c) and its
+// walk: entry, exit (STOP where it stopped) and the starts it holds.
+struct Chunk {
+  unsigned c, end, entry, exit, count;
+};
+
+// Bitmap word w of this thread's chunk (bit r: chunk bit 32w + r), words
+// interleaved across the block's threads so a warp's like accesses hit
+// 32 banks.  Bits in [entry, end) are the walk's starts there; bits below
+// the entry are never read.
+__device__ __forceinline__ unsigned* bm_word(unsigned* bm, unsigned w) {
+  return bm + w * THREADS + threadIdx.x;
+}
+
+// starts held from chunk bit r on
+__device__ __forceinline__ unsigned popc_from(unsigned* bm, unsigned r) {
+  unsigned n = __popc(*bm_word(bm, r >> 5) & (~0u << (r & 31)));
+  for (unsigned w = (r >> 5) + 1; w < CHUNK_WORDS; ++w)
+    n += __popc(*bm_word(bm, w));
+  return n;
+}
+
+// Walk from e (ch.c <= e < ch.end) until the chunk's end, a stop, or
+// (SYNC) a start of the old walk at or past valid_from (its entry),
+// writing the bitmap from e to where it ended.  A code's step
+// (Code::step) may decode two codes where its window holds both; the
+// speculation (no SYNC) takes both when the second starts in the chunk
+// and in the same bitmap word, and reads no bitmap word: it clears the
+// words after e's first and stores each word's starts as it leaves it.
+// The re-walks (SYNC) are short and take one code a step.
+template <bool SYNC, class Code>
+__device__ __forceinline__ void walk(const Code& code, const Source& src,
+                                     unsigned* bm, Chunk& ch, unsigned e,
+                                     unsigned valid_from) {
+  unsigned p = e, n = 0, cw = (e - ch.c) >> 5, acc = 0;
+  unsigned old = SYNC ? *bm_word(bm, cw) : 0u;
+  if (!SYNC)
+    for (unsigned x = cw + 1; x < CHUNK_WORDS; ++x) *bm_word(bm, x) = 0;
+  bool synced = false, stopped = false;
+  while (p < ch.end) {
+    const unsigned r = p - ch.c, w = r >> 5;
+    if (w != cw) {  // word cw walked past: its starts are acc
+      *bm_word(bm, cw) = acc;
+      if (SYNC) {
+        for (unsigned x = cw + 1; x < w; ++x) *bm_word(bm, x) = 0;
+        old = *bm_word(bm, w);
+      }
+      cw = w;
+      acc = 0;
+    }
+    const unsigned bit = 1u << (r & 31);
+    if (SYNC && p >= valid_from && (old & bit)) {
+      synced = true;
+      break;
+    }
+    unsigned len1, len, sym;
+    const unsigned k = code.step(src, p, len1, len, sym);
+    if (k == 0) {
+      stopped = true;
+      break;
+    }
+    acc |= bit;
+    const unsigned r2 = r + len1;  // the second code's chunk bit
+    if (!SYNC && k == 2 && p + len1 < ch.end && (r2 >> 5) == w) {
+      acc |= 1u << (r2 & 31);
+      n += 2;
+      p += len;
+    } else {
+      ++n;
+      p += len1;
+    }
+  }
+  if (synced) {  // new starts below p, the old walk's from p on
+    *bm_word(bm, cw) = (old & (~0u << ((p - ch.c) & 31))) | acc;
+    ch.count = n + popc_from(bm, p - ch.c);
+  } else {  // no start after the walk's last
+    *bm_word(bm, cw) = acc;
+    if (SYNC)
+      for (unsigned x = cw + 1; x < CHUNK_WORDS; ++x) *bm_word(bm, x) = 0;
+    ch.count = n;
+    ch.exit = stopped ? STOP : p;
+  }
+  ch.entry = e;
+}
+
+// exclusive scan of v over the block; *total gets the sum
+__device__ __forceinline__ unsigned block_scan(unsigned v, unsigned* sums,
+                                               unsigned* total) {
+  const unsigned lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  unsigned x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) sums[wid] = x;
+  __syncthreads();
+  if (wid == 0) {
+    unsigned s = lane < WARPS ? sums[lane] : 0u;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned y = __shfl_up_sync(0xffffffffu, s, o);
+      if (lane >= o) s += y;
+    }
+    if (lane < WARPS) sums[lane] = s;
+  }
+  __syncthreads();
+  *total = sums[WARPS - 1];
+  return (wid ? sums[wid - 1] : 0u) + x - v;
+}
+
+// Bytes [i, i + m) of a row written in order: whole aligned 32-bit words
+// inside the range as words, the bytes before the first and after the
+// last as bytes.
+struct RowWriter {
+  uint8_t* row;
+  unsigned i, head_end, body_end, acc;
+
+  __device__ __forceinline__ RowWriter(uint8_t* r, unsigned i0, unsigned m)
+      : row(r), i(i0), acc(0) {
+    const unsigned mis = (4u - static_cast<unsigned>(
+        reinterpret_cast<uintptr_t>(r + i0) & 3)) & 3u;
+    head_end = i0 + min(mis, m);
+    body_end = head_end + ((i0 + m - head_end) & ~3u);
+  }
+  __device__ __forceinline__ void put(unsigned x) {
+    if (i < head_end || i >= body_end) {
+      row[i] = static_cast<uint8_t>(x);
+    } else {
+      const unsigned sh = 8 * ((i - head_end) & 3);
+      acc |= (x & 0xffu) << sh;
+      if (sh == 24) {
+        *reinterpret_cast<unsigned*>(row + i - 3) = acc;
+        acc = 0;
+      }
+    }
+    ++i;
+  }
+};
+
+// 1 + the aligned index of the stream's last nonzero byte, 0 where it
+// has none: the block reads 16-byte groups from the stream's end down,
+// LAST_GROUPS a thread a pass, until a pass finds one.
+constexpr int LAST_GROUPS = 4;
+__device__ __forceinline__ unsigned last_nonzero(const Source& s,
+                                                 unsigned* top) {
+  const int g_lo = static_cast<int>(s.lo / 16);
+  int g_hi = static_cast<int>((s.hi + 15) / 16);
+  if (threadIdx.x == 0) *top = 0;
+  __syncthreads();
+  for (; g_hi > g_lo; g_hi -= THREADS * LAST_GROUPS) {
+    unsigned hit = 0;
+#pragma unroll
+    for (int x = 0; x < LAST_GROUPS; ++x) {
+      const int g = g_hi - 1 - static_cast<int>(threadIdx.x) - x * THREADS;
+      if (g < g_lo) break;
+      const unsigned a = 16u * g;
+      uint4 v;
+      if (a >= s.lo && a + 16 <= s.hi) {
+        v = __ldg(reinterpret_cast<const uint4*>(s.base + a));
+      } else {
+        v.x = s.global_word(a / 4);
+        v.y = s.global_word(a / 4 + 1);
+        v.z = s.global_word(a / 4 + 2);
+        v.w = s.global_word(a / 4 + 3);
+      }
+      const unsigned h = v.w ? 12 + (39 - __clz(v.w)) / 8
+                         : v.z ? 8 + (39 - __clz(v.z)) / 8
+                         : v.y ? 4 + (39 - __clz(v.y)) / 8
+                         : v.x ? (39 - __clz(v.x)) / 8 : 0u;
+      if (h && !hit) hit = a + h;  // the highest group first
+    }
+    if (hit) atomicMax(top, hit);
+    if (__syncthreads_or(hit)) return *top;
+  }
+  return 0;
+}
+
+// row[a, b) = byte: its whole aligned words across the block, its
+// unaligned bytes at either end by thread 0
+__device__ __forceinline__ void fill(uint8_t* row, unsigned a, unsigned b,
+                                     unsigned byte) {
+  if (a >= b) return;
+  const unsigned mis = (4u - static_cast<unsigned>(
+      reinterpret_cast<uintptr_t>(row + a) & 3)) & 3u;
+  const unsigned w = min(a + mis, b);
+  const unsigned z = w + ((b - w) & ~3u);
+  if (threadIdx.x == 0) {
+    for (unsigned i = a; i < w; ++i) row[i] = static_cast<uint8_t>(byte);
+    for (unsigned i = z; i < b; ++i) row[i] = static_cast<uint8_t>(byte);
+  }
+  const unsigned v = (byte & 0xffu) * 0x01010101u;
+  for (unsigned i = w + 4 * threadIdx.x; i < z; i += 4 * THREADS)
+    *reinterpret_cast<unsigned*>(row + i) = v;
+}
+
+// Decode one row: the walk from bit `first` over the stream's E bits, at
+// most cnt symbols into row[0, got), then zeros to N.  Returns got.
+// Every thread of the block calls it.
+template <class Code>
+__device__ __forceinline__ unsigned decode_row(const Code& code, Source& src,
+                                               unsigned first, unsigned E,
+                                               unsigned cnt, uint8_t* row,
+                                               unsigned N, unsigned* smem) {
+  unsigned* bm = smem;
+  unsigned* stage = bm + CHUNK_WORDS * THREADS;
+  unsigned* exits = stage + STAGE_SIZE;
+  unsigned* sums = exits + 2 * THREADS;
+  const unsigned t = threadIdx.x;
+  // the bits past the stream's last nonzero byte are zeros
+  const unsigned top = cnt ? last_nonzero(src, sums) : 0u;
+  E = min(E, top ? 8 * (top - src.lo) : 0u);
+  unsigned S = 0, entry = first;  // symbols before the tile; its entry
+  while (entry < E && S < cnt) {  // STOP >= E
+    const unsigned tb = entry - entry % TILE_BITS;
+    __syncthreads();  // the last tile is done with the stage and exits
+    stage_tile(src, stage, tb);
+
+    // 1. speculate
+    Chunk ch;
+    ch.c = tb + t * CHUNK_BITS;
+    ch.end = min(ch.c + CHUNK_BITS, E);
+    const unsigned e0 = max(ch.c, entry);
+    if (e0 >= ch.end) {
+      ch.entry = ch.exit = e0;
+      ch.count = 0;
+    } else {
+      walk<false>(code, src, bm, ch, e0, ch.end);
+    }
+    exits[t] = ch.exit;
+    __syncthreads();
+
+    // 2. synchronise
+    unsigned cur = 0;
+    for (;;) {
+      const unsigned e = t ? exits[cur * THREADS + t - 1] : ch.entry;
+      bool moved = false;
+      if (e != ch.entry && ch.c < E) {
+        const unsigned was = ch.exit;
+        if (e >= ch.end) {
+          ch.entry = ch.exit = e;
+          ch.count = 0;
+        } else if (e >= ch.entry &&
+                   (*bm_word(bm, (e - ch.c) >> 5) >> ((e - ch.c) & 31) & 1)) {
+          ch.count = popc_from(bm, e - ch.c);
+          ch.entry = e;
+        } else {
+          walk<true>(code, src, bm, ch, e, ch.entry);
+        }
+        moved = ch.exit != was;
+      }
+      cur ^= 1;
+      exits[cur * THREADS + t] = ch.exit;
+      if (!__syncthreads_or(moved)) break;
+    }
+
+    // 3. scan
+    unsigned total;
+    const unsigned first_sym = S + block_scan(ch.count, sums, &total);
+
+    // 4. emit, cut at cnt
+    if (ch.count && first_sym < cnt) {
+      const unsigned m = min(ch.count, cnt - first_sym);
+      RowWriter out(row, first_sym, m);
+      unsigned p = ch.entry;
+      for (unsigned i = 0; i < m;) {
+        unsigned len1, len, sym;
+        if (code.step(src, p, len1, len, sym) == 2 && i + 1 < m) {
+          out.put(sym);
+          out.put(sym >> 8);
+          i += 2;
+          p += len;
+        } else {
+          out.put(sym);
+          ++i;
+          p += len1;
+        }
+      }
+    }
+    S += total;
+    // the exit of the tile's last chunk that starts below E
+    entry = exits[cur * THREADS + min((E - 1 - tb) / CHUNK_BITS,
+                                      static_cast<unsigned>(THREADS - 1))];
+  }
+  unsigned got = min(S, cnt);
+  if (entry != STOP && S < cnt) {  // the walk's rest over zero bits
+    unsigned n, sym;
+    code.tail(entry, n, sym);
+    got = S + min(n, cnt - S);
+    fill(row, S, got, sym);
+  }
+  fill(row, got, N, 0u);
+  return got;
+}
+
+}  // namespace htt_chunked

@@ -5,7 +5,9 @@ No TPU kernel stands behind it: honours_tpu decodes shuffman streams on
 the host only (honours_tpu/native/huffdec.c ht_huffman_decode, reached
 through codecs/huffman.py shuffman_decode_memory).  The wrapper routes by
 device: CPU tensors take the plain version, CUDA tensors launch the
-kernel (one read a block).
+kernel: one block a read, each thread a chunk of its stream bits,
+chunks made exact by self-synchronisation (csrc/common.cuh htt_chunked,
+shared with kernel B; engine/rice_cuda.py THREADS and CHUNK_BITS).
 """
 
 from __future__ import annotations
@@ -134,9 +136,9 @@ def huffman_decode(stream, off, count, N: int, tabs):
     B, M = stream.shape
     check(off, "off", (torch.int32,), (B,))
     check(count, "count", (torch.int32,), (B,))
-    if M >= 1 << 29 or N >= 1 << 31:
+    if M >= 1 << 28 or N >= 1 << 31:
         raise ValueError(f"[B, M] = {tuple(stream.shape)}, N = {N}: the "
-                         "kernel takes M < 2^29 and N < 2^31")
+                         "kernel takes M < 2^28 and N < 2^31")
     l1, lut = tabs["l1"], tabs["lut"]
     check(l1, "l1", (torch.int32,), (1 << L1_BITS,))
     check(lut, "lut", (torch.int16,), (1 << LUT_BITS,))

@@ -3,7 +3,9 @@
 No TPU kernel stands behind it: honours_tpu decodes rice streams on the
 host only (honours_tpu/codecs/rice.py rice_decode).  The wrapper routes
 by device: CPU tensors take the plain version, CUDA tensors launch the
-kernel (one thread a read).
+kernel: one block of THREADS a read, each thread a chunk of CHUNK_BITS
+stream bits, chunks made exact by self-synchronisation (csrc/common.cuh
+htt_chunked).
 """
 
 from __future__ import annotations
@@ -13,6 +15,11 @@ import torch
 from honours_tpu_torch._build import check, is_cpu, kernel, stream_ptr
 
 _DECODE = kernel("rice_decode", "rice.cu", "htt_rice_decode", "pllpplpp")
+
+#: threads of the block that decodes a row and stream bits of a thread's
+#: chunk, in kernels B and C alike (csrc/common.cuh htt_chunked)
+THREADS = 512
+CHUNK_BITS = 256
 
 
 #: bytes the plain version's bit tables may take at once (about 32 a
@@ -90,6 +97,9 @@ def rice_decode(stream, off, count, N: int):
     B, M = stream.shape
     check(off, "off", (torch.int32,), (B,))
     check(count, "count", (torch.int32,), (B,))
+    if M >= 1 << 28 or N >= 1 << 31:
+        raise ValueError(f"[B, M] = {tuple(stream.shape)}, N = {N}: the "
+                         "kernel takes M < 2^28 and N < 2^31")
     if N < 0:
         raise ValueError(f"N {N} is negative")
     out = torch.empty((B, N), dtype=torch.uint8, device=stream.device)

@@ -9,6 +9,9 @@ import numpy as np
 import pytest
 import torch
 
+import chunked_rows as rows
+from chunked_rows import place as chunked_place
+
 pytestmark = pytest.mark.gpu
 
 
@@ -1088,6 +1091,65 @@ def test_huffman_decode_kernel_cut_streams_and_counts(cuda):
                        dtype=torch.int32)
     for N in (0, 1, 700, 701):
         _huffman_same(cuda, torch.from_numpy(st), off, cnt, N, tabs)
+
+
+@pytest.mark.parametrize("name", rows.RICE_NAMES)
+def test_rice_decode_kernel_adversarial(cuda, name):
+    """tests/chunked_rows.py's rows for the chunked decode: unary runs of
+    200+ bits across chunk ends (k = 0), chunk ends at every bit offset
+    of a code, two tiles, counts ending mid-chunk and past the values,
+    all-0xFF rows, cut streams, offsets past M and negative, counts past
+    N and negative, N % 4 != 0."""
+    from honours_tpu_torch.engine import rice_cuda as R
+
+    st, off, cnt, N = (torch.from_numpy(x) if isinstance(x, np.ndarray)
+                       else x for x in rows.rice_cases()[name])
+    got = R.rice_decode(st.to(cuda), off.to(cuda), cnt.to(cuda), N)
+    torch.cuda.synchronize()
+    _same(got, R.rice_decode_plain(st, off, cnt, N))
+
+
+def test_rice_decode_kernel_poisoned_output(cuda):
+    """The output block held 0xA5 bytes just before the call: the kernel
+    writes every byte of it, each row's values up to its count (some
+    counts below the row's values, one past them, one 0) and zeros
+    after, whatever thread owns it."""
+    from honours_tpu_torch.engine import rice_cuda as R
+
+    rows_, blobs, _ = _rice_rows(4)
+    st = torch.from_numpy(chunked_place(blobs, [0] * len(blobs)))
+    cnt = torch.tensor([(r.size // (1 + i % 3) if i % 5 else r.size + 9)
+                        for i, r in enumerate(rows_)], dtype=torch.int32)
+    cnt[0] = 0
+    off = torch.zeros(len(rows_), dtype=torch.int32)
+    args = (st.to(cuda), off.to(cuda), cnt.to(cuda))
+    for N in (701, 704):
+        bait = torch.full((len(rows_), N), 0xA5, dtype=torch.uint8,
+                          device=cuda)
+        ptr = bait.data_ptr()
+        del bait
+        out = R.rice_decode(*args, N)
+        assert out.data_ptr() == ptr
+        torch.cuda.synchronize()
+        _same(out, R.rice_decode_plain(st, off, cnt, N))
+
+
+@pytest.mark.parametrize("name", rows.HUFFMAN_NAMES)
+def test_huffman_decode_kernel_adversarial(cuda, name):
+    """tests/chunked_rows.py's rows for the chunked decode: random rows
+    at odd offsets, counts ending mid-chunk, two tiles, streams ending in
+    the zero window's code with counts past it, a window no code starts
+    (tables with one symbol's code removed) in a late chunk before and
+    after count, cut streams, offsets past M and negative, counts past N
+    and negative, N % 4 != 0."""
+    from honours_tpu_torch.engine import huffdec_cuda as H
+
+    st, off, cnt, N, tabs = rows.huffman_cases()[name]
+    st, off, cnt = map(torch.from_numpy, (st, off, cnt))
+    got = H.huffman_decode(st.to(cuda), off.to(cuda), cnt.to(cuda), N,
+                           {k: v.to(cuda) for k, v in tabs.items()})
+    torch.cuda.synchronize()
+    _same(got, H.huffman_decode_plain(st, off, cnt, N, tabs))
 
 
 def test_shuffman_cut_stream_raises_on_card(cuda):
