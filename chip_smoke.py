@@ -42,7 +42,11 @@
    and C at each shape it logs, counted on the host, the tiles, chunks,
    chunk entries whose first guess was wrong and fix-point rounds of
    the longest row's chunked decode (chunk_sync), and for C the steps
-   of its walk (walk_steps).
+   of its walk (walk_steps); for kernel A at each shape, counted on the
+   host by the numpy model of its phases (tests/stall_rows.py), the
+   composer's group and chunk steps, walked chunks and table misses, the
+   run machine's tiles, attempts ended (jumps) and ends kept, and its
+   chain floor (log_stall_work).
 3. Presses and depresses ~1,028 reads (1,024 synthetic reads with
    log-uniform lengths in [4,000, 250,000] samples plus edge reads, two
    of which overflow the exception cap) through
@@ -212,18 +216,91 @@ def stall_set(seed: int):
     return reads
 
 
-def stall_case(sig, n):
+def stall_case(sig, n, label: str):
     """(name, kernel call, plain call, bytes, ops, library call) of kernel
     A on the rows [B, L]: each sample below n read once (2 B), n read and
-    the three outputs written (13 B a row); about 15 operations a sample
-    over the three passes."""
+    the three outputs written (13 B a row); about 15 operations a sample,
+    the C's (two sums, a square, two compares, a step of the machine).
+    Logs the kernel's host-counted work on these rows and its chain floor,
+    a model of the longest dependent chains of one read (log_stall_work):
+    its composer steps x 40 cycles + its walked chunks x 1,024 (256
+    dependent adds) + its run-machine tiles x 5,760 (two passes of 256
+    samples at 10 cycles, two scans of 8 levels at 40), at 1.98 GHz."""
     from honours_tpu_torch.segment import segment_cuda as S
 
     n32 = n.to(torch.int32).contiguous()
     nsum = int(n32.to(torch.int64).clamp(0, sig.shape[1]).sum())
+    log_stall_work(label, sig, n32)
     return ("find_stall", lambda: S.find_stall(sig, n32),
             lambda: S.find_stall_plain(sig, n32),
             2 * nsum + 13 * sig.shape[0], 15 * nsum, None)
+
+
+def load_tests_module(name: str):
+    """tests/<name>.py, loaded by its path (the tests directory is no
+    package)."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tests" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+#: cycles of the chain-floor model of kernel A (csrc/segment.cu): a
+#: composer step (a compare, selects and an add on s), a walked chunk
+#: (CHUNK dependent float adds of 4 cycles) and a tile of the run machine
+#: (two passes of a lane over its CHUNK samples at about 10 cycles a
+#: sample, and two block scans of 8 levels at about 40)
+FLOOR_CYCLES = {"step": 40, "walked": 4 * 256,
+                "tile": 2 * 256 * 10 + 2 * 8 * 40}
+SM_HZ = 1.98e9
+
+
+def log_stall_work(label: str, sig, n) -> None:
+    """Kernel A's work on each row, counted on the host by the numpy model
+    of its phases (tests/stall_rows.py, at segment_cuda's constants):
+    composer steps (group and chunk), walked chunks and of them the table
+    misses, tiles of the run machine, attempts ended (jumps) and ends kept
+    for the segments; and the chain-floor model of the row whose chains
+    are longest (FLOOR_CYCLES at 1.98 GHz)."""
+    from honours_tpu_torch.segment import segment_cuda as S
+
+    if not hasattr(S, "GROUP"):
+        return  # a tree whose kernel A walks each read with one thread
+    model = load_tests_module("stall_rows")
+    rows = sig.cpu().numpy()
+    lens = n.to(torch.int64).clamp(0, sig.shape[1]).tolist()
+    tot, worst, floor = {}, None, -1.0
+    for row, m in zip(rows, lens):
+        st = {}
+        model.model_find_stall(row[:m], st)
+        for k, v in st.items():
+            tot[k] = tot.get(k, 0) + v
+        cyc = (FLOOR_CYCLES["step"] * sum(st.get(f"sum{i}_{k}", 0)
+                                          for i in (1, 2)
+                                          for k in ("group", "chunk"))
+               + FLOOR_CYCLES["walked"] * (st.get("sum1_walked", 0)
+                                           + st.get("sum2_walked", 0))
+               + FLOOR_CYCLES["tile"] * st.get("tiles", 0))
+        if cyc > floor:
+            worst, floor = (m, st), cyc
+    m, st = worst
+
+    def work(d):
+        both = {k: d.get(f"sum1_{k}", 0) + d.get(f"sum2_{k}", 0)
+                for k in ("group", "chunk", "misses")}
+        return (f"composer steps {both['group']} group + {both['chunk']} "
+                f"chunk, walked chunks {d.get('sum1_walked', 0)} + "
+                f"{d.get('sum2_walked', 0)} (table misses {both['misses']}), "
+                f"tiles {d.get('tiles', 0)}, attempts ended (jumps) "
+                f"{d.get('jumps', 0)}, ends kept for the segments "
+                f"{d.get('kept', 0)}")
+
+    log(f"kernel A on {label}: all rows: {work(tot)} (host count)")
+    log(f"kernel A on {label}: the row of the longest chains (n = {m}): "
+        f"{work(st)}; chain floor (model) {floor / SM_HZ * 1e3:.4f} ms")
 
 
 def rice_case(sig, n):
@@ -404,15 +481,10 @@ def adversarial_cases(dev):
     wild offsets and counts); bytes: the rows from their offsets, the
     output and the offsets and counts; about 12 (B) and 10 (C)
     operations a code."""
-    import importlib.util
-
     from honours_tpu_torch.engine import huffdec_cuda as H
     from honours_tpu_torch.engine import rice_cuda as R
 
-    path = Path(__file__).resolve().parent / "tests" / "chunked_rows.py"
-    spec = importlib.util.spec_from_file_location("chunked_rows", path)
-    rows = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(rows)
+    rows = load_tests_module("chunked_rows")
     out = []
     for name, (st, off, cnt, N) in rows.rice_cases().items():
         st, off, cnt = (torch.from_numpy(x).to(dev) for x in (st, off, cnt))
@@ -578,7 +650,7 @@ def kernel_cases(seed: int):
         ("o1n_fc", lambda: N4.o1n_fc(sym, ctx, *nt),
          lambda: N4.o1n_fc_plain(sym, ctx, *nt),
          16 * sym.numel(), 8 * sym.numel(), None),
-        stall_case(sig, n),
+        stall_case(sig, n, f"[{B}, {L}]"),
         rice_case(sig, n),
         huffman_case(sig, n),
     ]
@@ -927,7 +999,8 @@ def check_kernels(seed: int) -> dict:
     one_row, g = permute_fc_cases(sig, n, tabs)
     svb_n4, options, _ = svb_n4_cases(sig, n)
     for case in (one_row + walk_cases(sig, n, g, tabs)[0] + svb_n4 + options
-                 + [stall_case(sig, n), rice_case(sig, n),
+                 + [stall_case(sig, n, f"[1, {sig.shape[1]}]"),
+                    rice_case(sig, n),
                     huffman_case(sig, n)]):
         log_case(f"[1, {sig.shape[1]}]", time_case(*case))
     log_case("[1, 2000] (2,000 x symbol 255)",
@@ -939,10 +1012,10 @@ def check_kernels(seed: int) -> dict:
     for label, reads in (("fixture reads", fixture_reads()),
                          ("stall set", stall_set(seed))):
         sig, n = rows_on_card(reads)
-        case = stall_case(sig, n)
+        shape = f"[{sig.shape[0]}, {sig.shape[1]}] ({label})"
+        case = stall_case(sig, n, shape)
         found = case[1]()[0]
-        log_case(f"[{sig.shape[0]}, {sig.shape[1]}] ({label})",
-                 time_case(*case))
+        log_case(shape, time_case(*case))
         log(f"find_stall on the {label}: a stall in {int(found.sum())} of "
             f"{len(reads)} reads")
     return results

@@ -7,7 +7,9 @@ to [0, 1200], float32 mean and standard deviation summed serially in
 sample order, in-band thresholds mean +- 0.75 sd, then a run state
 machine that counts in-band samples, tolerates short excursions and
 merges nearby segments.  Kernel A (csrc/segment.cu, segment_cuda.py)
-runs one read a thread; the plain version repeats its arithmetic.
+runs a block a read, its serial sums composed chunk by chunk and its run
+machine scanned chunk by chunk; the plain version repeats the C's
+arithmetic sample by sample.
 
 Parameters below are the port's own copies of the segmenter's
 (honours_tpu/segment/__init__.py) and of the stall codecs' threshold

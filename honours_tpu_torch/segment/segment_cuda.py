@@ -5,7 +5,14 @@ No TPU kernel stands behind it: it replaces the lax.scan of
 honours_tpu/segment/__init__.py find_stall_batch and holds the C oracle
 honours_tpu/native/segment.c bit for bit.  The wrapper routes by
 device: CPU tensors take the plain version, CUDA tensors launch the
-kernel (one thread a read).
+kernel: a block of THREADS a read, the read in tiles of TILE samples, a
+chunk of CHUNK samples a thread; the two float32 sums are composed
+chunk by chunk (GROUP chunks at a time where they can) from parity
+tables over binades (the lower one that of GUESS x the exact sum before
+the chunk); over an in-band bit mask, a scan of the chunks' maps of the
+run machine's 7 control states gives each chunk's state at its start,
+and each chunk records the attempt ends that can emit (csrc/segment.cu
+states both invariants).
 """
 
 from __future__ import annotations
@@ -26,6 +33,16 @@ from honours_tpu_torch.segment import (
 )
 
 _FIND = kernel("find_stall", "segment.cu", "htt_find_stall", "pplllpppp")
+
+#: threads a block (a read), samples a chunk (a thread's share of a tile),
+#: samples a tile, chunks a group step of the sums, and the factor whose
+#: binade is the lowest tabulated: csrc/segment.cu's THREADS, CHUNK, TILE,
+#: GROUP and GUESS
+THREADS = 256
+CHUNK = 256
+TILE = THREADS * CHUNK
+GROUP = 8
+GUESS = 15 / 16
 
 
 # ---------------------------------------------------------------------------

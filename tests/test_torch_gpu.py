@@ -10,6 +10,7 @@ import pytest
 import torch
 
 import chunked_rows as rows
+import stall_rows
 from chunked_rows import place as chunked_place
 
 pytestmark = pytest.mark.gpu
@@ -880,6 +881,48 @@ def test_find_stall_batches(cuda, B):
 
     n2 = (n % 12000).to(torch.int32)
     _same(S.find_stall(view, n2.to(cuda)), S.find_stall_plain(view.cpu(), n2))
+
+
+@pytest.mark.parametrize("name", stall_rows.row_names())
+def test_find_stall_kernel_stall_rows(cuda, name):
+    """Kernel A on each row of tests/stall_rows.py alone: sums crossing
+    2^24 .. 2^29 at chunk and tile ends, ties, all-1200 and all-0 rows, n
+    at the window edges, rows of one to eight tiles, attempts ending at
+    chunk and tile ends or open across them, merges at 49 and 50, results
+    fixed at nsegs == 2, the knife-edge reads, a stall past 65,535 and
+    the fixture reads."""
+    row = stall_rows.stall_row(name)
+    _stall_same(cuda, *_padded([row], max(row.size, 1)))
+
+
+@pytest.mark.parametrize("odd", [False, True])
+def test_find_stall_kernel_stall_rows_batch(cuda, odd):
+    """Every row of tests/stall_rows.py in one batch, at L % 8 == 0 (16-byte
+    loads throughout) and at L % 8 == 1 (rows at every alignment)."""
+    rows_ = [r for _, r in stall_rows.stall_rows()]
+    L = -(-max(r.size for r in rows_) // 8) * 8 + odd
+    _stall_same(cuda, *_padded(rows_, L))
+
+
+def test_find_stall_kernel_poisoned_output(cuda):
+    """The outputs come in blocks that held 0xA5 bytes just before the
+    call: the kernel writes every row's (exists, start, length), rows
+    with no segment and n = 0 included."""
+    from honours_tpu_torch.segment import segment_cuda as S
+
+    rows_ = [r for _, r in stall_rows.stall_rows()][:40]
+    sig, n = _padded(rows_)
+    sig_c, n_c = sig.to(cuda), n.to(cuda)
+    baits = [torch.full((512,), 0xA5, dtype=torch.uint8, device=cuda)
+             for _ in range(64)]
+    ptrs = {b.data_ptr() for b in baits}
+    del baits
+    got = S.find_stall(sig_c, n_c)
+    assert all(t.data_ptr() in ptrs for t in got)
+    torch.cuda.synchronize()
+    want = S.find_stall_plain(sig, n)
+    _same(got, want)
+    assert not want[0].all() and (n == 0).any()
 
 
 def _rice_rows(seed=0):

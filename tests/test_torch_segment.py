@@ -13,6 +13,7 @@ import torch
 from honours_tpu import native
 from honours_tpu.segment import find_stall_batch as jax_find_stall_batch
 from honours_tpu_torch.segment import find_stall_batch, segment_cuda
+from stall_rows import knife_cases, late_stall
 
 
 def _batch(signals):
@@ -84,55 +85,8 @@ def _random():
     return sigs
 
 
-# tests/test_dstall.py's knife-edge reads
-
-
-def _stall_exact(rng, stall_len, n_rest=2000, base=460, jitter=4):
-    stall = base + rng.integers(-jitter, jitter + 1, stall_len)
-    rest = np.empty(n_rest, np.int64)
-    rest[0::2] = rng.integers(0, 60, (n_rest + 1) // 2)
-    rest[1::2] = rng.integers(1100, 1200, n_rest // 2)
-    return np.concatenate([stall, rest]).astype(np.int16)
-
-
-def knife_cases():
-    """(name, read) of tests/test_dstall.py's knife-edge cases: stall
-    lengths at the threshold, margin and window edges, a float-stress
-    read and a read whose stall-like run starts past 65535."""
-    rng = np.random.default_rng(77)
-    thr, margin, window = 140, 20, 150
-    cases = []
-    for d in (-1, 0, 1):
-        cases.append(("thr%+d" % d, _stall_exact(rng, thr + d)))
-    for d in (-1, 0, 1):
-        cases.append(("margin%+d" % d, _stall_exact(rng, 2 * margin + d)))
-    for ln in (int(window * 0.25), int(window * 0.25) + 1, window,
-               window + 1):
-        cases.append(("win%d" % ln, _stall_exact(rng, ln)))
-    x = np.empty(120000, np.int64)
-    x[0::2] = rng.integers(0, 40, 60000)
-    x[1::2] = rng.integers(1150, 1200, 60000)
-    x[:700] = 460 + rng.integers(-3, 4, 700)
-    cases.append(("floatstress", x.astype(np.int16)))
-    y = np.concatenate([
-        rng.integers(300, 900, 66000),
-        460 + rng.integers(-3, 4, 3000),
-        rng.integers(300, 900, 2000),
-    ]).astype(np.int16)
-    cases.append(("u16start", y))
-    return cases
-
-
-def late_stall(seed=3, at=70000):
-    """Alternating extremes (never in band) for `at` samples, then a
-    stall of 3000 at 460 +- 3 and 500 more extremes: the first segment
-    starts past 65535."""
-    rng = np.random.default_rng(seed)
-    x = np.empty(at + 3500, np.int64)
-    x[0::2] = rng.integers(0, 40, x[0::2].size)
-    x[1::2] = rng.integers(1150, 1200, x[1::2].size)
-    x[at: at + 3000] = 460 + rng.integers(-3, 4, 3000)
-    return x.astype(np.int16)
+# tests/test_dstall.py's knife-edge reads and a stall past sample 65,535:
+# stall_rows.knife_cases, stall_rows.late_stall
 
 
 def test_fixture_reads_match_c(fixture_reads):
