@@ -74,7 +74,19 @@
    shuffman_vbbe21_zd, then
    `depress` on each result, and asserts every signal comes back and
    each pressed file names its codec; prints the file sizes.
-6. Prints one {"kernels": [...]} line, then {"ok": true, "device": ...}.
+6. Multi-GPU: `python -m honours_tpu_torch.shard.dryrun` (through its
+   `launch`) at the bucket's width: 256 synthetic reads at L = 65536
+   sharded over the ranks for srans2, drans and dstall_drans, and the
+   stall set for dstall_drans (its rows reordered, if need be, so that
+   some rank holds a split row and some none), every rank's streams
+   equal to the unsharded engine's over the whole batch on the card and
+   every row back.  Worlds: 4 gloo ranks sharing the card (gloo stages
+   the few reduced tensors through the host; the data and the engines
+   stay on the card), an NCCL world of 1, and NCCL with a card a rank
+   where there are several.  Logs each world and each rank's wall,
+   collectives and their bytes; every rank must launch the path's
+   kernels, and their launches count toward the kernels line.
+7. Prints one {"kernels": [...]} line, then {"ok": true, "device": ...}.
 
 `--kernels-only` stops after step 2 and prints no result line: it times
 the kernels of whichever honours_tpu_torch is imported, e.g. an older
@@ -200,20 +212,6 @@ def fixture_reads():
 
     path = Path(__file__).resolve().parent / "tests/data/three-reads.blow5"
     return [r.signal for r in blow5.read_blow5(str(path), device="cpu").reads]
-
-
-def stall_set(seed: int):
-    """16 reads, each 500 random samples in [300, 900), a stall of 30,000
-    samples at 460 +- 4, then a 60,000-step random walk (steps in [-40,
-    40]) from 460, clipped to [0, 1200]."""
-    rng = np.random.default_rng(seed)
-    reads = []
-    for _ in range(16):
-        walk = np.clip(460 + np.cumsum(rng.integers(-40, 41, 60000)), 0, 1200)
-        reads.append(np.concatenate([
-            rng.integers(300, 900, 500), 460 + rng.integers(-4, 5, 30000),
-            walk]).astype(np.int16))
-    return reads
 
 
 def stall_case(sig, n, label: str):
@@ -982,6 +980,7 @@ def check_kernels(seed: int) -> dict:
     the drans phase-grid merge, then kernel A on reads with stalls;
     returns the bucket-shape results by kernel."""
     from honours_tpu_torch.engine.pipeline import canned_o1_device_tables
+    from honours_tpu_torch.synth import stall_set
 
     cases, options, merge, (bucket, merged), vb = kernel_cases(seed)
     results = {}
@@ -1132,6 +1131,7 @@ def stall_phase(seed: int) -> None:
         press_srans2_batch,
     )
     from honours_tpu_torch.engine.runner import depress_signals, press_signals
+    from honours_tpu_torch.synth import stall_set
 
     stalls = stall_set(seed)
     for label, reads in (("fixture reads", fixture_reads()),
@@ -1239,6 +1239,50 @@ def cli_phase(reads) -> None:
                 f"{t2 - t1:.3f} s, every signal back")
 
 
+def shard_phase(seed: int) -> dict:
+    """honours_tpu_torch.shard.dryrun at the bucket's width ([256, 65536]
+    and the stall set) in each world this machine can hold: 4 gloo ranks
+    sharing the card, an NCCL world of 1, and NCCL with a card a rank
+    where there are several.  Logs each world's backend, size, cards and
+    wall, and each rank's rows, wall over its sharded calls, collectives
+    and the bytes each moved, and split rows; every rank must launch the
+    path's kernels.  Returns the launches summed over every rank."""
+    import collections
+
+    from honours_tpu_torch.shard import dryrun
+
+    cards = torch.cuda.device_count()
+    worlds = [("gloo", 4), ("nccl", 1)]
+    if cards >= 2:
+        worlds.append(("nccl", min(4, cards)))
+    total = collections.Counter()
+    for backend, world in worlds:
+        t = time.perf_counter()
+        _, reps = dryrun.launch(world, backend, "cuda", seed=seed,
+                                pg_timeout_s=120, timeout_s=400)
+        log(f"shard {backend} x{world}: {cards} card(s), ranks on "
+            f"{sorted({r['device'] for r in reps})}, "
+            f"{time.perf_counter() - t:.1f} s with start-up"
+            + ("; gloo stages the reduced tensors through the host, every "
+               "tensor of the data stays on the card"
+               if backend == "gloo" else ""))
+        for r in reps:
+            log(f"shard {backend} x{world} rank {r['rank']}: rows "
+                f"{r['rows']}, {r['wall_s']:.3f} s over its sharded calls, "
+                f"{sum(r['collectives'].values())} collectives "
+                f"{r['collectives']}, bytes each (label: count) "
+                f"{r['collective_bytes']}, split rows {r['split_rows']}")
+            # srans2, drans and dstall_drans: dstall_drans's kernels
+            idle = sorted(k for k in DSTALL if r["launches"][k] == 0)
+            if idle:
+                raise AssertionError(f"shard {backend} x{world} rank "
+                                     f"{r['rank']}: kernels not launched: "
+                                     f"{idle}")
+            total.update(r["launches"])
+        log(reps[0]["summary"])
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1273,6 +1317,8 @@ def main(argv=None) -> int:
             results[k]["launches"] += c
     stall_phase(args.seed)
     cli_phase(reads)
+    for k, c in shard_phase(args.seed).items():
+        results[k]["launches"] += c
     idle = [k for k, r in results.items() if r["launches"] == 0]
     if idle:
         raise AssertionError(f"kernels no main path launched: {idle}")

@@ -9,6 +9,14 @@ the number of the group's streams with a non-empty body, and a decode
 whose own count disagrees raises ValueError instead of returning
 garbage.  Byte-exact with honours_tpu's engine and host codec over the
 same grouping.
+
+A group may span the ranks of a torch.distributed process group
+(`group`, shard/mesh.py): each rank codes its own rows, and the fit's
+histogram and G are summed over the ranks, so a rank's streams equal
+those of one encode of the whole batch.  Every rank then issues the
+same collectives in the same order: one in the encode, two in the
+decode (the histogram with G, then the G check's verdict, so that
+every rank raises together).
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from honours_tpu_torch.engine.vbbe21 import (
     wrap_i32,
 )
 from honours_tpu_torch.kernels.rans import CTX0, K_SHARED, M
+from honours_tpu_torch.shard.mesh import all_reduce, any_across
 from honours_tpu_torch.tables.drans import (
     NB,
     PREFIX_DEN,
@@ -104,7 +113,16 @@ def o1_prefix_hist(g3, ctx3, act3, T0_b):
 # ---------------------------------------------------------------------------
 
 
-def press_drans_batch(sig, n, tabs_canned, emax: int = None, member=None):
+def _reduce_fit(counts, G, group):
+    """The histogram and G summed over `group`, in one collective."""
+    if group is None:
+        return counts, G
+    packed = all_reduce(torch.cat([counts.reshape(-1), G.reshape(1)]), group)
+    return packed[:-1].reshape(counts.shape), packed[-1]
+
+
+def press_drans_batch(sig, n, tabs_canned, emax: int = None, member=None,
+                      group=None):
     """Batched drans_vbbe21_zd encode of sig [B, L] int16 (first n[b]
     valid) -> (stream [B, W] u8, len [B] int64).
 
@@ -112,7 +130,8 @@ def press_drans_batch(sig, n, tabs_canned, emax: int = None, member=None):
     than emax exceptions give invalid streams and are left out of the
     shared fit and of G (the runner re-encodes them).  `member` [B] bool
     restricts the fit and G to a sub-group; other rows still give
-    (discardable) streams."""
+    (discardable) streams.  `group`, a process group, widens the coding
+    group to the rows of all its ranks (one all_reduce)."""
     B, L = sig.shape
     emax = emax or L
     K = K_SHARED
@@ -127,9 +146,10 @@ def press_drans_batch(sig, n, tabs_canned, emax: int = None, member=None):
     include = parts["nex"] <= emax
     if member is not None:
         include = include & member
-    counts = o1_prefix_hist(g3, ctx3, act3 & include[:, None, None], T0_b)
+    counts, G = _reduce_fit(
+        o1_prefix_hist(g3, ctx3, act3 & include[:, None, None], T0_b),
+        ((S_b > 0) & include).sum(), group)
     tabs_fit = fit_tables_device(counts)
-    G = ((S_b > 0) & include).sum()
 
     g = g3.reshape(B, -1).to(torch.int32)
     c_ = ctx3.reshape(B, -1)
@@ -235,12 +255,15 @@ def phase2_setup(grid1, d, tabs_fit):
 
 
 def depress_drans_batch(stream, n, tabs_canned, L: int, emax: int = None,
-                        member=None):
+                        member=None, group=None):
     """Batched drans_vbbe21_zd decode -> [B, L] int16.
 
     Must receive the encoder's batch grouping (the fit is batch-shared);
     raises ValueError when any stream's G header disagrees.  `member`
-    [B] bool restricts the shared fit and the G check to a sub-group."""
+    [B] bool restricts the shared fit and the G check to a sub-group;
+    `group`, a process group, widens the grouping to the rows of all its
+    ranks (two all_reduces), and every rank raises when a stream of any
+    rank disagrees."""
     B, _ = stream.shape
     emax = emax or L
     K = K_SHARED
@@ -260,7 +283,9 @@ def depress_drans_batch(stream, n, tabs_canned, L: int, emax: int = None,
         stream, d["states"], dlen, S_b, tabs_canned["cmap"],
         tabs_canned["cum"], T1, zeros, T0_b, cl0, d["body_off"])
 
-    tabs_fit = fit_tables_device(prefix_counts(grid1, d, include))
+    counts, g_expected = _reduce_fit(prefix_counts(grid1, d, include),
+                                     ((S_b > 0) & include).sum(), group)
+    tabs_fit = fit_tables_device(counts)
     cl2 = phase2_setup(grid1, d, tabs_fit)
     grid2, _, _ = o1_decode(
         stream, fst, dlen, S_b, tabs_fit["cmap"], tabs_fit["cum"], T2,
@@ -271,12 +296,12 @@ def depress_drans_batch(stream, n, tabs_canned, L: int, emax: int = None,
     data = _ungrid(grid, S_b, dlen, K, Smax, L)
     vals = vbbe21_fill_batch(parsed, data, n - 1, L)
     out = _zd_merge(d["zd0"], vals, n, L)
-    g_expected = ((S_b > 0) & include).sum()
     g_ok = (S_b == 0) | ~include | (d["g_hdr"] == g_expected)
-    if not bool(g_ok.all()):
+    if any_across([~g_ok.all()], group)[0]:
         bad = torch.nonzero(~g_ok).flatten()[:8].tolist()
+        where = f"rows {bad}" if bad else "rows of another rank"
         raise ValueError(
-            f"drans group mismatch: rows {bad} carry a G header that "
+            f"drans group mismatch: {where} carry a G header that "
             "disagrees with this batch's non-empty-stream count; decode "
             "with the original encode grouping")
     return out

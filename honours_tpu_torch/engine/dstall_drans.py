@@ -16,6 +16,14 @@ nonstall), then the split rows' stalls are put back in place.
 Streams equal the host codec's (dstall_drans_press_reads over the same
 batch) for every read of n >= 1 whose stall starts before sample 65536
 (ROADMAP.md, watch list).
+
+With a process group (`group`, shard/mesh.py) the batch is the rows of
+all its ranks: each drans encode and decode reduces its fit over the
+group, and the host decisions (is any row split, did the pick leave
+some row split, did it change the membership, is some row past the
+bound) are taken over the group, so that every rank runs the same
+encodes, and so issues the same collectives, a rank with no split row
+too.  The per-row pick stays each rank's own.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from honours_tpu_torch.engine.dstall import (
     _split_fields,
 )
 from honours_tpu_torch.engine.permute import rowwise_shift_left
+from honours_tpu_torch.shard.mesh import all_reduce, any_across
 
 
 def _bound(L: int, width: int) -> int:
@@ -49,34 +58,36 @@ def _bound(L: int, width: int) -> int:
     return 13 + 2 * (L - 1) + 2 * over + 1024
 
 
-def press_dstall_drans_batch(sig, n, tabs, emax: int = None):
+def press_dstall_drans_batch(sig, n, tabs, emax: int = None, group=None):
     """Batched dstall_drans encode of [B, L] int16 (first n valid) ->
     (stream [B, M] u8, len [B]); `tabs` from
     pipeline.canned_o1_device_tables.  Rows with more than emax
     exceptions in a branch give invalid streams and stay out of the
     branch's fit and G; raises RuntimeError where any other row would
-    emit more than the assembly's bound."""
+    emit more than the assembly's bound (on every rank of `group`, a
+    process group whose ranks' rows form the batch)."""
     B, L = sig.shape
     emax = emax or L
     ok, start, length = _split_batch(sig, n)
-    st_p, sl_p = press_drans_batch(sig, n, tabs, emax)
-    okh = ok.cpu()
+    st_p, sl_p = press_drans_batch(sig, n, tabs, emax, group=group)
     use = torch.zeros_like(ok)
-    if okh.any():
+    if any_across([ok.any()], group)[0]:
         stall_sig, n_stall, ns_sig, n_ns = _branch_signals(sig, n, start,
                                                            length)
         st_s, sl_s = press_drans_batch(stall_sig, n_stall, tabs, emax,
-                                       member=ok)
-        st_n, sl_n = press_drans_batch(ns_sig, n_ns, tabs, emax, member=ok)
+                                       member=ok, group=group)
+        st_n, sl_n = press_drans_batch(ns_sig, n_ns, tabs, emax, member=ok,
+                                       group=group)
         use = ok & (13 + sl_s + sl_n < 5 + sl_p)
-        useh = use.cpu()
-        if useh.any() and (useh != okh).any():
+        any_use, changed = any_across([use.any(), (use != ok).any()], group)
+        if any_use and changed:
             st_s, sl_s = press_drans_batch(stall_sig, n_stall, tabs, emax,
-                                           member=use)
+                                           member=use, group=group)
             st_n, sl_n = press_drans_batch(ns_sig, n_ns, tabs, emax,
-                                           member=use)
-        if useh.any():
-            st_p, sl_p = press_drans_batch(sig, n, tabs, emax, member=~use)
+                                           member=use, group=group)
+        if any_use:
+            st_p, sl_p = press_drans_batch(sig, n, tabs, emax, member=~use,
+                                           group=group)
     else:
         st_s = st_n = torch.zeros((B, 16), dtype=torch.uint8,
                                   device=sig.device)
@@ -90,30 +101,40 @@ def press_dstall_drans_batch(sig, n, tabs, emax: int = None):
     capped = torch.where(
         use, (read_u32le(st_s, four) <= emax) & (read_u32le(st_n, four) <= emax),
         read_u32le(st_p, four) <= emax)
-    if bool((capped & (slen > total)).any()):
+    # the verdict, and the bound with its negation: equal on every rank
+    # (the widths depend on L and emax only) when both come back as sent
+    verdict = torch.tensor([0, total, -total], device=sig.device)
+    verdict[0] = (capped & (slen > total)).any()
+    over, most, least = all_reduce(verdict, group, "max").tolist()
+    if (most, -least) != (total, total):
+        raise RuntimeError(f"dstall_drans: the assembly's bound differs "
+                           f"across the group ({-least} .. {most})")
+    if over:
         raise RuntimeError(
             f"dstall_drans: a row emits more than the assembly's bound of "
             f"{total} bytes")
     return stream, slen
 
 
-def depress_dstall_drans_batch(stream, n, tabs, L: int, emax: int = None):
+def depress_dstall_drans_batch(stream, n, tabs, L: int, emax: int = None,
+                               group=None):
     """Batched dstall_drans decode -> [B, L] int16 (zero past n).  Must
-    receive the encoder's batch grouping; raises ValueError when a
-    branch blob's G header disagrees with its group."""
+    receive the encoder's batch grouping (with `group`, the rows of all
+    its ranks); raises ValueError when a branch blob's G header
+    disagrees with its group."""
     M = stream.shape[1]
     emax = emax or L
     n = n.to(torch.int64)
     use, start, length, _, ns_off = _split_fields(stream)
     d_plain = depress_drans_batch(
         rowwise_shift_left(stream, torch.full_like(n, 5), M), n, tabs, L,
-        emax=emax, member=~use)
+        emax=emax, member=~use, group=group)
     d_stall = depress_drans_batch(
         rowwise_shift_left(stream, torch.full_like(n, 9), M),
-        length.clamp(min=1), tabs, L, emax=emax, member=use)
+        length.clamp(min=1), tabs, L, emax=emax, member=use, group=group)
     d_ns = depress_drans_batch(rowwise_shift_left(stream, ns_off, M),
                                (n - length).clamp(min=1), tabs, L,
-                               emax=emax, member=use)
+                               emax=emax, member=use, group=group)
     split = _interleave(d_stall, d_ns, n, start, length, L)
     out = torch.where(use[:, None], split, d_plain.to(torch.int32))
     pos = torch.arange(L, device=stream.device)[None, :]

@@ -43,3 +43,18 @@ def synthesize_bucket(B: int, L: int, seed: int = 0):
         sig[i, :m] = flat[off: off + m]
         off += m
     return sig, n
+
+
+def stall_set(seed: int = 0, stall: int = 30000) -> list[np.ndarray]:
+    """16 reads, each 500 random samples in [300, 900), a stall of `stall`
+    samples at 460 +- 4, then a random walk of 2 * `stall` steps (steps
+    in [-40, 40]) from 460, clipped to [0, 1200]."""
+    rng = np.random.default_rng(seed)
+    reads = []
+    for _ in range(16):
+        walk = np.clip(460 + np.cumsum(rng.integers(-40, 41, 2 * stall)), 0,
+                       1200)
+        reads.append(np.concatenate([
+            rng.integers(300, 900, 500), 460 + rng.integers(-4, 5, stall),
+            walk]).astype(np.int16))
+    return reads

@@ -1,4 +1,5 @@
-"""honours_tpu_torch's CUDA kernels vs their plain versions on the card.
+"""honours_tpu_torch's CUDA kernels vs their plain versions on the card,
+and its sharded engines (shard/) in multi-rank worlds on the card.
 
 Marked `gpu`; run on a CUDA machine with
     python -m pytest -m gpu tests/test_torch_gpu.py
@@ -845,7 +846,8 @@ def test_find_stall_short_reads(cuda, m):
 
 def test_find_stall_fixture_and_stall_set(cuda):
     """chip_smoke.py's fixture reads and stall set."""
-    from chip_smoke import fixture_reads, stall_set
+    from chip_smoke import fixture_reads
+    from honours_tpu_torch.synth import stall_set
 
     got = _stall_same(cuda, *_padded(fixture_reads()))
     assert got[0].all()
@@ -1254,3 +1256,87 @@ def test_decode_kernel_and_runner_round_trip(cuda, codec):
     assert all(np.array_equal(a, b) for a, b in zip(reads, out))
     grown = {k for k, v in KERNELS.items() if v.launches > before[k]}
     assert grown == KERNELS_OF[codec]
+
+
+# ---------------------------------------------------------------------------
+# shard/: the sharded engines over torch.distributed, every rank on the card
+# ---------------------------------------------------------------------------
+
+
+def _shard_batches():
+    """tests/test_torch_shard.py's srans, srans2 and drans batches, and a
+    stall set of 6,000-sample stalls whose one split row (12) lies on
+    rank 1 of 2."""
+    import torch_shard_worker as worker
+    from honours_tpu_torch.synth import stall_set
+
+    return {"srans": worker.srans_batch(), "srans2": worker.srans2_batch(),
+            "drans": worker.drans_batch(),
+            "dstall_drans": worker.rows(stall_set(0, 6000), 18500)}
+
+
+@pytest.fixture(scope="module")
+def shard_worlds(cuda, tmp_path_factory):
+    """A 2-rank gloo world with both ranks on the card, and an NCCL world
+    of 1."""
+    from torch_shard_worker import run_world
+
+    b = _shard_batches()
+    return {W: run_world(b, int(W[-1]), tmp_path_factory.mktemp(W),
+                         backend=W[:-1], device="cuda")
+            for W in ("gloo2", "nccl1")}
+
+
+@pytest.mark.parametrize("world", ["gloo2", "nccl1"])
+@pytest.mark.parametrize("case", ["srans2", "drans", "dstall_drans"])
+def test_sharded_streams_equal_unsharded_on_card(cuda, shard_worlds, world,
+                                                 case):
+    """Each rank's streams equal one encode of the whole batch on the card,
+    and every row decodes."""
+    from torch_shard_worker import decoded, gathered
+
+    from honours_tpu_torch.engine.drans import press_drans_batch
+    from honours_tpu_torch.engine.dstall_drans import press_dstall_drans_batch
+    from honours_tpu_torch.engine.pipeline import (
+        canned_o1_device_tables,
+        press_srans2_batch,
+    )
+    from honours_tpu_torch.shard.mesh import pad_rows_to_devices
+
+    results = shard_worlds[world]
+    press = {"srans2": press_srans2_batch, "drans": press_drans_batch,
+             "dstall_drans": press_dstall_drans_batch}[case]
+    sig, n = pad_rows_to_devices(*_shard_batches()[case], len(results))
+    st, sl = press(torch.from_numpy(sig).to(cuda), torch.from_numpy(n).to(
+        cuda), canned_o1_device_tables(cuda))
+    st, sl = st.cpu().numpy(), sl.cpu().numpy()
+    rows, blobs = gathered(results, case)
+    assert rows == list(range(sig.shape[0]))
+    assert blobs == [st[i, : sl[i]].tobytes() for i in range(len(sl))]
+    live = np.arange(sig.shape[1])[None, :] < n[:, None]
+    assert np.array_equal(decoded(results, case), np.where(live, sig, 0))
+
+
+@pytest.mark.parametrize("world", ["gloo2", "nccl1"])
+def test_sharded_reduced_flags_on_card(cuda, shard_worlds, world):
+    """Both reduced host decisions: dstall_drans's "is any row split",
+    true on rank 1 only, and drans's G check, failing on the last rank
+    only; every rank takes both."""
+    results = shard_worlds[world]
+    splits = [any(info["split_rows"]) for _, info in results]
+    assert splits == ([False, True] if world == "gloo2" else [True])
+    for r, (_, info) in enumerate(results):
+        assert "group mismatch" in (info["g_mismatch"] or "")
+        assert info["collectives"]["drans encode"] == 1
+        assert info["collectives"]["drans decode"] == 2
+        assert info["collectives"]["srans2 decode"] == 0
+        assert info["srans2_encode_body_collective_free"]
+
+
+def test_nccl_refuses_more_ranks_than_cards(cuda, tmp_path):
+    from torch_shard_worker import run_world
+
+    b = {k: (s[:4], n[:4]) for k, (s, n) in _shard_batches().items()}
+    with pytest.raises(RuntimeError, match="a card a rank"):
+        run_world(b, torch.cuda.device_count() + 1, tmp_path,
+                  backend="nccl", device="cuda", timeout_s=120)
