@@ -74,7 +74,17 @@
    shuffman_vbbe21_zd, then
    `depress` on each result, and asserts every signal comes back and
    each pressed file names its codec; prints the file sizes.
-6. Multi-GPU: `python -m honours_tpu_torch.shard.dryrun` (through its
+6. Bench and analyze: `python -m honours_tpu_torch bench` (all 21
+   codecs) and `analyze --per-read` through honours_tpu_torch.cli.main
+   on the card, over a BLOW5 of the CLI phase's 68 reads, each run with
+   every launch count at 0 just before it and read just after.  Every
+   TSV row is lossless (the harness asserts it) and must have the CPU
+   route's press_bytes and ratio; analyze must launch kernel A and report what
+   `analyze --device cpu` reports (ints and bools exactly, floats within
+   1e-9 relative).  The CPU routes run in 7 worker processes.  Logs the
+   TSV rows, the analyze wall time and its split (the file's read, then
+   a warm analyze_reads) beside the card's name and power limit.
+7. Multi-GPU: `python -m honours_tpu_torch.shard.dryrun` (through its
    `launch`) at the bucket's width: 256 synthetic reads at L = 65536
    sharded over the ranks for srans2, drans and dstall_drans, and the
    stall set for dstall_drans (its rows reordered, if need be, so that
@@ -86,7 +96,7 @@
    where there are several.  Logs each world and each rank's wall,
    collectives and their bytes; every rank must launch the path's
    kernels, and their launches count toward the kernels line.
-7. Prints one {"kernels": [...]} line, then {"ok": true, "device": ...}.
+8. Prints one {"kernels": [...]} line, then {"ok": true, "device": ...}.
 
 `--kernels-only` stops after step 2 and prints no result line: it times
 the kernels of whichever honours_tpu_torch is imported, e.g. an older
@@ -104,6 +114,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import struct
 import subprocess
 import sys
@@ -1188,6 +1199,31 @@ def stall_phase(seed: int) -> None:
         "stall set decode through depress_dstall_batch on the card")
 
 
+def cli_file(reads, path: Path) -> list:
+    """Writes the CLI phases' BLOW5 (zlib records, svb-zd signals) to
+    `path`: the first 64 of `reads` and the four edge reads (68 reads);
+    returns them."""
+    from honours_tpu_torch.io import blow5
+
+    sel = reads[:64] + reads[-4:]
+    blow5.write_blow5(str(path), blow5.Blow5File(
+        version=(0, 2, 0), record_press=blow5.RECORD_PRESS_ZLIB,
+        signal_press=blow5.SIGNAL_PRESS_SVB_ZD, num_read_groups=1,
+        header=b"@run_id\tchip_smoke\n",
+        reads=[blow5.Blow5Read(
+            read_id=f"read{i}", read_group=0, digitisation=2048.0,
+            offset=0.0, range=1.0, sampling_rate=4000.0, signal=s)
+            for i, s in enumerate(sel)]))
+    return sel
+
+
+def build_tmp():
+    """A temporary directory under the checkout's build/ (gitignored)."""
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    return tempfile.TemporaryDirectory(dir=build)
+
+
 def cli_phase(reads) -> None:
     """press and depress a BLOW5 file through the port's CLI on the card,
     with the default codec, srans_vbbe21_zd, hasgam_vbsse21_zdq and
@@ -1195,20 +1231,9 @@ def cli_phase(reads) -> None:
     from honours_tpu_torch import cli
     from honours_tpu_torch.io import blow5
 
-    sel = reads[:64] + reads[-4:]
-    f5 = blow5.Blow5File(
-        version=(0, 2, 0), record_press=blow5.RECORD_PRESS_ZLIB,
-        signal_press=blow5.SIGNAL_PRESS_SVB_ZD, num_read_groups=1,
-        header=b"@run_id\tchip_smoke\n",
-        reads=[blow5.Blow5Read(
-            read_id=f"read{i}", read_group=0, digitisation=2048.0,
-            offset=0.0, range=1.0, sampling_rate=4000.0, signal=s)
-            for i, s in enumerate(sel)])
-    build = Path(__file__).resolve().parent / "build"
-    build.mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=build) as tmp:
+    with build_tmp() as tmp:
         src = Path(tmp) / "src.blow5"
-        blow5.write_blow5(str(src), f5)
+        sel = cli_file(reads, src)
         log(f"cli: {src.name} {len(sel)} reads, "
             f"{sum(2 * s.size for s in sel)} B int16, "
             f"{src.stat().st_size} B as svb-zd/zlib BLOW5")
@@ -1237,6 +1262,153 @@ def cli_phase(reads) -> None:
             log(f"cli {codec}: press {pressed.stat().st_size} B in "
                 f"{t1 - t0:.3f} s, depress {back.stat().st_size} B in "
                 f"{t2 - t1:.3f} s, every signal back")
+
+
+def cpu_press_bytes(path: str, codec: str) -> int:
+    """The CPU route's press_bytes of a BLOW5 file with `codec` (the
+    runner's press on the CPU), in a worker process on one intra-op
+    thread."""
+    from honours_tpu_torch.engine.runner import press_signals
+    from honours_tpu_torch.io import blow5
+
+    torch.set_num_threads(1)
+    sigs = [r.signal for r in blow5.read_blow5(path, device="cpu").reads]
+    return sum(map(len, press_signals(sigs, codec, device="cpu")))
+
+
+def cpu_analyze(path: str) -> dict:
+    """`analyze --per-read --device cpu`'s report of a BLOW5 file, in a
+    worker process on one intra-op thread."""
+    torch.set_num_threads(1)
+    return json.loads(cli_stdout(["analyze", path, "--per-read", "--device",
+                                  "cpu"]))
+
+
+def cli_stdout(argv) -> str:
+    """What a command of the port's CLI prints; raises if it fails."""
+    import contextlib
+    import io
+
+    from honours_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        if cli.main(argv) != 0:
+            raise AssertionError(f"cli {' '.join(argv[:1])} failed")
+    return out.getvalue()
+
+
+def same_report(ours, theirs, where="report") -> None:
+    """Equal keys, lists and Python types; ints and bools exactly, floats
+    within 1e-9 relative."""
+    if type(ours) is not type(theirs):
+        raise AssertionError(f"{where}: {ours!r} vs {theirs!r}")
+    if isinstance(ours, dict):
+        if list(ours) != list(theirs):
+            raise AssertionError(f"{where}: keys {list(ours)} vs "
+                                 f"{list(theirs)}")
+        for k in ours:
+            same_report(ours[k], theirs[k], f"{where}.{k}")
+    elif isinstance(ours, list):
+        if len(ours) != len(theirs):
+            raise AssertionError(f"{where}: {len(ours)} vs {len(theirs)}")
+        for i, (a, b) in enumerate(zip(ours, theirs)):
+            same_report(a, b, f"{where}[{i}]")
+    elif not (math.isclose(ours, theirs, rel_tol=1e-9)
+              if isinstance(ours, float) else ours == theirs):
+        raise AssertionError(f"{where}: {ours!r} vs {theirs!r}")
+
+
+def bench_analyze_phase(reads, smi: str) -> dict:
+    """`bench` (all 21 codecs) and `analyze --per-read` through the CLI
+    on the card over the CLI phase's BLOW5 (68 reads), each with every
+    launch count at 0 just before it and read just after.  Every bench
+    row is lossless (the harness asserts it), and its press_bytes and
+    ratio must equal the CPU route's (the runner's press on the CPU, in
+    worker processes); analyze must launch kernel A, and its report must equal
+    `analyze --device cpu`'s (ints and bools exactly, floats within 1e-9
+    relative).  Logs the TSV rows, the analyze wall time and its split
+    (read_blow5, then a warm analyze_reads).  Returns the launches of
+    both runs."""
+    import collections
+    import multiprocessing
+
+    from concurrent.futures import ProcessPoolExecutor
+
+    from honours_tpu_torch import analysis
+    from honours_tpu_torch._build import KERNELS
+    from honours_tpu_torch.bench.harness import HDR
+    from honours_tpu_torch.engine.runner import engine_codec_names
+    from honours_tpu_torch.io import blow5
+
+    def counted(argv):
+        for k in KERNELS.values():
+            k.launches = 0
+        t = time.perf_counter()
+        out = cli_stdout(argv)
+        wall = time.perf_counter() - t
+        return out, wall, {name: k.launches for name, k in KERNELS.items()}
+
+    total = collections.Counter()
+    with build_tmp() as tmp:
+        src = str(Path(tmp) / "src.blow5")
+        raw = sum(2 * s.size for s in cli_file(reads, src))
+        tsv, bench_s, launches = counted(["bench", src])
+        total.update(launches)
+        lines = tsv.strip().splitlines()
+        rows = [line.split("\t") for line in lines[1:]]
+        if lines[0] != HDR or [r[0] for r in rows] != engine_codec_names():
+            raise AssertionError(f"bench printed {lines[:2]} ...")
+        log(f"bench: 21 codecs over {src.rsplit('/', 1)[-1]} (68 reads, "
+            f"{raw} B int16) in {bench_s:.3f} s through the CLI on the "
+            f"card ({smi}); the harness's rows (end-to-end wall times on "
+            "the host clock, first-use costs in the first row):")
+        for line in lines:
+            log("bench | " + line)
+        out, analyze_s, launches = counted(["analyze", src, "--per-read"])
+        total.update(launches)
+        card = json.loads(out)
+        if launches["find_stall"] == 0:
+            raise AssertionError("analyze launched no find_stall")
+        log(f"analyze --per-read: {analyze_s:.3f} s on the card ({smi}), "
+            f"find_stall launched {launches['find_stall']} times, stalls "
+            f"in {sum(r['stall'] for r in card['reads'])} of "
+            f"{card['aggregate']['n_reads']} reads; aggregate "
+            f"{json.dumps(card['aggregate'])}")
+        # where the CLI's analyze wall goes, outside the counted run
+        t = time.perf_counter()
+        sigs = [r.signal for r in blow5.read_blow5(src, device="cuda").reads]
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t
+        t = time.perf_counter()
+        analysis.analyze_reads(sigs, device="cuda")
+        warm_s = time.perf_counter() - t
+        log(f"analyze split ({smi}): read_blow5 {read_s:.4f} s, then "
+            f"analyze_reads {warm_s:.4f} s warm "
+            f"({warm_s / len(sigs) * 1e3:.3f} ms a read)")
+
+        t = time.perf_counter()
+        ctx = multiprocessing.get_context("spawn")
+        with ProcessPoolExecutor(max_workers=7, mp_context=ctx) as pool:
+            rep = pool.submit(cpu_analyze, src)
+            press = {r[0]: pool.submit(cpu_press_bytes, src, r[0])
+                     for r in rows}
+            press = {m: f.result() for m, f in press.items()}
+            same_report(card, rep.result())
+        # each row's round trip is held by the harness's own lossless
+        # assert (its depress_bytes column is the raw size, as in the JAX
+        # harness)
+        for m, pb, ratio in ((r[0], r[2], r[3]) for r in rows):
+            if (pb, ratio) != (f"{press[m]:.1f}", f"{raw / press[m]:.6f}"):
+                raise AssertionError(f"bench {m}: press_bytes {pb}, ratio "
+                                     f"{ratio}; the CPU route's "
+                                     f"{press[m]}")
+        log(f"bench and analyze: every row lossless (the harness's "
+            "assert), press_bytes and ratio the CPU route's, the analyze "
+            "report the "
+            f"CPU route's (CPU routes in 7 worker processes, "
+            f"{time.perf_counter() - t:.1f} s)")
+    return total
 
 
 def shard_phase(seed: int) -> dict:
@@ -1317,6 +1489,8 @@ def main(argv=None) -> int:
             results[k]["launches"] += c
     stall_phase(args.seed)
     cli_phase(reads)
+    for k, c in bench_analyze_phase(reads, smi).items():
+        results[k]["launches"] += c
     for k, c in shard_phase(args.seed).items():
         results[k]["launches"] += c
     idle = [k for k, r in results.items() if r["launches"] == 0]

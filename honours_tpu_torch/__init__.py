@@ -10,6 +10,9 @@ Every kernel wrapper routes by the device of the tensors it is given:
 CUDA tensors launch the kernel, CPU tensors run the plain PyTorch
 version beside it.  Entry points: honours_tpu_torch.engine.runner
 .press_signals / depress_signals, and the command line
-`python -m honours_tpu_torch press|depress|codecs` (cli.py) over BLOW5
-files (io/blow5.py).
+`python -m honours_tpu_torch press|depress|bench|analyze|codecs`
+(cli.py) over BLOW5 files (io/blow5.py), with the reference-TSV bench
+(bench/harness.py) and the signal statistics report (analysis.py).
+Settings, with the JAX package's HTPU_* environment overrides, are in
+utils/config.py.
 """

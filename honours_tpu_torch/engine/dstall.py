@@ -12,11 +12,13 @@ Stream (honours_tpu/codecs/dstall.py):
   [0][plain_len:u32][srans2 blob]                             no split
   [1][start:u16][length:u16][stall_len:u32][stall srans2 blob]
      [ns_len:u32][nonstall srans2 blob]                       split
-The split is the segmenter's first stall with 20 samples trimmed from
-each end, kept when it is at least 140 samples before the trim and its
-start and length fit in uint16.  Streams equal the host codec's
-(DstallSrans2Codec) for every read of n >= 1 whose stall starts before
-sample 65536 (ROADMAP.md, watch list).
+The split is the segmenter's first stall with stall_margin samples (20)
+trimmed from each end, kept when it is at least stall_threshold samples
+(140) before the trim and its start and length fit in uint16; both are
+read from utils/config.py, so HTPU_STALL_MARGIN and HTPU_STALL_THRESHOLD
+move the split as they move the JAX package's.  Streams equal the host
+codec's (DstallSrans2Codec) for every read of n >= 1 whose stall starts
+before sample 65536 (ROADMAP.md, watch list).
 """
 
 from __future__ import annotations
@@ -40,21 +42,20 @@ from honours_tpu_torch.engine.pipeline import (
     depress_srans2_batch,
     press_srans2_batch,
 )
-from honours_tpu_torch.segment import (
-    STALL_MARGIN,
-    STALL_THRESHOLD,
-    find_stall_batch,
-)
+from honours_tpu_torch.segment import find_stall_batch
+from honours_tpu_torch.utils.config import get_config
 
 
 def _split_batch(sig, n):
     """(ok [B] bool, start [B], length [B] int64) of the split of each
-    row, start and length 0 where there is none."""
+    row, start and length 0 where there is none.  Threshold and margin
+    are get_config()'s stall_threshold and stall_margin."""
+    cfg = get_config()
     ex, start, length = find_stall_batch(sig, n)
-    start = start.to(torch.int64) + STALL_MARGIN
-    length = length.to(torch.int64) - 2 * STALL_MARGIN
-    ok = (ex & (length + 2 * STALL_MARGIN >= STALL_THRESHOLD) & (length > 0)
-          & (start <= 0xFFFF) & (length <= 0xFFFF))
+    ok = ex & (length >= cfg.stall_threshold)
+    start = start.to(torch.int64) + cfg.stall_margin
+    length = length.to(torch.int64) - 2 * cfg.stall_margin
+    ok = ok & (length > 0) & (start <= 0xFFFF) & (length <= 0xFFFF)
     return ok, torch.where(ok, start, 0), torch.where(ok, length, 0)
 
 

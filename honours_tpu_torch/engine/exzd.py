@@ -32,24 +32,9 @@ from honours_tpu_torch.engine.svb32 import (
 )
 from honours_tpu_torch.engine.vb_batch import _ex_parts, _place, _round4
 from honours_tpu_torch.engine.vbbe21 import vbbe21_fill_batch, wrap_i32
+from honours_tpu_torch.transforms.core import find_qts
 
 HDR = 12  # [ver:1][nin:u64 LE][q:1][zd0:u16]
-
-
-def _qts_batch(sig, n):
-    """Per-row largest q <= 5 such that every valid sample has q trailing
-    zero bits (press/ex_zd.c:358-381); empty rows give 5 as the host
-    does.  The OR over the row is read one mask of low bits at a
-    time."""
-    L = sig.shape[1]
-    u = sig.to(torch.int32) & 0xFFFF
-    valid = torch.arange(L, device=sig.device)[None, :] < n.to(
-        torch.int64)[:, None]
-    u = torch.where(valid, u, 0)
-    q = torch.zeros((sig.shape[0],), dtype=torch.int64, device=sig.device)
-    for k in range(1, 6):
-        q = q + ((u & ((1 << k) - 1)) == 0).all(dim=1).to(torch.int64)
-    return q
 
 
 def _zigdelta_q(sig, q):
@@ -79,7 +64,7 @@ def press_exzd_batch(sig, n, emax: int = None):
     emax = emax or L
     e4 = _round4(emax)
     n = n.to(torch.int64)
-    q = _qts_batch(sig, n)
+    q = find_qts(sig, n)
     zd = _zigdelta_q(sig, q)
     rest = torch.nn.functional.pad(zd[:, 1:], (0, 1))
     p = _ex_parts(rest, n - 1, emax)

@@ -150,6 +150,11 @@ def engine_kind(codec_name: str) -> str:
     return ENGINE_CODECS[codec_name]
 
 
+def engine_codec_names() -> list[str]:
+    """The engine codecs in honours_tpu's engine_codec_names() order."""
+    return sorted(ENGINE_CODECS)
+
+
 def batch_engine(codec_name: str, dev):
     """(press(sig, n, emax) -> (stream, len), depress(buf, n, L, emax) ->
     [B, L] int16): the batched engine of a codec on device `dev`."""
@@ -248,6 +253,19 @@ def _depress_one(depress, blob: bytes, nin: int, L: int, dev) -> np.ndarray:
     n = torch.tensor([nin], dtype=torch.int32, device=dev)
     out = depress(torch.from_numpy(buf).to(dev), n, L, L)
     return out[0, :nin].cpu().numpy()
+
+
+def press_read(signal, codec_name: str = "drans_vbbe21_zd",
+               device="cuda") -> bytes:
+    """Compress one read alone: a one-row batch at its bucket's width
+    with emax = L, the one-row path of press_signals, whose bytes are
+    the host codec's press of that read (for n >= 1)."""
+    engine_kind(codec_name)
+    dev = resolve_device(device)
+    press, _ = batch_engine(codec_name, dev)
+    sig = np.asarray(signal, np.int16)
+    (b,) = bucket_reads([sig])
+    return _press_one(press, sig, b.L, dev)
 
 
 def press_signals(signals, codec_name: str = "drans_vbbe21_zd",

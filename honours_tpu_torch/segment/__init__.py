@@ -12,9 +12,8 @@ machine scanned chunk by chunk; the plain version repeats the C's
 arithmetic sample by sample.
 
 Parameters below are the port's own copies of the segmenter's
-(honours_tpu/segment/__init__.py) and of the stall codecs' threshold
-and margin (honours_tpu/utils/config.py, without its HTPU_* environment
-overrides).
+(honours_tpu/segment/__init__.py).  The stall codecs' threshold and
+margin are utils/config.py's.
 """
 
 from __future__ import annotations
@@ -29,11 +28,6 @@ SEG_DIST = 50
 WINDOW = 150
 STALL_LEN = 0.25
 ERROR = 5
-
-#: a stall shorter than this is no stall (press/press.c:7763)
-STALL_THRESHOLD = 140
-#: samples trimmed from each end of a stall (press/press.c:7772-7773)
-STALL_MARGIN = 20
 
 
 def find_stall_batch(sig, n):

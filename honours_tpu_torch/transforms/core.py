@@ -1,5 +1,7 @@
 """Batched zigzag-delta transform over the last axis, in uint16 wrap
-space (press/trans.c zigdelta_16_u16 / unzigdelta_u16_16 semantics)."""
+space (press/trans.c zigdelta_16_u16 / unzigdelta_u16_16 semantics), and
+the batched quantisation shift find_qts (honours_tpu/transforms/core.py's,
+a row at a time)."""
 
 from __future__ import annotations
 
@@ -23,3 +25,21 @@ def unzigdelta(z: torch.Tensor) -> torch.Tensor:
     d = ((z >> 1) ^ ((0x10000 - (z & 1)) & 0xFFFF)) & 0xFFFF
     s = torch.cumsum(d, dim=-1) & 0xFFFF
     return (s - ((s & 0x8000) << 1)).to(torch.int16)
+
+
+def find_qts(sig: torch.Tensor, n: torch.Tensor,
+             max_q: int = 5) -> torch.Tensor:
+    """Per row of [B, L] int16 sig (first n valid), the largest
+    q <= max_q such that every valid sample has q trailing zero bits
+    (press/ex_zd.c:358-381) -> [B] int64; empty rows give max_q as the
+    host does.  The OR over the row is read one mask of low bits at a
+    time."""
+    L = sig.shape[1]
+    u = sig.to(torch.int32) & 0xFFFF
+    valid = torch.arange(L, device=sig.device)[None, :] < n.to(
+        torch.int64)[:, None]
+    u = torch.where(valid, u, 0)
+    q = torch.zeros((sig.shape[0],), dtype=torch.int64, device=sig.device)
+    for k in range(1, max_q + 1):
+        q = q + ((u & ((1 << k) - 1)) == 0).all(dim=1).to(torch.int64)
+    return q

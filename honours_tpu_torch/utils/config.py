@@ -1,0 +1,43 @@
+"""Central configuration: the port's copy of the stall settings of
+honours_tpu/utils/config.py.
+
+The two fields the port's engines read, stall_threshold and stall_margin
+(engine/dstall.py, and through it engine/dstall_drans.py), with the JAX
+package's defaults and its environment overrides: each field reads
+HTPU_<FIELD> (e.g. HTPU_STALL_THRESHOLD=200), so a setting gives both
+packages the same bytes.  The JAX Config's other fields set its host
+codecs and its own geometry, which the port does not have.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+
+@dataclasses.dataclass
+class Config:
+    # stall segmentation (press/press.c:7763, 7772-7773)
+    stall_threshold: int = 140
+    stall_margin: int = 20
+
+    @classmethod
+    def default(cls) -> "Config":
+        """The defaults, each overridden by HTPU_<FIELD> where set."""
+        cfg = cls()
+        for f in dataclasses.fields(cls):
+            env = os.environ.get(f"HTPU_{f.name.upper()}")
+            if env is not None:
+                setattr(cfg, f.name, int(env))
+        return cfg
+
+
+_CONFIG = None
+
+
+def get_config() -> Config:
+    """The process's Config, read from the environment on first use."""
+    global _CONFIG
+    if _CONFIG is None:
+        _CONFIG = Config.default()
+    return _CONFIG

@@ -20,6 +20,7 @@ from honours_tpu_torch import cli
 from honours_tpu_torch.io import blow5 as tb
 from honours_tpu_torch.kernels import svb as tsvb
 from test_torch_runner import mixed_reads  # noqa: F401  (fixture)
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FIXTURE = ROOT / "tests" / "data" / "three-reads.blow5"

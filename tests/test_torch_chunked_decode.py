@@ -27,6 +27,7 @@ from honours_tpu.tables.huffman import na12878_table
 from honours_tpu_torch._build import CSRC
 from honours_tpu_torch.engine import huffdec_cuda as H
 from honours_tpu_torch.engine import rice_cuda as R
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 THREADS, CHUNK_BITS = R.THREADS, R.CHUNK_BITS
 STOP = 0xFFFFFFFF

@@ -1,0 +1,152 @@
+"""The port's utils/config.py vs honours_tpu/utils/config.py, and the
+HTPU_STALL_THRESHOLD / HTPU_STALL_MARGIN overrides reaching the port's
+dstall split: under each setting the port's _split_batch and its
+dstall_srans2 and dstall_drans streams equal the JAX package's host
+codecs (codecs/dstall.py _split and press, through the C segmenter;
+codecs/dstall_drans.py), which tests/test_dstall.py and
+tests/test_dstall_drans.py hold equal to the JAX engines.  Both
+packages' cached configs are reset for each case.  No JAX engine is
+compiled.  Splits and streams must be equal (tolerance 0)."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import honours_tpu.codecs.dstall as jdstall
+import honours_tpu.codecs.dstall_drans as dd
+import honours_tpu.utils.config as jconfig
+from honours_tpu.codecs.base import get as get_codec
+import honours_tpu_torch.utils.config as tconfig
+from honours_tpu_torch.engine import dstall_drans as tdd
+from honours_tpu_torch.engine import runner
+from honours_tpu_torch.engine.dstall import _split_batch, press_dstall_batch
+from honours_tpu_torch.engine.pipeline import canned_o1_device_tables
+from honours_tpu_torch.synth import stall_set
+from stall_rows import knife_cases
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
+
+TABS = canned_o1_device_tables("cpu")
+ENV = [f"HTPU_{f.name.upper()}" for f in dataclasses.fields(jconfig.Config)]
+
+#: settings under which the split moves: a wider margin (every split's
+#: start and length), a threshold above the 800-sample stall and the
+#: knife-edge stalls but below the 2,000-sample one, and one above the
+#: stall set's 30,000-sample stall
+SETTINGS = {
+    "defaults": {},
+    "margin60": {"HTPU_STALL_MARGIN": "60"},
+    "threshold1000": {"HTPU_STALL_THRESHOLD": "1000"},
+    "threshold40000_margin5": {"HTPU_STALL_THRESHOLD": "40000",
+                               "HTPU_STALL_MARGIN": "5"},
+}
+
+
+def _stall_signal(rng, n_stall, n_rest=3000):
+    """tests/test_dstall.py's read: a flat stall, then active signal."""
+    return np.concatenate([460 + rng.integers(-4, 5, n_stall),
+                           rng.integers(300, 900, n_rest)]).astype(np.int16)
+
+
+@pytest.fixture(scope="module")
+def reads(fixture_reads):
+    """Reads of at most 4096 samples: fixture cuts, stall reads (which
+    dstall_srans2 splits at the defaults), knife-edge reads."""
+    rng = np.random.default_rng(21)
+    return ([fixture_reads[0][:4096], fixture_reads[1][:4000],
+             fixture_reads[2][:3000], _stall_signal(rng, 800),
+             _stall_signal(rng, 2000, 1000)]
+            + [s for _, s in knife_cases() if s.size < 4096])
+
+
+@pytest.fixture(scope="module")
+def stalls():
+    """The stall set's first four reads (a 30,000-sample stall each)."""
+    return stall_set(0)[:4]
+
+
+def _rows(reads):
+    L = max(r.size for r in reads)
+    sig = np.zeros((len(reads), L), np.int16)
+    for i, r in enumerate(reads):
+        sig[i, : r.size] = r
+    n = np.array([r.size for r in reads], np.int32)
+    return torch.from_numpy(sig), torch.from_numpy(n)
+
+
+def _use(monkeypatch, env: dict):
+    """Set the environment and drop both packages' cached configs."""
+    for k in ENV:
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setattr(jconfig, "_CONFIG", None)
+    monkeypatch.setattr(tconfig, "_CONFIG", None)
+
+
+def test_defaults_equal_the_reference(monkeypatch):
+    _use(monkeypatch, {})
+    ours = dataclasses.asdict(tconfig.Config.default())
+    theirs = dataclasses.asdict(jconfig.Config.default())
+    assert ours == {k: theirs[k] for k in ours}
+    cfg = tconfig.get_config()
+    assert tconfig.get_config() is cfg
+    assert (cfg.stall_threshold, cfg.stall_margin) == (140, 20)
+
+
+def test_every_field_parses_like_the_reference(monkeypatch):
+    """Every HTPU_* variable set: the port's fields take the values the
+    JAX Config takes; a value that is no integer raises in both."""
+    env = {k: str(-3 + 7 * i) for i, k in enumerate(ENV)}
+    _use(monkeypatch, env)
+    ours = dataclasses.asdict(tconfig.Config.default())
+    theirs = dataclasses.asdict(jconfig.Config.default())
+    assert list(ours) == ["stall_threshold", "stall_margin"]
+    assert ours == {k: theirs[k] for k in ours}
+    assert ours == {k: int(env[f"HTPU_{k.upper()}"]) for k in ours}
+    monkeypatch.setenv("HTPU_STALL_MARGIN", "twenty")
+    for mod in (tconfig, jconfig):
+        with pytest.raises(ValueError):
+            mod.Config.default()
+
+
+@pytest.mark.parametrize("setting", SETTINGS)
+def test_split_equals_host_split(monkeypatch, reads, stalls, setting):
+    _use(monkeypatch, SETTINGS[setting])
+    for batch in (reads, stalls):
+        ok, start, length = _split_batch(*_rows(batch))
+        assert list(zip(ok.tolist(), start.tolist(), length.tolist())) == [
+            tuple(jdstall._split(x)) for x in batch]
+
+
+def _split_flags(streams):
+    return [s[0] for s in streams]
+
+
+@pytest.mark.parametrize("setting", SETTINGS)
+def test_dstall_srans2_streams_equal_host(monkeypatch, reads, setting):
+    _use(monkeypatch, {})
+    at_defaults = [get_codec("dstall_srans2").press(x) for x in reads]
+    _use(monkeypatch, SETTINGS[setting])
+    host = [get_codec("dstall_srans2").press(x) for x in reads]
+    if setting != "defaults":
+        assert host != at_defaults  # the setting moves some split
+    sig, n = _rows(reads)
+    st, sl = press_dstall_batch(sig, n, TABS, sig.shape[1])
+    assert [st[i, : int(sl[i])].numpy().tobytes()
+            for i in range(len(reads))] == host
+    assert runner.press_signals(reads, "dstall_srans2", device="cpu") == host
+
+
+def test_dstall_drans_streams_equal_host(monkeypatch, reads):
+    """dstall_drans shares _split_batch: under a wider margin its streams
+    follow the host codec's too."""
+    _use(monkeypatch, SETTINGS["margin60"])
+    part = reads[:5]
+    sig, n = _rows(part)
+    st, sl = tdd.press_dstall_drans_batch(sig, n, TABS, sig.shape[1])
+    host = dd.dstall_drans_press_reads(part)
+    assert [st[i, : int(sl[i])].numpy().tobytes()
+            for i in range(len(part))] == host
+    assert any(_split_flags(host))

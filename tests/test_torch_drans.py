@@ -13,6 +13,7 @@ from honours_tpu.engine.pipeline import canned_o1_device_tables as j_tables
 from honours_tpu.engine.pipeline import pad_batch
 from honours_tpu_torch.engine import drans as TD
 from honours_tpu_torch.engine.pipeline import canned_o1_device_tables
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 
 def _walk(B, L, seed=5, burst=97):

@@ -26,6 +26,7 @@ from honours_tpu_torch.io.batching import bucket_reads
 from test_torch_blow5 import src_file  # noqa: F401  (fixture)
 from test_torch_runner import mixed_reads  # noqa: F401  (fixture)
 from test_torch_segment import knife_cases, late_stall
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 TABS = canned_o1_device_tables("cpu")
 

@@ -1340,3 +1340,95 @@ def test_nccl_refuses_more_ranks_than_cards(cuda, tmp_path):
     with pytest.raises(RuntimeError, match="a card a rank"):
         run_world(b, torch.cuda.device_count() + 1, tmp_path,
                   backend="nccl", device="cuda", timeout_s=120)
+
+
+@pytest.fixture(scope="module")
+def bench_file(tmp_path_factory):
+    """A BLOW5 of 12 synthetic reads, a stall read and the three fixture
+    reads (zlib records, svb-zd signals), written by the port."""
+    from honours_tpu_torch.io import blow5
+    from honours_tpu_torch.synth import stall_set, synthesize_corpus
+
+    rng = np.random.default_rng(8)
+    lens = rng.integers(1000, 40000, 12)
+    flat = synthesize_corpus(int(lens.sum()), seed=8)
+    reads = np.split(flat, np.cumsum(lens)[:-1])
+    reads += stall_set(0)[:1] + stall_rows.fixture_reads()
+    path = tmp_path_factory.mktemp("bench") / "src.blow5"
+    blow5.write_blow5(str(path), blow5.Blow5File(
+        version=(0, 2, 0), record_press=blow5.RECORD_PRESS_ZLIB,
+        signal_press=blow5.SIGNAL_PRESS_SVB_ZD, num_read_groups=1,
+        header=b"#\n", reads=[blow5.Blow5Read(
+            read_id=f"r{i}", read_group=0, digitisation=2048.0, offset=0.0,
+            range=1.0, sampling_rate=4000.0, signal=s)
+            for i, s in enumerate(reads)]))
+    return path
+
+
+def _cli_out(capsys, argv):
+    from honours_tpu_torch import cli
+
+    assert cli.main(argv) == 0
+    return capsys.readouterr().out
+
+
+def test_analyze_on_card_equals_cpu_and_launches_kernel_a(cuda, bench_file,
+                                                          capsys):
+    """analyze --per-read on the card reports what the CPU route reports
+    (ints and bools exactly, floats within 1e-9 relative), and its stall
+    reports came from kernel A."""
+    import json
+    import math
+
+    from honours_tpu_torch._build import KERNELS
+
+    KERNELS["find_stall"].launches = 0
+    ours = json.loads(_cli_out(capsys, ["analyze", str(bench_file),
+                                        "--per-read"]))
+    assert KERNELS["find_stall"].launches > 0
+    theirs = json.loads(_cli_out(capsys, ["analyze", str(bench_file),
+                                          "--per-read", "--device", "cpu"]))
+    assert ours["aggregate"].keys() == theirs["aggregate"].keys()
+    assert any(r["stall"] for r in ours["reads"])
+    for a, b in zip([ours["aggregate"], *ours["reads"]],
+                    [theirs["aggregate"], *theirs["reads"]]):
+        assert list(a) == list(b)
+        for k in a:
+            assert type(a[k]) is type(b[k]), k
+            if isinstance(a[k], float):
+                assert math.isclose(a[k], b[k], rel_tol=1e-9), k
+            else:
+                assert a[k] == b[k], k
+
+
+@pytest.mark.parametrize("codec", ["drans_vbbe21_zd", "svb12_zd",
+                                   "dstall_drans", "rice_vbbe21_zd"])
+def test_harness_rows_on_card_have_cpu_bytes(cuda, bench_file, capsys,
+                                             codec):
+    def rows(device):
+        out = _cli_out(capsys, ["bench", str(bench_file), "--methods", codec,
+                                "--device", device])
+        return [line.split("\t")[:5] for line in out.strip().splitlines()]
+
+    assert rows("cuda") == rows("cpu")
+
+
+def test_cuda_trace_names_a_port_kernel(cuda, tmp_path):
+    """cuda_trace writes a Chrome trace of the region, and the trace
+    names kernel 1 (monotone_compact, csrc/permute.cu)."""
+    import json
+
+    from honours_tpu_torch.engine.runner import press_signals
+    from honours_tpu_torch.utils.profiling import PhaseTimer, cuda_trace
+
+    reads = [np.arange(5000, dtype=np.int16) % 300,
+             np.tile(np.array([0, 30000], np.int16), 300)]
+    timer = PhaseTimer()
+    with cuda_trace(str(tmp_path)):
+        with timer.phase("press", cuda):
+            press_signals(reads, "vbbe21_zd")
+    trace = json.loads((tmp_path / "trace.json").read_text())
+    names = {e.get("name", "") for e in trace["traceEvents"]
+             if e.get("cat") == "kernel"}
+    assert any("compact" in n for n in names), sorted(names)[:20]
+    assert timer.counts["press"] == 1 and timer.totals["press"] > 0

@@ -14,6 +14,7 @@ from honours_tpu.engine import permute_pallas as PP
 from honours_tpu_torch.engine import bits as TB
 from honours_tpu_torch.engine import permute as TP
 from honours_tpu_torch.engine import permute_cuda as PC
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 B, N = 8, 300
 

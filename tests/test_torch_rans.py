@@ -22,6 +22,7 @@ from honours_tpu_torch.engine import rans_encode_cuda as E
 from honours_tpu_torch.engine import rans_o1_cuda as O
 from honours_tpu_torch.engine.pipeline import canned_o1_device_tables
 from honours_tpu_torch.kernels.rans import K_SHARED as K
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 B = 8
 

@@ -14,6 +14,7 @@ from honours_tpu.codecs.vb import exblock_len
 from honours_tpu_torch.engine import runner
 from honours_tpu_torch.engine.rice_cuda import rice_decode_plain
 from test_torch_runner import mixed_reads  # noqa: F401  (fixture)
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 RICE = ["rice_vbe21_zd", "rice_vbbe21_zd", "rice_vbsbe21_zd",
         "rice_vbsse21_zd"]

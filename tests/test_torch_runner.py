@@ -15,6 +15,7 @@ import torch
 from honours_tpu.codecs import base as registry
 from honours_tpu.engine import runner as jrunner
 from honours_tpu_torch.engine import runner
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 NAME = "drans_vbbe21_zd"
@@ -127,6 +128,11 @@ def test_cpu_press_loads_no_jax():
         "s = press_signals(r, device='cpu')\n"
         "o = depress_signals(s, [300, 1], device='cpu')\n"
         "assert all((a == b).all() for a, b in zip(r, o))\n"
+        "from honours_tpu_torch import analysis, cli\n"
+        "from honours_tpu_torch.bench import harness\n"
+        "from honours_tpu_torch.engine import bounds\n"
+        "from honours_tpu_torch.utils import config, profiling\n"
+        "analysis.analyze_reads(r, device='cpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'honours_tpu')]\n"
         "print('BAD', bad)\n"

@@ -11,6 +11,7 @@ from honours_tpu.codecs import base as registry
 from honours_tpu.engine import runner as jrunner
 from honours_tpu_torch.engine import runner
 from test_torch_runner import mixed_reads  # noqa: F401  (fixture)
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 CODECS = ["svb12_zd", "svb12", "srans_vbbe21_zd", "srans2_vbbe21_zd",
           "srans3_vbbe21_zd"]

@@ -15,6 +15,7 @@ from honours_tpu.codecs import base as registry
 from honours_tpu.engine import runner as jrunner
 from honours_tpu_torch.engine import runner
 from test_torch_runner import mixed_reads  # noqa: F401  (fixture)
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 CODECS = ["vb1e2_zd", "vbe21_zd", "vbbe21_zd", "vbsbe21_zd", "vbsse21_zd",
           "svb_zd", "svb0124_zd", "hasgam_vbsse21_zdq"]

@@ -14,6 +14,7 @@ from honours_tpu import native
 from honours_tpu.segment import find_stall_batch as jax_find_stall_batch
 from honours_tpu_torch.segment import find_stall_batch, segment_cuda
 from stall_rows import knife_cases, late_stall
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 
 def _batch(signals):

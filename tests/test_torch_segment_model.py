@@ -22,6 +22,7 @@ import stall_rows as R
 from honours_tpu import native
 from honours_tpu_torch._build import CSRC
 from honours_tpu_torch.segment import segment_cuda
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 NAMES = R.row_names()
 

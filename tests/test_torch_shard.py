@@ -28,22 +28,11 @@ from honours_tpu_torch.shard.dryrun import spawn_world
 from test_torch_dstall import mixed  # noqa: F401  (fixture)
 import torch_shard_worker as worker
 from torch_shard_worker import ROOT, decoded, gathered, run_world
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 O1 = tpipe.canned_o1_device_tables("cpu")
 TORCHRUN_ENV = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
                 "LOCAL_RANK", "LOCAL_WORLD_SIZE")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """This process's plain versions on one intra-op thread, as the
-    ranks': their ops are small, and under xdist every worker's threads
-    oversubscribe the host (an unsharded dstall_drans encode of 0.6 s
-    took 96 s with the default threads)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

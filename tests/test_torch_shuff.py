@@ -28,6 +28,7 @@ from honours_tpu_torch.kernels.huffman import make_decode_lut
 from honours_tpu_torch.tables import huffman as ttab
 from test_torch_blow5 import src_file  # noqa: F401  (fixture)
 from test_torch_runner import mixed_reads  # noqa: F401  (fixture)
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 NAME = "shuffman_vbbe21_zd"
 L = 1024

@@ -32,6 +32,7 @@ from honours_tpu_torch.engine import pipeline as tpipe
 from honours_tpu_torch.engine.bits import rowwise_concat
 from honours_tpu_torch.kernels.rans import K_SHARED as K
 from honours_tpu_torch.tables import na12878_freq as tfreq
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 #: tests/test_rans_pallas.py's ragged lengths (0, 1 and 32 among them)
 LENS = [1000, 999, 0, 1, 32, 640, 1000, 128]

@@ -34,6 +34,7 @@ from honours_tpu_torch.engine.pipeline import (
 from honours_tpu_torch.kernels.rans import K_SHARED as K
 from honours_tpu_torch.tables import o1 as to1tab
 from honours_tpu_torch.tables.o1n import canned_nibble_tables as t_nibble
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 CODEC = "srans3_vbbe21_zd"
 

@@ -21,6 +21,7 @@ from honours_tpu_torch.engine.svb16 import (
     svb16_decode_batch,
     svb16_encode_batch,
 )
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 ZD = pytest.mark.parametrize("zd", [True, False], ids=["zd", "raw"])
 

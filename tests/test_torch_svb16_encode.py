@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from honours_tpu_torch.engine import svb16_cuda as SV
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 T = SV.ENCODE_TILE
 

@@ -19,6 +19,7 @@ from honours_tpu_torch.kernels import rans as trans
 from honours_tpu_torch.tables import drans as ttab
 from honours_tpu_torch.tables.o1 import canned_o1_freqs as t_canned
 from honours_tpu_torch.transforms.core import unzigdelta, zigdelta
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 
 def _fc_grid(tabs):

@@ -18,6 +18,8 @@ from honours_tpu.engine import svb32 as jsvb32
 from honours_tpu.engine import vb_batch as jvb
 from honours_tpu.kernels.svb import svb0124_encode, svb32_encode
 from honours_tpu_torch.engine import exzd, rice, svb32, vb_batch
+from honours_tpu_torch.transforms.core import find_qts
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 L = 1024
 
@@ -171,7 +173,7 @@ def test_exzd_qts_shift():
     for q in range(6):
         sig[q] = (rng.integers(-500, 500, 64) << q).astype(np.int16) | (
             1 << q)
-    ours = exzd._qts_batch(torch.from_numpy(sig), torch.from_numpy(n))
+    ours = find_qts(torch.from_numpy(sig), torch.from_numpy(n))
     assert ours.tolist() == [0, 1, 2, 3, 4, 5, 5]
     theirs = jexzd._qts_batch(jnp.asarray(sig), jnp.asarray(n))
     assert ours.tolist() == np.asarray(theirs).tolist()

@@ -11,6 +11,7 @@ from honours_tpu.engine import pipeline as JPL
 from honours_tpu.engine import vbbe21 as JV
 from honours_tpu_torch.engine import pipeline as TPL
 from honours_tpu_torch.engine import vbbe21 as TV
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 
 def _vals(B, L, seed, ex_rate):

@@ -14,6 +14,7 @@ from honours_tpu_torch.engine import rans_n4_cuda as N4
 from honours_tpu_torch.engine import rans_o1_cuda as O
 from honours_tpu_torch.engine import svb16_cuda as SV
 from honours_tpu_torch.kernels.rans import M
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 F_BLOCKS = 8  # f in [1, M] split into cases of M / F_BLOCKS
 
