@@ -96,7 +96,16 @@
    where there are several.  Logs each world and each rank's wall,
    collectives and their bytes; every rank must launch the path's
    kernels, and their launches count toward the kernels line.
-8. Prints one {"kernels": [...]} line, then {"ok": true, "device": ...}.
+8. The bench: `python -m honours_tpu_torch.bench` (bench/driver.py)
+   in-process through its `main` on the card, with HTPU_SYNTH_BATCHES=3
+   and every launch count at 0 just before it.  Its JSON line must parse,
+   skip nothing but the VBZ ratio where `zstandard` does not import, and
+   have every *_lossless and *_host_parity true; the stream lengths
+   behind its fixture ratios (srans2, drans, the tiled drans fit,
+   held-out srans2, srans, srans3, dstall, dstall_drans) must be the CPU
+   route's on the same rows.  Logs the line, its wall, and each ratio
+   that differs from BENCH_r04.json's or BENCH_r05.json's.
+9. Prints one {"kernels": [...]} line, then {"ok": true, "device": ...}.
 
 `--kernels-only` stops after step 2 and prints no result line: it times
 the kernels of whichever honours_tpu_torch is imported, e.g. an older
@@ -1455,6 +1464,116 @@ def shard_phase(seed: int) -> dict:
     return total
 
 
+#: the bench's ratios as BENCH_r04.json and BENCH_r05.json record them
+#: (None: not recorded); r04's synthetic ratios are over 3 batches
+RECORDED = {
+    "srans2_ratio": (3.013, 3.013), "drans_ratio": (2.9952, 2.9951),
+    "drans_ratio_tiled": (2.9731, None), "srans_ratio": (None, 2.9415),
+    "srans3_ratio": (None, 3.0033), "dstall_ratio": (3.0127, 3.0127),
+    "heldout_ratio_srans2": (2.922, 2.922), "vbz_ratio": (2.925, 2.925),
+    "synth_srans2_ratio": (3.1214, None), "synth_drans_ratio": (3.1422, None),
+}
+#: the kernels the bench's sections launch
+BENCH = KERNEL_1 | {"o1_fc", "rans_encode", "o1_decode", "o0_decode",
+                    "svb16_encode", "svb16_decode", "o1n_fc", "n4_decode",
+                    "find_stall"}
+
+
+def bench_cpu_lengths(b) -> dict:
+    """The CPU route's stream lengths behind the bench's fixture ratios,
+    on the bench's own rows: the unique chunks, the unique batch that
+    drans and dstall_drans pad to 8 rows, and the tiled batch of the
+    drans fit."""
+    from honours_tpu_torch.engine import pipeline as P
+    from honours_tpu_torch.engine.drans import press_drans_batch
+    from honours_tpu_torch.engine.dstall import press_dstall_batch
+    from honours_tpu_torch.engine.dstall_drans import press_dstall_drans_batch
+    from honours_tpu_torch.engine.entropy_o1 import make_o1_tables
+    from honours_tpu_torch.tables.o1 import heldout_o1_freqs
+
+    cpu = torch.device("cpu")
+    k, E = b.n_unique, b.emax
+    u, nu = b.sig[:k].cpu(), b.n[:k].cpu()
+    sj, nj = (t.cpu() for t in b.unique_batch())
+    o1 = P.canned_o1_device_tables(cpu)
+    lens = {
+        "srans2": P.press_srans2_batch(u, nu, o1, E),
+        "heldout": P.press_srans2_batch(
+            u, nu, make_o1_tables(heldout_o1_freqs(), cpu), E),
+        "srans": P.press_srans_batch(u, nu, P.canned_rans_tables(cpu), E),
+        "srans3": P.press_srans3_batch(u, nu, P.canned_o1n_device_tables(cpu),
+                                       E),
+        "dstall": press_dstall_batch(u, nu, o1, E),
+        "drans": press_drans_batch(sj, nj, o1, E),
+        "dstall_drans": press_dstall_drans_batch(sj, nj, o1, E),
+        "drans_tiled": press_drans_batch(b.sig.cpu(), b.n.cpu(), o1, E),
+    }
+    return {name: sl[:k].tolist() for name, (_, sl) in lens.items()}
+
+
+def bench_phase(smi: str) -> dict:
+    """`python -m honours_tpu_torch.bench` through its main on the card,
+    HTPU_SYNTH_BATCHES=3, every launch count at 0 just before it and read
+    just after.  Its line must parse, skip nothing but the VBZ ratio
+    where zstandard is missing, and have every lossless and host-parity
+    flag true; the stream lengths behind its fixture ratios must be the
+    CPU route's.  Returns the launches."""
+    import contextlib
+    import io
+    import os
+
+    from honours_tpu_torch._build import KERNELS
+    from honours_tpu_torch.bench import driver
+
+    for k in KERNELS.values():
+        k.launches = 0
+    out = io.StringIO()
+    synth = os.environ.get("HTPU_SYNTH_BATCHES")
+    os.environ["HTPU_SYNTH_BATCHES"] = "3"
+    t = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            b = driver.main([])
+    finally:
+        if synth is None:
+            del os.environ["HTPU_SYNTH_BATCHES"]
+        else:
+            os.environ["HTPU_SYNTH_BATCHES"] = synth
+    wall = time.perf_counter() - t
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    text = out.getvalue().strip().splitlines()[-1]
+    log(f"bench line ({smi}): {text}")
+    x = json.loads(text)["extra"]
+    used = {k: v for k, v in launches.items() if v}
+    log(f"bench: {wall:.1f} s through driver.main on the card ({smi}), "
+        f"the kernels' build already done; launches {used}")
+    bad = [s for s in x["skipped"] if not (
+        s["section"] == "vbz_ratio" and "zstandard" in s["reason"])]
+    if bad:
+        raise AssertionError(f"bench skipped {bad}")
+    flags = {k: v for k, v in x.items()
+             if k.endswith(("_lossless", "_host_parity"))}
+    if len(flags) != 12 or not all(v is True for v in flags.values()):
+        raise AssertionError(f"bench flags {flags}")
+    idle = sorted(k for k in BENCH if launches[k] == 0)
+    if idle:
+        raise AssertionError(f"bench: kernels not launched: {idle}")
+    t = time.perf_counter()
+    cpu = bench_cpu_lengths(b)
+    for name, want in cpu.items():
+        if b.lengths[name] != want:
+            raise AssertionError(f"bench {name}: the card's lengths "
+                                 f"{b.lengths[name]}, the CPU route's {want}")
+    log("bench: the stream lengths behind its fixture ratios are the CPU "
+        f"route's ({time.perf_counter() - t:.1f} s on the CPU): "
+        + "; ".join(f"{k} {v} ({b.unique_bytes / sum(v)!r})"
+                    for k, v in cpu.items()))
+    for key, (r04, r05) in RECORDED.items():
+        if key in x and x[key] not in (r04, r05):
+            log(f"bench: {key} {x[key]} (BENCH_r04 {r04}, BENCH_r05 {r05})")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1492,6 +1611,8 @@ def main(argv=None) -> int:
     for k, c in bench_analyze_phase(reads, smi).items():
         results[k]["launches"] += c
     for k, c in shard_phase(args.seed).items():
+        results[k]["launches"] += c
+    for k, c in bench_phase(smi).items():
         results[k]["launches"] += c
     idle = [k for k, r in results.items() if r["launches"] == 0]
     if idle:

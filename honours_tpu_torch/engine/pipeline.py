@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from honours_tpu_torch.engine.bits import (
@@ -59,7 +60,7 @@ __all__ = [
     "canned_o1n_device_tables", "press_srans_batch", "depress_srans_batch",
     "press_srans2_batch", "depress_srans2_batch", "press_srans3_batch",
     "depress_srans3_batch", "canned_huffman_tables", "press_shuff_batch",
-    "depress_shuff_batch",
+    "depress_shuff_batch", "pad_batch",
 ]
 
 
@@ -80,6 +81,20 @@ def _zd_merge(zd0, vals, n, L: int):
                     vals[:, : L - 1].to(torch.int64)], dim=1)
     out = unzigdelta(torch.where(live, zd, 0))
     return torch.where(live, out, 0).to(torch.int16)
+
+
+def pad_batch(signals, L: int = None, *, device):
+    """Pack int16 reads into ([B, L] int16, lengths [B] int32) on
+    `device`, L (default the longest read) rounded up to a multiple of
+    8; zero past each read's length."""
+    L = L or max(s.size for s in signals)
+    L = -(-L // 8) * 8
+    sig = np.zeros((len(signals), L), dtype=np.int16)
+    n = np.zeros(len(signals), dtype=np.int32)
+    for i, s in enumerate(signals):
+        sig[i, : s.size] = s
+        n[i] = s.size
+    return torch.from_numpy(sig).to(device), torch.from_numpy(n).to(device)
 
 
 def canned_rans_tables(device) -> dict:

@@ -1432,3 +1432,52 @@ def test_cuda_trace_names_a_port_kernel(cuda, tmp_path):
              if e.get("cat") == "kernel"}
     assert any("compact" in n for n in names), sorted(names)[:20]
     assert timer.counts["press"] == 1 and timer.totals["press"] > 0
+
+
+@pytest.fixture(scope="module")
+def bench_runs(cuda):
+    """python -m honours_tpu_torch.bench's main at [8, 4096], one
+    synthetic batch, on the card and on the CPU: [(line, run), ...]."""
+    import contextlib
+    import io
+    import json
+    from pathlib import Path
+
+    from honours_tpu_torch.bench import driver
+
+    runs = []
+    with pytest.MonkeyPatch.context() as mp:
+        # the bench reads tests/data/three-reads.blow5 from the working dir
+        mp.chdir(Path(__file__).resolve().parent.parent)
+        mp.setenv("HTPU_SYNTH_BATCHES", "1")
+        for device in ("cuda", "cpu"):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                b = driver.main(["--device", device, "--batch", "8",
+                                 "--width", "4096"])
+            runs.append((json.loads(out.getvalue().strip().splitlines()[-1]),
+                         b))
+    return runs
+
+
+def test_bench_main_on_card_every_flag_true(bench_runs):
+    """The card's line: nothing skipped but the VBZ ratio where zstandard
+    is missing, every lossless and host-parity flag true, the card named."""
+    x = bench_runs[0][0]["extra"]
+    assert all(s["section"] == "vbz_ratio" and "zstandard" in s["reason"]
+               for s in x["skipped"])
+    flags = {k: v for k, v in x.items()
+             if k.endswith(("_lossless", "_host_parity"))}
+    assert len(flags) == 12 and all(v is True for v in flags.values())
+    assert torch.cuda.get_device_name(0) in x["card"]
+    assert bench_runs[0][0]["value"] > 0
+
+
+@pytest.mark.parametrize("name", ["srans2", "drans", "drans_tiled", "srans",
+                                  "srans3", "dstall", "heldout",
+                                  "dstall_drans", "synth_srans2",
+                                  "synth_drans"])
+def test_bench_section_on_card_has_cpu_lengths(bench_runs, name):
+    """Each section's stream lengths on the card are the CPU route's."""
+    card, cpu = bench_runs[0][1], bench_runs[1][1]
+    assert card.lengths[name] == cpu.lengths[name]
