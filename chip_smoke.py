@@ -105,7 +105,27 @@
    held-out srans2, srans, srans3, dstall, dstall_drans) must be the CPU
    route's on the same rows.  Logs the line, its wall, and each ratio
    that differs from BENCH_r04.json's or BENCH_r05.json's.
-9. Prints one {"kernels": [...]} line, then {"ok": true, "device": ...}.
+9. Long reads: the long-read configuration (long_set: 256 reads of
+   (2^19, 2^20] samples, one full bucket at L = 2^20; 8 reads of
+   (2^20, 2^21]; one of 4,194,000, one row at L = 2^22; 600,000
+   full-range random samples on the one-row path at emax = L = 2^20; one
+   of 262,145) through all 21 codecs on the card, each with every launch
+   count at 0 just before it: every read back bit for bit, the path's
+   kernels launched, its ratio, rates and peak memory logged; the card's
+   streams of the 262,145-sample read equal to the CPU route's.  Every
+   kernel held against its plain version and timed on the
+   4,194,000-sample read ([1, 2^22]); the walks' plain versions (rans
+   encode, o1, o0 and n4 decode: a Python loop pass a step) run on the
+   host, as do the CPU routes, in 4 worker processes beside the card's
+   work.  Then a full [256, 2^21]
+   bucket (each read two neighbours of the first part end to end) of
+   rice_vbbe21_zd, shuffman_vbbe21_zd, drans_vbbe21_zd and dstall_drans
+   through runner.press_bucket / depress_bucket in the slices the
+   runner's rule gives (more than one), its peak memory logged; on the
+   [256, 2^20] bucket, which fits unsliced, streams in slices of that
+   size must equal the unsliced ones, and both decodes give the reads
+   back (encode and decode times of both logged).
+10. Prints one {"kernels": [...]} line, then {"ok": true, "device": ...}.
 
 `--kernels-only` stops after step 2 and prints no result line: it times
 the kernels of whichever honours_tpu_torch is imported, e.g. an older
@@ -556,6 +576,35 @@ def longest_code_case(dev):
             int(blen[0]) - 4 + m + 12, 10 * m, None)
 
 
+def to_cpu(x):
+    """Tensors, in tuples and lists too, copied to the host."""
+    if isinstance(x, (tuple, list)):
+        return type(x)(to_cpu(y) for y in x)
+    return x.cpu() if isinstance(x, torch.Tensor) else x
+
+
+class Call:
+    """A plain version's call, fn(*args): picklable where fn is a
+    module-level function, so that a worker process can run it on the
+    host (on_cpu)."""
+
+    def __init__(self, fn, *args):
+        self.fn, self.args = fn, args
+
+    def __call__(self):
+        return self.fn(*self.args)
+
+    def on_cpu(self) -> "Call":
+        return Call(self.fn, *to_cpu(self.args))
+
+
+def o1_decode_phases_plain(args1, args2):
+    """Both drans phases of kernel 4's plain version."""
+    from honours_tpu_torch.engine import rans_o1_cuda as O
+
+    return O.o1_decode_plain(*args1), O.o1_decode_plain(*args2)
+
+
 def walk_cases(sig, n, g, tabs):
     """(name, kernel call, plain call, bytes, ops, library call) of the
     three walks on one bucket [B, L] with the inputs the main paths give
@@ -615,17 +664,17 @@ def walk_cases(sig, n, g, tabs):
     # operations: those of the lane-steps that code a symbol in this data
     cases = [
         ("rans_encode", lambda: E.encode_core(fc, Smax, K),
-         lambda: E.encode_core_plain(fc, Smax, K),
+         Call(E.encode_core_plain, fc, Smax, K),
          4 * fc.numel() + 4 * fc.numel() + 4 * B * K,
          30 * int((fc > 0).sum()), None),
         # the bodies consumed, states in and out, the lane grid out
         ("o1_decode", lambda: (O.o1_decode(*args1), O.o1_decode(*args2)),
-         lambda: (O.o1_decode_plain(*args1), O.o1_decode_plain(*args2)),
+         Call(o1_decode_phases_plain, args1, args2),
          consumed + B * K * (T1 + T2) + 4 * 4 * B * K,
          40 * int(d["dlen"].to(torch.int64).sum()), None),
         # the v2 bodies consumed, states in, [B, L] bytes out
         ("o0_decode", lambda: O.o0_decode(*args4b),
-         lambda: O.o0_decode_plain(*args4b),
+         Call(O.o0_decode_plain, *args4b),
          body0 + B * L + 4 * B * K, 40 * int(dlen0.sum()), None),
     ]
     return cases, {"d": d, "grid2": grid2, "T2": T2}
@@ -637,7 +686,6 @@ def kernel_cases(seed: int):
     and the same of options those cases leave out (named "kernel
     option")."""
     from honours_tpu_torch.engine import permute_cuda as P
-    from honours_tpu_torch.engine import rans_n4_cuda as N4
     from honours_tpu_torch.engine.pipeline import canned_o1_device_tables
     from honours_tpu_torch.kernels.rans import K_SHARED as K
 
@@ -665,15 +713,41 @@ def kernel_cases(seed: int):
 
     svb_n4, options, nt = svb_n4_cases(sig, n)
     cases = perm_cases + walks + svb_n4 + [
-        ("o1n_fc", lambda: N4.o1n_fc(sym, ctx, *nt),
-         lambda: N4.o1n_fc_plain(sym, ctx, *nt),
-         16 * sym.numel(), 8 * sym.numel(), None),
+        o1n_case(sym, ctx, nt),
         stall_case(sig, n, f"[{B}, {L}]"),
         rice_case(sig, n),
         huffman_case(sig, n),
     ]
     shapes = (f"[{B}, {L}]", f"[{B * K}, {Smax}] (drans phase-grid merge)")
     return cases, options, merge, shapes, vb_cases(sig, n)
+
+
+def o1n_case(sym, ctx, nt):
+    """(name, kernel call, plain call, bytes, ops, library call) of kernel
+    7 on a lane grid's symbols and contexts against the canned nibble
+    tables `nt`."""
+    from honours_tpu_torch.engine import rans_n4_cuda as N4
+
+    return ("o1n_fc", lambda: N4.o1n_fc(sym, ctx, *nt),
+            lambda: N4.o1n_fc_plain(sym, ctx, *nt),
+            16 * sym.numel(), 8 * sym.numel(), None)
+
+
+def row_cases(sig, n):
+    """(name, kernel call, plain call, bytes, ops, library call) of every
+    kernel and its options on the rows [B, L] on the card, with the
+    inputs the main paths give them: kernel 1's five entries, o1_fc, the
+    walks, svb16 (zd on and off), o1n_fc, find_stall, rice_decode and
+    huffman_decode."""
+    from honours_tpu_torch.engine.pipeline import canned_o1_device_tables
+
+    tabs = canned_o1_device_tables(sig.device)
+    perm, g = permute_fc_cases(sig, n, tabs)
+    svb_n4, options, nt = svb_n4_cases(sig, n)
+    label = f"[{sig.shape[0]}, {sig.shape[1]}]"
+    return (perm + walk_cases(sig, n, g, tabs)[0] + svb_n4 + options
+            + [o1n_case(g["sym"], g["ctx"], nt), stall_case(sig, n, label),
+               rice_case(sig, n), huffman_case(sig, n)])
 
 
 def svb_n4_cases(sig, n):
@@ -722,7 +796,7 @@ def svb_n4_cases(sig, n):
         # the v4 bodies consumed, states in, the lane grid out; operations
         # of the lane-steps that code a byte (two nibble steps each)
         ("n4_decode", lambda: N4.n4_decode(*args8, Smax),
-         lambda: N4.n4_decode_plain(*args8, Smax),
+         Call(N4.n4_decode_plain, *args8, Smax),
          body3 + 4 * B * K + 12 * B + B * K * Smax,
          60 * int(dlen3.sum()), None),
     ]
@@ -999,7 +1073,6 @@ def check_kernels(seed: int) -> dict:
     the longest-code row, kernels B and C on their adversarial rows and
     the drans phase-grid merge, then kernel A on reads with stalls;
     returns the bucket-shape results by kernel."""
-    from honours_tpu_torch.engine.pipeline import canned_o1_device_tables
     from honours_tpu_torch.synth import stall_set
 
     cases, options, merge, (bucket, merged), vb = kernel_cases(seed)
@@ -1014,13 +1087,7 @@ def check_kernels(seed: int) -> dict:
     # B = 1, L = 262144: one read on the runner's one-row path, where one
     # read's chain is a walk's whole launch
     sig, n = make_bucket(seed, B=1, L=1 << 18)
-    tabs = canned_o1_device_tables(sig.device)
-    one_row, g = permute_fc_cases(sig, n, tabs)
-    svb_n4, options, _ = svb_n4_cases(sig, n)
-    for case in (one_row + walk_cases(sig, n, g, tabs)[0] + svb_n4 + options
-                 + [stall_case(sig, n, f"[1, {sig.shape[1]}]"),
-                    rice_case(sig, n),
-                    huffman_case(sig, n)]):
+    for case in row_cases(sig, n):
         log_case(f"[1, {sig.shape[1]}]", time_case(*case))
     log_case("[1, 2000] (2,000 x symbol 255)",
              time_case(*longest_code_case(sig.device)))
@@ -1574,6 +1641,267 @@ def bench_phase(smi: str) -> dict:
     return launches
 
 
+#: the codecs whose full [256, 2^21] bucket phase 9 codes in slices
+FULL_BUCKET = ("rice_vbbe21_zd", "shuffman_vbbe21_zd", "drans_vbbe21_zd",
+               "dstall_drans")
+
+
+def long_set(seed: int) -> dict:
+    """The long-read configuration, synthetic signal (synth.py) from
+    `seed`: (a) 256 reads with lengths uniform in (2^19, 2^20], one full
+    bucket at L = 2^20; (b) 8 reads in (2^20, 2^21]; (c) one read of
+    4,194,000 samples, one row at L = 2^22; (d) 600,000 full-range
+    random samples, which overflow the exception cap and take the
+    one-row path at emax = L = 2^20; (e) one read of 262,145 samples,
+    the first past L = 2^18.  Returns {part: [reads]}."""
+    from honours_tpu_torch.synth import synthesize_corpus
+
+    rng = np.random.default_rng(seed + 17)
+    lens = np.concatenate([rng.integers((1 << 19) + 1, (1 << 20) + 1, 256),
+                           rng.integers((1 << 20) + 1, (1 << 21) + 1, 8),
+                           [4_194_000, 262_145]])
+    flat = synthesize_corpus(int(lens.sum()), seed=seed + 18)
+    reads = np.split(flat, np.cumsum(lens)[:-1])
+    return {"a": reads[:256], "b": reads[256:264], "c": [reads[264]],
+            "d": [rng.integers(-32768, 32768, 600_000).astype(np.int16)],
+            "e": [reads[265]]}
+
+
+def cpu_plain(call: Call):
+    """A plain version's output and its milliseconds, run on the host in
+    a worker process on one intra-op thread."""
+    torch.set_num_threads(1)
+    t = time.perf_counter()
+    out = call()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def long_kernels(c_read, pool, smi: str) -> list:
+    """Every kernel on the long set's read (c), [1, 2^22], held against
+    its plain version and timed (time_case), the launches not counted.
+    The walks' plain versions step a read's lanes one step a Python loop
+    pass (131,072 steps here, minutes of small launches on the card), so
+    they run on the host in `pool`, beside the rest of the phase: their
+    kernels are timed here, and the futures come back as (name, output,
+    ms, bound ms, replayed output, future) for long_kernels_held."""
+    sig, n = rows_on_card([c_read], 1 << 22)
+    label = f"[1, {1 << 22}] (read (c), {smi})"
+    pending = []
+    for case in row_cases(sig, n):
+        name, kern, plain = case[:3]
+        if not isinstance(plain, Call):
+            log_case(label, time_case(*case))
+            continue
+        future = pool.submit(cpu_plain, plain.on_cpu())
+        kern()
+        torch.cuda.synchronize()
+        got = to_cpu(flatten(kern()))
+        ms, replayed = graph_ms(kern, 3)
+        bound = max(case[3] / HBM_BYTES_PER_S, case[4] / INT_OPS_PER_S) * 1e3
+        pending.append((name, got, ms, bound, to_cpu(flatten(replayed)),
+                        future))
+    return pending
+
+
+def long_kernels_held(pending, smi: str) -> None:
+    """The walks' outputs at [1, 2^22] against their plain versions' from
+    the host (tolerance 0), also after the timed graph's replays."""
+    for name, got, ms, bound, replayed, future in pending:
+        want, plain_ms = future.result()
+        err = max(max_abs_err(got, flatten(want)),
+                  max_abs_err(replayed, flatten(want)))
+        if err:
+            raise AssertionError(f"{name} [1, 2^22]: kernel differs from "
+                                 f"its plain version (max abs err {err})")
+        log(f"kernel {name} [1, {1 << 22}] (read (c), {smi}): equal to "
+            f"plain (max abs err 0, also after the replays); {ms:.4f} ms on "
+            f"the card vs plain {plain_ms:.1f} ms on the host (one thread "
+            f"of a worker process), bound {bound:.4f} ms")
+
+
+def long_path(codec: str, reads, smi: str):
+    """Press and depress the long set through the runner on the card,
+    every launch count at 0 just before; every read back bit for bit and
+    the path's kernels launched.  Logs the ratio, the rates and the peak
+    memory of the press and the depress.  Returns (launches, streams)."""
+    from honours_tpu_torch._build import KERNELS
+    from honours_tpu_torch.engine.runner import (
+        depress_signals,
+        press_signals,
+    )
+
+    lens = [r.size for r in reads]
+    raw = 2 * sum(lens)
+    torch.cuda.empty_cache()
+    for k in KERNELS.values():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    streams = press_signals(reads, codec)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    peak_press = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = depress_signals(streams, lens, codec)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    peak_depress = torch.cuda.max_memory_allocated()
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    bad = [i for i, (a, b) in enumerate(zip(reads, out))
+           if not np.array_equal(a, b)]
+    if bad:
+        raise AssertionError(f"{codec}: long reads {bad[:8]} did not "
+                             "round-trip")
+    idle = sorted(k for k in PATHS[codec] if launches[k] == 0)
+    if idle:
+        raise AssertionError(f"{codec}: kernels not launched on the long "
+                             f"set: {idle}")
+    comp = sum(len(s) for s in streams)
+    log(f"long {codec}: all {len(reads)} reads round-trip bit for bit; "
+        f"ratio {raw / comp:.6f}; encode {t1 - t0:.3f} s "
+        f"{raw / (t1 - t0) / 1e6:.1f} MB/s, decode {t2 - t1:.3f} s "
+        f"{raw / (t2 - t1) / 1e6:.1f} MB/s; peak memory press "
+        f"{peak_press / 1e9:.3f} GB, depress {peak_depress / 1e9:.3f} GB "
+        f"({smi})")
+    return launches, streams
+
+
+def cpu_press_read(read, codec: str) -> bytes:
+    """The CPU route's stream of one read, in a worker process on one
+    intra-op thread."""
+    from honours_tpu_torch.engine.runner import press_signals
+
+    torch.set_num_threads(1)
+    return press_signals([read], codec, device="cpu")[0]
+
+
+def full_bucket(codec: str, a_reads, smi: str) -> dict:
+    """A full [256, 2^21] bucket, each read two neighbours of the long
+    set's (a) end to end (lengths in (2^20, 2^21]), through
+    runner.press_bucket / depress_bucket on the card in the slices the
+    rule gives (more than one), every read back; its peak memory logged.
+    Then (a)'s [256, 2^20] bucket, which fits unsliced, in slices of that
+    size and unsliced: the streams must be equal, and both decodes give
+    the reads back.  Returns the launches of the [256, 2^21] run."""
+    from honours_tpu_torch._build import KERNELS
+    from honours_tpu_torch.engine.runner import (
+        depress_bucket,
+        press_bucket,
+        slice_rows,
+    )
+    from honours_tpu_torch.io.batching import bucket_reads
+
+    big = [np.concatenate([a_reads[i], a_reads[(i + 1) % len(a_reads)]])
+           for i in range(len(a_reads))]
+    (b,) = bucket_reads(big, max_b=256)
+    del big
+    B = b.sig.shape[0]
+    rows = slice_rows(codec, b.L, torch.device("cuda"))
+    if rows >= B:
+        raise AssertionError(f"{codec}: bucket {b.sig.shape}, {rows} rows "
+                             "a slice: not coded in slices")
+    torch.cuda.empty_cache()
+    for k in KERNELS.values():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    streams = press_bucket(b.sig, b.n, codec)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    peak_press = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = depress_bucket(streams, b.n, b.L, codec)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    peak_depress = torch.cuda.max_memory_allocated()
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    if not all(np.array_equal(out[j], b.sig[j, : b.n[j]])
+               for j in range(B)):
+        raise AssertionError(f"{codec}: the [{B}, {b.L}] bucket did not "
+                             "round-trip")
+    raw = 2 * int(b.n.astype(np.int64).sum())
+    log(f"full bucket {codec} [{B}, {b.L}]: {-(-B // rows)} slices of "
+        f"{rows} rows; round-trips; ratio "
+        f"{raw / sum(map(len, streams)):.6f}; encode {t1 - t0:.3f} s, "
+        f"decode {t2 - t1:.3f} s; peak memory press "
+        f"{peak_press / 1e9:.3f} GB, depress {peak_depress / 1e9:.3f} GB "
+        f"({smi})")
+    del out, streams, b
+
+    (a,) = bucket_reads(a_reads, max_b=256)
+    torch.cuda.empty_cache()
+    secs = {}
+    for r in (B, rows, rows, B):
+        t = time.perf_counter()
+        st = press_bucket(a.sig, a.n, codec, rows=r)
+        t1 = time.perf_counter()
+        out = depress_bucket(st, a.n, a.L, codec, rows=r)
+        secs.setdefault(r, []).append((t1 - t, time.perf_counter() - t1))
+        if r == B:
+            whole = st
+        elif st != whole:
+            raise AssertionError(f"{codec}: sliced streams differ from the "
+                                 f"unsliced bucket's on [{B}, {a.L}]")
+        if not all(np.array_equal(out[j], a.sig[j, : a.n[j]])
+                   for j in range(B)):
+            raise AssertionError(f"{codec}: [{B}, {a.L}] in slices of {r} "
+                                 "rows did not decode")
+    log(f"full bucket {codec} [{B}, {a.L}]: streams in slices of {rows} "
+        "rows equal the unsliced ones byte for byte; both decodes give the "
+        "reads back; encode, decode s (unsliced, sliced, sliced, "
+        f"unsliced): {secs[B][0]}, {secs[rows][0]}, {secs[rows][1]}, "
+        f"{secs[B][1]} ({smi})")
+    return launches
+
+
+def long_phase(seed: int, smi: str) -> dict:
+    """Phase 9: every kernel at [1, 2^22] (long_kernels), the long-read
+    configuration (long_set) through all 21 codecs on the card
+    (long_path), full [256, 2^21] buckets in slices (full_bucket), and
+    the card's streams of read (e) held to the CPU route's.  The CPU
+    routes and the walks' plain versions run in 4 worker processes
+    beside the card's work.  Returns the launches of the long set's and
+    the full buckets' runs."""
+    import collections
+    import multiprocessing
+
+    from concurrent.futures import ProcessPoolExecutor
+
+    t = time.perf_counter()
+    parts = long_set(seed)
+    reads = [r for k in "abcde" for r in parts[k]]
+    log(f"long set: {len(reads)} reads, {sum(r.size for r in reads)} "
+        f"samples, {sum(2 * r.size for r in reads) / 1e6:.1f} MB int16, "
+        f"made in {time.perf_counter() - t:.1f} s")
+    e_read = parts["e"][0]
+    total = collections.Counter()
+    ctx = multiprocessing.get_context("spawn")
+    # 4 workers of the host's 8 cores, so that the card's runs keep cores
+    # for their own host work
+    with ProcessPoolExecutor(max_workers=4, mp_context=ctx) as pool:
+        pending = long_kernels(parts["c"][0], pool, smi)
+        cpu = {c: pool.submit(cpu_press_read, e_read, c) for c in PATHS}
+        card = {}
+        for codec in PATHS:
+            launches, streams = long_path(codec, reads, smi)
+            total.update(launches)
+            card[codec] = streams[-1]
+        for codec in FULL_BUCKET:
+            total.update(full_bucket(codec, parts["a"], smi))
+        t = time.perf_counter()
+        for codec, f in cpu.items():
+            if f.result() != card[codec]:
+                raise AssertionError(f"{codec}: the card's stream of read "
+                                     "(e) differs from the CPU route's")
+        long_kernels_held(pending, smi)
+    log(f"long set: the card's streams of read (e) ({e_read.size} samples) "
+        "equal the CPU route's for all 21 codecs (then waited "
+        f"{time.perf_counter() - t:.1f} s for the host's plain versions and "
+        "CPU routes)")
+    log(f"long phase launches: {dict(total)}")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1613,6 +1941,8 @@ def main(argv=None) -> int:
     for k, c in shard_phase(args.seed).items():
         results[k]["launches"] += c
     for k, c in bench_phase(smi).items():
+        results[k]["launches"] += c
+    for k, c in long_phase(args.seed, smi).items():
         results[k]["launches"] += c
     idle = [k for k, r in results.items() if r["launches"] == 0]
     if idle:

@@ -121,8 +121,72 @@ def _reduce_fit(counts, G, group):
     return packed[:-1].reshape(counts.shape), packed[-1]
 
 
+def row_slices(B: int, rows: int = None) -> list[slice]:
+    """The row slices a batch of B rows is coded in: `rows` rows each
+    (the last the rest), one slice of all B rows when rows is None or
+    at least B."""
+    step = max(1, min(rows or B, B))
+    return [slice(lo, min(lo + step, B)) for lo in range(0, B, step)] or [
+        slice(0, 0)]
+
+
+def cat_rows(parts):
+    """Per-slice outputs (tensors, or tuples of tensors) put back side by
+    side along the rows."""
+    if isinstance(parts[0], tuple):
+        return tuple(cat_rows(list(p)) for p in zip(*parts))
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _encode_grid(sig, n, emax: int, member):
+    """The count pass's work on a slice: zigzag-delta split, vbbe21
+    exception parts, lane grid, and which rows join the fit."""
+    L = sig.shape[1]
+    n = n.to(torch.int64)
+    zd0, rest = _zd_parts(sig, n)
+    parts = vbbe21_parts_batch(rest, n - 1, emax)
+    g3, ctx3, act3, S_b = _lane_grid(parts["data"], parts["data_len"],
+                                     K_SHARED, -(-L // K_SHARED))
+    include = parts["nex"] <= emax
+    if member is not None:
+        include = include & member
+    return {"zd0": zd0, "parts": parts, "g3": g3, "ctx3": ctx3,
+            "act3": act3, "S_b": S_b, "T0_b": cdiv(S_b, PREFIX_DEN),
+            "include": include}
+
+
+def _encode_counts(e):
+    """A slice's share of the fit: its prefix histogram and G."""
+    include = e["include"]
+    return (o1_prefix_hist(e["g3"], e["ctx3"],
+                           e["act3"] & include[:, None, None], e["T0_b"]),
+            ((e["S_b"] > 0) & include).sum())
+
+
+def _encode_code(e, G, tabs_canned, tabs_fit, emax: int):
+    """A slice's code pass: (f, cum) lookups against the canned and the
+    fitted table, the rANS walk, the row concat."""
+    g3, act3, S_b, T0_b = e["g3"], e["act3"], e["S_b"], e["T0_b"]
+    B, K, Smax = g3.shape
+    dev = g3.device
+    g = g3.reshape(B, -1).to(torch.int32)
+    c_ = e["ctx3"].reshape(B, -1)
+    fca = _o1_fc(g, c_, tabs_canned).reshape(B, K, Smax)
+    fcb = _o1_fc(g, c_, tabs_fit).reshape(B, K, Smax)
+    t = torch.arange(Smax, device=dev)[None, None, :]
+    fc3 = torch.where(t < T0_b[:, None, None], fca, fcb)
+    segs_body, planew = encode_from_fc(fc3, act3, S_b, K)
+
+    two = torch.full((B,), 2, device=dev)
+    segs = ([(u16le_bytes(G.expand(B)), two), (u16le_bytes(e["zd0"]), two)]
+            + e["parts"]["exsegs"] + segs_body)
+    total = (2 + 2 + 4 + (4 + 4 * emax + 1) + (4 + 2 * emax + 1) + 6
+             + (4 + 4 * K + planew))
+    return rowwise_concat(segs, total)
+
+
 def press_drans_batch(sig, n, tabs_canned, emax: int = None, member=None,
-                      group=None):
+                      group=None, rows: int = None):
     """Batched drans_vbbe21_zd encode of sig [B, L] int16 (first n[b]
     valid) -> (stream [B, W] u8, len [B] int64).
 
@@ -131,40 +195,32 @@ def press_drans_batch(sig, n, tabs_canned, emax: int = None, member=None,
     shared fit and of G (the runner re-encodes them).  `member` [B] bool
     restricts the fit and G to a sub-group; other rows still give
     (discardable) streams.  `group`, a process group, widens the coding
-    group to the rows of all its ranks (one all_reduce)."""
+    group to the rows of all its ranks (one all_reduce).  `rows` codes
+    the batch in slices of that many rows, in two passes: a count pass
+    over every slice, whose histograms and G are summed with the other
+    ranks' in the one fit, then a code pass a slice (each slice's lane
+    grid is built again there); the streams are those of one pass over
+    the whole batch."""
     B, L = sig.shape
     emax = emax or L
-    K = K_SHARED
-    dev = sig.device
-    n = n.to(torch.int64)
-    zd0, rest = _zd_parts(sig, n)
-    parts = vbbe21_parts_batch(rest, n - 1, emax)
-    Smax = -(-L // K)
-    g3, ctx3, act3, S_b = _lane_grid(parts["data"], parts["data_len"], K,
-                                     Smax)
-    T0_b = cdiv(S_b, PREFIX_DEN)
-    include = parts["nex"] <= emax
-    if member is not None:
-        include = include & member
-    counts, G = _reduce_fit(
-        o1_prefix_hist(g3, ctx3, act3 & include[:, None, None], T0_b),
-        ((S_b > 0) & include).sum(), group)
+    parts = row_slices(B, rows)
+    keep = len(parts) == 1  # one slice keeps its lane grid for the code
+
+    def grid(s):
+        return _encode_grid(sig[s], n[s], emax,
+                            None if member is None else member[s])
+
+    counts, G = 0, 0
+    for s in parts:
+        e = grid(s)
+        c, g = _encode_counts(e)
+        counts, G = counts + c, G + g
+    if not keep:
+        e = None
+    counts, G = _reduce_fit(counts, G, group)
     tabs_fit = fit_tables_device(counts)
-
-    g = g3.reshape(B, -1).to(torch.int32)
-    c_ = ctx3.reshape(B, -1)
-    fca = _o1_fc(g, c_, tabs_canned).reshape(B, K, Smax)
-    fcb = _o1_fc(g, c_, tabs_fit).reshape(B, K, Smax)
-    t = torch.arange(Smax, device=dev)[None, None, :]
-    fc3 = torch.where(t < T0_b[:, None, None], fca, fcb)
-    segs_body, planew = encode_from_fc(fc3, act3, S_b, K)
-
-    two = torch.full((B,), 2, device=dev)
-    segs = ([(u16le_bytes(G.expand(B)), two), (u16le_bytes(zd0), two)]
-            + parts["exsegs"] + segs_body)
-    total = (2 + 2 + 4 + (4 + 4 * emax + 1) + (4 + 2 * emax + 1) + 6
-             + (4 + 4 * K + planew))
-    return rowwise_concat(segs, total)
+    return cat_rows([_encode_code(e if keep else grid(s), G, tabs_canned,
+                                  tabs_fit, emax) for s in parts])
 
 
 # ---------------------------------------------------------------------------
@@ -254,8 +310,53 @@ def phase2_setup(grid1, d, tabs_fit):
     return torch.where(has, cmap[last], cmap[CTX0]).to(torch.int32)
 
 
+def _decode_phase1(stream, n, tabs_canned, L: int, emax: int, member):
+    """A slice's count pass: headers, exception blocks, phase 1 of the
+    walk (the canned prefix), which rows join the fit."""
+    B = stream.shape[0]
+    d = decode_setup(stream, n, L, emax)
+    include = d["parsed"]["nex"] <= emax
+    if member is not None:
+        include = include & member
+    d["include"] = include
+    Smax = -(-L // K_SHARED)
+    cl0 = tabs_canned["cmap"][CTX0].to(torch.int32).expand(
+        B, K_SHARED).contiguous()
+    d["grid1"], d["fst"], d["fptr"] = o1_decode(
+        stream, d["states"], d["dlen"], d["S_b"], tabs_canned["cmap"],
+        tabs_canned["cum"], -(-Smax // PREFIX_DEN),
+        torch.zeros_like(d["S_b"]), d["T0_b"], cl0, d["body_off"])
+    return d
+
+
+def _decode_counts(d):
+    """A slice's share of the fit: its prefix histogram and G."""
+    include = d["include"]
+    return (prefix_counts(d["grid1"], d, include),
+            ((d["S_b"] > 0) & include).sum())
+
+
+def _decode_phase2(stream, n, d, tabs_fit, L: int):
+    """A slice's code pass: phase 2 of the walk (the fitted suffix), the
+    grid merge, the exception fill, un-zigzag-delta."""
+    K = K_SHARED
+    Smax = -(-L // K)
+    T2 = max(Smax - -(-Smax // PREFIX_DEN), 1)  # most suffix steps a row has
+    n = n.to(torch.int64)
+    S_b, T0_b, dlen = d["S_b"], d["T0_b"], d["dlen"]
+    cl2 = phase2_setup(d["grid1"], d, tabs_fit)
+    grid2, _, _ = o1_decode(
+        stream, d["fst"], dlen, S_b, tabs_fit["cmap"], tabs_fit["cum"], T2,
+        T0_b, S_b, cl2, d["fptr"])
+    grid = _merge_grids(d["grid1"], grid2, T0_b.to(torch.int64),
+                        S_b.to(torch.int64), Smax, K)
+    data = _ungrid(grid, S_b, dlen, K, Smax, L)
+    vals = vbbe21_fill_batch(d["parsed"], data, n - 1, L)
+    return _zd_merge(d["zd0"], vals, n, L)
+
+
 def depress_drans_batch(stream, n, tabs_canned, L: int, emax: int = None,
-                        member=None, group=None):
+                        member=None, group=None, rows: int = None):
     """Batched drans_vbbe21_zd decode -> [B, L] int16.
 
     Must receive the encoder's batch grouping (the fit is batch-shared);
@@ -263,40 +364,41 @@ def depress_drans_batch(stream, n, tabs_canned, L: int, emax: int = None,
     [B] bool restricts the shared fit and the G check to a sub-group;
     `group`, a process group, widens the grouping to the rows of all its
     ranks (two all_reduces), and every rank raises when a stream of any
-    rank disagrees."""
-    B, _ = stream.shape
+    rank disagrees.  `rows` decodes the batch in slices of that many
+    rows, in two passes: phase 1 a slice, whose histograms and G are
+    summed with the other ranks' in the one fit, then phase 2 a slice.
+    Between the passes a slice keeps its phase-1 grid, states and
+    pointers and its [B] fields; its exception block is parsed again."""
+    B = stream.shape[0]
     emax = emax or L
-    K = K_SHARED
-    Smax = -(-L // K)
-    T1 = -(-Smax // PREFIX_DEN)
-    T2 = max(Smax - T1, 1)  # most suffix steps any row can have
-    n = n.to(torch.int64)
-    d = decode_setup(stream, n, L, emax)
-    parsed, S_b, T0_b, dlen = d["parsed"], d["S_b"], d["T0_b"], d["dlen"]
-    include = parsed["nex"] <= emax
-    if member is not None:
-        include = include & member
+    parts = row_slices(B, rows)
+    keep = len(parts) == 1  # one slice keeps its parse for phase 2
+    small = ("include", "g_hdr", "S_b", "T0_b", "dlen", "grid1", "fst",
+             "fptr")
 
-    zeros = torch.zeros_like(S_b)
-    cl0 = tabs_canned["cmap"][CTX0].to(torch.int32).expand(B, K).contiguous()
-    grid1, fst, fptr = o1_decode(
-        stream, d["states"], dlen, S_b, tabs_canned["cmap"],
-        tabs_canned["cum"], T1, zeros, T0_b, cl0, d["body_off"])
+    def phase1(s):
+        return _decode_phase1(stream[s], n[s], tabs_canned, L, emax,
+                              None if member is None else member[s])
 
-    counts, g_expected = _reduce_fit(prefix_counts(grid1, d, include),
-                                     ((S_b > 0) & include).sum(), group)
+    counts, G, kept = 0, 0, []
+    for s in parts:
+        d = phase1(s)
+        c, g = _decode_counts(d)
+        counts, G = counts + c, G + g
+        kept.append(d if keep else {k: d[k] for k in small})
+    d = None
+    counts, g_expected = _reduce_fit(counts, G, group)
     tabs_fit = fit_tables_device(counts)
-    cl2 = phase2_setup(grid1, d, tabs_fit)
-    grid2, _, _ = o1_decode(
-        stream, fst, dlen, S_b, tabs_fit["cmap"], tabs_fit["cum"], T2,
-        T0_b, S_b, cl2, fptr)
 
-    grid = _merge_grids(grid1, grid2, T0_b.to(torch.int64),
-                        S_b.to(torch.int64), Smax, K)
-    data = _ungrid(grid, S_b, dlen, K, Smax, L)
-    vals = vbbe21_fill_batch(parsed, data, n - 1, L)
-    out = _zd_merge(d["zd0"], vals, n, L)
-    g_ok = (S_b == 0) | ~include | (d["g_hdr"] == g_expected)
+    outs, g_ok = [], []
+    for i, s in enumerate(parts):
+        d, kept[i] = kept[i], None
+        if not keep:
+            d = decode_setup(stream[s], n[s], L, emax) | d
+        outs.append(_decode_phase2(stream[s], n[s], d, tabs_fit, L))
+        g_ok.append((d["S_b"] == 0) | ~d["include"]
+                    | (d["g_hdr"] == g_expected))
+    out, g_ok = cat_rows(outs), cat_rows(g_ok)
     if any_across([~g_ok.all()], group)[0]:
         bad = torch.nonzero(~g_ok).flatten()[:8].tolist()
         where = f"rows {bad}" if bad else "rows of another rank"

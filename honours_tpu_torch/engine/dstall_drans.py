@@ -32,8 +32,10 @@ import torch
 
 from honours_tpu_torch.engine.bits import read_u32le
 from honours_tpu_torch.engine.drans import (
+    cat_rows,
     depress_drans_batch,
     press_drans_batch,
+    row_slices,
 )
 from honours_tpu_torch.engine.dstall import (
     _assemble_split,
@@ -58,44 +60,60 @@ def _bound(L: int, width: int) -> int:
     return 13 + 2 * (L - 1) + 2 * over + 1024
 
 
-def press_dstall_drans_batch(sig, n, tabs, emax: int = None, group=None):
+def _by_rows(fn, parts, *tensors):
+    """fn over the row slices `parts` of `tensors`, its outputs side by
+    side."""
+    return cat_rows([fn(*(t[s] for t in tensors)) for s in parts])
+
+
+def press_dstall_drans_batch(sig, n, tabs, emax: int = None, group=None,
+                             rows: int = None):
     """Batched dstall_drans encode of [B, L] int16 (first n valid) ->
     (stream [B, M] u8, len [B]); `tabs` from
     pipeline.canned_o1_device_tables.  Rows with more than emax
     exceptions in a branch give invalid streams and stay out of the
     branch's fit and G; raises RuntimeError where any other row would
     emit more than the assembly's bound (on every rank of `group`, a
-    process group whose ranks' rows form the batch)."""
+    process group whose ranks' rows form the batch).  `rows` codes the
+    batch in slices of that many rows: the segmentation, the branch
+    signals and the assembly run a slice at a time, each drans encode
+    in its two passes over the slices (engine/drans.py), and every
+    decision is taken over all of them."""
     B, L = sig.shape
     emax = emax or L
-    ok, start, length = _split_batch(sig, n)
-    st_p, sl_p = press_drans_batch(sig, n, tabs, emax, group=group)
+    parts = row_slices(B, rows)
+    ok, start, length = _by_rows(_split_batch, parts, sig, n)
+    st_p, sl_p = press_drans_batch(sig, n, tabs, emax, group=group,
+                                   rows=rows)
     use = torch.zeros_like(ok)
     if any_across([ok.any()], group)[0]:
-        stall_sig, n_stall, ns_sig, n_ns = _branch_signals(sig, n, start,
-                                                           length)
+        stall_sig, n_stall, ns_sig, n_ns = _by_rows(
+            _branch_signals, parts, sig, n, start, length)
         st_s, sl_s = press_drans_batch(stall_sig, n_stall, tabs, emax,
-                                       member=ok, group=group)
+                                       member=ok, group=group, rows=rows)
         st_n, sl_n = press_drans_batch(ns_sig, n_ns, tabs, emax, member=ok,
-                                       group=group)
+                                       group=group, rows=rows)
         use = ok & (13 + sl_s + sl_n < 5 + sl_p)
         any_use, changed = any_across([use.any(), (use != ok).any()], group)
         if any_use and changed:
             st_s, sl_s = press_drans_batch(stall_sig, n_stall, tabs, emax,
-                                           member=use, group=group)
+                                           member=use, group=group,
+                                           rows=rows)
             st_n, sl_n = press_drans_batch(ns_sig, n_ns, tabs, emax,
-                                           member=use, group=group)
+                                           member=use, group=group,
+                                           rows=rows)
         if any_use:
             st_p, sl_p = press_drans_batch(sig, n, tabs, emax, member=~use,
-                                           group=group)
+                                           group=group, rows=rows)
     else:
         st_s = st_n = torch.zeros((B, 16), dtype=torch.uint8,
                                   device=sig.device)
         sl_s = sl_n = torch.zeros_like(sl_p)
     total = _bound(L, max(st_n.shape[1], st_p.shape[1]))
-    stream, slen = _assemble_split(
-        use, torch.where(use, start, 0), torch.where(use, length, 0), st_s,
-        sl_s, st_n, sl_n, st_p, sl_p, total)
+    stream, slen = _by_rows(
+        lambda *a: _assemble_split(*a, total), parts, use,
+        torch.where(use, start, 0), torch.where(use, length, 0), st_s, sl_s,
+        st_n, sl_n, st_p, sl_p)
     # each drans blob carries its exact exception count at byte 4
     four = torch.full((B,), 4, dtype=torch.int64, device=sig.device)
     capped = torch.where(
@@ -117,25 +135,37 @@ def press_dstall_drans_batch(sig, n, tabs, emax: int = None, group=None):
 
 
 def depress_dstall_drans_batch(stream, n, tabs, L: int, emax: int = None,
-                               group=None):
+                               group=None, rows: int = None):
     """Batched dstall_drans decode -> [B, L] int16 (zero past n).  Must
     receive the encoder's batch grouping (with `group`, the rows of all
     its ranks); raises ValueError when a branch blob's G header
-    disagrees with its group."""
+    disagrees with its group.  `rows` decodes in slices of that many
+    rows, each member-masked drans decode in its two passes."""
     M = stream.shape[1]
     emax = emax or L
     n = n.to(torch.int64)
+    parts = row_slices(stream.shape[0], rows)
     use, start, length, _, ns_off = _split_fields(stream)
-    d_plain = depress_drans_batch(
-        rowwise_shift_left(stream, torch.full_like(n, 5), M), n, tabs, L,
-        emax=emax, member=~use, group=group)
-    d_stall = depress_drans_batch(
-        rowwise_shift_left(stream, torch.full_like(n, 9), M),
-        length.clamp(min=1), tabs, L, emax=emax, member=use, group=group)
-    d_ns = depress_drans_batch(rowwise_shift_left(stream, ns_off, M),
-                               (n - length).clamp(min=1), tabs, L,
-                               emax=emax, member=use, group=group)
-    split = _interleave(d_stall, d_ns, n, start, length, L)
-    out = torch.where(use[:, None], split, d_plain.to(torch.int32))
-    pos = torch.arange(L, device=stream.device)[None, :]
-    return torch.where(pos < n[:, None], out, 0).to(torch.int16)
+
+    def shifted(by):
+        return _by_rows(lambda st, k: rowwise_shift_left(st, k, M), parts,
+                        stream, by)
+
+    d_plain = depress_drans_batch(shifted(torch.full_like(n, 5)), n, tabs, L,
+                                  emax=emax, member=~use, group=group,
+                                  rows=rows)
+    d_stall = depress_drans_batch(shifted(torch.full_like(n, 9)),
+                                  length.clamp(min=1), tabs, L, emax=emax,
+                                  member=use, group=group, rows=rows)
+    d_ns = depress_drans_batch(shifted(ns_off), (n - length).clamp(min=1),
+                               tabs, L, emax=emax, member=use, group=group,
+                               rows=rows)
+
+    def merge(d_stall, d_ns, d_plain, n, start, length, use):
+        split = _interleave(d_stall, d_ns, n, start, length, L)
+        out = torch.where(use[:, None], split, d_plain.to(torch.int32))
+        pos = torch.arange(L, device=stream.device)[None, :]
+        return torch.where(pos < n[:, None], out, 0).to(torch.int16)
+
+    return _by_rows(merge, parts, d_stall, d_ns, d_plain, n, start, length,
+                    use)

@@ -27,7 +27,7 @@ _DECODE = kernel("huffman_decode", "huffdec.cu", "htt_huffman_decode",
 LUT_BITS = 22
 L1_BITS = 12
 
-#: bytes the plain version's tables may take at once (about 16 a stream
+#: bytes the plain version's tables may take at once (about 32 a stream
 #: bit); rows beyond that decode in further groups of equal size
 PLAIN_TABLE_BYTES = 1 << 32
 
@@ -68,11 +68,11 @@ def huffman_decode_plain(stream, off, count, N: int, tabs):
     past the row's last byte.  got is the symbols decoded, out holds
     them and zeros to N.  Vectorised over a group of rows (as many as
     PLAIN_TABLE_BYTES allow): each row's entry at every bit position is
-    looked up first, then one gather a symbol for all rows."""
+    looked up first, then the code starts by pointer doubling."""
     B, M = stream.shape
     out = torch.zeros((B, N), dtype=torch.uint8, device=stream.device)
     got = torch.zeros((B,), dtype=torch.int32, device=stream.device)
-    rows = max(1, PLAIN_TABLE_BYTES // (16 * (8 * M + 32)))
+    rows = max(1, PLAIN_TABLE_BYTES // (32 * (8 * M + 32)))
     for lo in range(0, B, rows):
         hi = min(B, lo + rows)
         out[lo:hi], got[lo:hi] = _decode_rows(
@@ -108,13 +108,19 @@ def _decode_rows(stream, off, count, N: int, lut):
     q = torch.arange(8 * M, device=dev)[None, :]
     ent = torch.nn.functional.pad(
         torch.where(q + (ent >> 8) <= limit[:, None], ent, 0), (0, 1))
-    # the walk: a zero length stops a row where it stands
-    p = torch.zeros((B, 1), dtype=torch.int64, device=dev)
-    walk = torch.empty((B, steps), dtype=torch.int16, device=dev)
-    for i in range(steps):
-        e = ent.gather(1, p)
-        walk[:, i: i + 1] = e
-        p += e >> 8
+    # the walk: the code starts are the orbit of f(p) = p + the length
+    # of the code at p from bit 0 (a zero length stops a row where it
+    # stands), found by doubling (X the first 2^j starts, F = f^2^j)
+    F = torch.arange(ent.shape[1], device=dev)[None, :] + (
+        ent >> 8).to(torch.int64)
+    X = torch.zeros((B, 1), dtype=torch.int64, device=dev)
+    while X.shape[1] < steps:
+        X = torch.cat([X, F.gather(1, X)], dim=1)
+        if X.shape[1] < steps:
+            F = F.gather(1, F)
+    del F
+    walk = ent.gather(1, X[:, :steps])
+    del X
     stop = walk < (1 << 8)
     first = torch.where(stop.any(1), stop.to(torch.int8).argmax(1), steps)
     got = torch.minimum(first, cnt)

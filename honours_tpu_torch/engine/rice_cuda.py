@@ -32,8 +32,8 @@ def rice_decode_plain(stream, off, count, N: int):
     starts), count [B] (values to decode, clamped to [0, N]) -> [B, N]
     u8: each value the low 8 bits of (q << k) | bits, zeros past count.
     Bytes at or past M read as 0.  Vectorised over a group of rows (as
-    many as PLAIN_TABLE_BYTES allow): one step of every row's walk per
-    value, from tables of each row's bits."""
+    many as PLAIN_TABLE_BYTES allow): tables of each row's bits, then
+    every row's code starts by pointer doubling."""
     B, M = stream.shape
     out = torch.zeros((B, N), dtype=torch.uint8, device=stream.device)
     groups = -(-B // max(1, PLAIN_TABLE_BYTES // (32 * (8 * M + 64))))
@@ -76,13 +76,25 @@ def _decode_rows(stream, off, count, N: int):
         bj = torch.nn.functional.pad(bits[:, j:], (0, j)).to(torch.int32)
         vk |= torch.where(j < k32, bj << (k32 - 1 - j).clamp(min=0), 0)
     del bits
-    p = torch.full((B,), 3, dtype=torch.int64, device=dev)
     last = 8 * M + 32  # any position from 8 * M on reads zeros alike
-    for i in range(steps):
-        t = next_zero.gather(1, p[:, None])[:, 0].to(torch.int64)
-        v = ((t - p) << k) | vk.gather(1, (t + 1)[:, None])[:, 0]
-        out[:, i] = torch.where(i < cnt, v & 0xFF, 0).to(torch.uint8)
-        p = (t + 1 + k).clamp(max=last)
+    # a code starting at p ends at its zero bit t = next_zero[p], and the
+    # next starts at f(p) = t + 1 + k: the code starts are the orbit of
+    # f from bit 3, found by doubling (X the first 2^j starts, F = f^2^j)
+    nz = next_zero.to(torch.int64)
+    del next_zero
+    F = (nz + 1 + k[:, None]).clamp(max=last)
+    X = torch.full((B, 1), 3, dtype=torch.int64, device=dev)
+    while X.shape[1] < steps:
+        X = torch.cat([X, F.gather(1, X)], dim=1)
+        if X.shape[1] < steps:
+            F = F.gather(1, F)
+    del F
+    X = X[:, :steps]
+    t = nz.gather(1, X)
+    v = ((t - X) << k[:, None]) | vk.gather(1, t + 1)
+    i = torch.arange(steps, device=dev)[None, :]
+    out[:, :steps] = torch.where(i < cnt[:, None], v & 0xFF, 0).to(
+        torch.uint8)
     return out
 
 

@@ -35,10 +35,20 @@ bytes are the host codec's):
   bytes); svb streams have no exception cap;
 - drans and dstall_drans decode rows whose (largest branch) G header is
   <= 1 (streams written per read).
+
+A bucket whose working set would not fit the device is coded in row
+slices (press_bucket, depress_bucket), and stays the coding group: the
+slice size follows from the bucket's L, the codec's bytes a slot
+(BYTES_A_SLOT, measured on the card) and the device's memory.  A
+per-read codec codes its slices one after another; drans and
+dstall_drans take the slice size into their engines, which fit one
+table over all the slices (engine/drans.py), so the streams are those
+of the unsliced bucket.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 
 import numpy as np
@@ -48,6 +58,7 @@ from honours_tpu_torch.device import resolve_device
 from honours_tpu_torch.engine.drans import (
     depress_drans_batch,
     press_drans_batch,
+    row_slices,
 )
 from honours_tpu_torch.engine.dstall import (
     depress_dstall_batch,
@@ -140,6 +151,46 @@ _CAPPED = {
 }
 
 
+#: the kinds whose bucket is one coding group: one table fitted over all
+#: its rows, so their engines take the slice size themselves
+_GROUPED = ("drans", "dstall_drans")
+
+#: bytes of device memory a bucket slot (one sample of one row) takes at
+#: the peak of the codec's press or depress, the larger of the two: an
+#: unsliced [16, 2^20] bucket of synthetic reads on an NVIDIA H100 80GB
+#: HBM3 (700 W), rounded up (tools/bytes_a_slot.py); flat in B and L
+#: (tools/long_reads_probe.py).
+BYTES_A_SLOT = {
+    "drans_vbbe21_zd": 64, "srans_vbbe21_zd": 61, "srans2_vbbe21_zd": 61,
+    "srans3_vbbe21_zd": 61, "shuffman_vbbe21_zd": 182, "svb12_zd": 5,
+    "svb12": 5, "vb1e2_zd": 59, "vbe21_zd": 61, "vbbe21_zd": 61,
+    "vbsbe21_zd": 61, "vbsse21_zd": 61, "svb_zd": 84, "svb0124_zd": 84,
+    "hasgam_vbsse21_zdq": 74, "rice_vbe21_zd": 196, "rice_vbbe21_zd": 196,
+    "rice_vbsbe21_zd": 196, "rice_vbsse21_zd": 196, "dstall_srans2": 63,
+    "dstall_drans": 73,
+}
+#: the share of the device's memory one slice's working set may take;
+#: the rest holds what a bucket keeps on the device whole (for drans and
+#: dstall_drans its signal, branch signals and streams) and the
+#: allocator's slack
+SLICE_SHARE = 1 / 3
+
+
+def device_memory(dev: torch.device) -> int:
+    """Bytes of memory of a device: the card's, or the host's RAM."""
+    if dev.type == "cuda":
+        return torch.cuda.get_device_properties(dev).total_memory
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+
+
+def slice_rows(codec_name: str, L: int, dev: torch.device) -> int:
+    """Rows a slice of an L-wide bucket of `codec_name` holds on `dev`:
+    as many as keep one slice's working set within SLICE_SHARE of the
+    device's memory, at least one."""
+    need = BYTES_A_SLOT[codec_name] * L
+    return max(1, int(SLICE_SHARE * device_memory(dev)) // need)
+
+
 def engine_kind(codec_name: str) -> str:
     """The engine kind of an engine codec; NotImplementedError for any
     other name."""
@@ -157,9 +208,18 @@ def engine_codec_names() -> list[str]:
 
 def batch_engine(codec_name: str, dev):
     """(press(sig, n, emax) -> (stream, len), depress(buf, n, L, emax) ->
-    [B, L] int16): the batched engine of a codec on device `dev`."""
+    [B, L] int16): the batched engine of a codec on device `dev`.  The
+    engines of drans and dstall_drans also take `rows`, the slice size
+    they code the batch in."""
     kind = engine_kind(codec_name)
     family, _, sub = kind.partition(":")
+    if kind in _GROUPED:
+        tables, press, depress = _CAPPED[kind]
+        tabs = tables(dev)
+        return (lambda sig, n, emax, rows=None: press(sig, n, tabs, emax,
+                                                      rows=rows),
+                lambda buf, n, L, emax, rows=None: depress(
+                    buf, n, tabs, L, emax=emax, rows=rows))
     if kind in _CAPPED:
         tables, press, depress = _CAPPED[kind]
         tabs = tables(dev)
@@ -268,60 +328,101 @@ def press_read(signal, codec_name: str = "drans_vbbe21_zd",
     return _press_one(press, sig, b.L, dev)
 
 
-def press_signals(signals, codec_name: str = "drans_vbbe21_zd",
-                  max_b: int = 256, device="cuda"):
-    """Compress int16 reads -> list[bytes] in original order."""
+def press_bucket(sig: np.ndarray, n: np.ndarray, codec_name: str,
+                 device="cuda", rows: int = None) -> list[bytes]:
+    """Compress one bucket, sig [B, L] int16 (first n[b] valid), -> each
+    row's stream.  The bucket is coded in slices of `rows` rows
+    (slice_rows by default); the streams do not depend on it."""
     kind = engine_kind(codec_name)
     dev = resolve_device(device)
     press, _ = batch_engine(codec_name, dev)
-    buckets = bucket_reads(signals, max_b=max_b)
-    outs = []
-    for b in buckets:
-        emax = _emax(b.L)
-        st, sl = press(torch.from_numpy(b.sig).to(dev),
-                       torch.from_numpy(b.n).to(dev), emax)
+    B, L = sig.shape
+    emax = _emax(L)
+    rows = rows or slice_rows(codec_name, L, dev)
+
+    def on(a):
+        return torch.from_numpy(a).to(dev)
+
+    if kind in _GROUPED:
+        parts = [(slice(0, B), press(on(sig), on(n), emax, rows))]
+    else:
+        parts = [(s, press(on(sig[s]), on(n[s]), emax))
+                 for s in row_slices(B, rows)]
+    out = []
+    for s, (st, sl) in parts:
         st, sl = st.cpu().numpy(), sl.cpu().numpy()
-        rows = []
-        for i in range(len(b.indices)):
+        for i, j in enumerate(range(s.start, s.stop)):
             blob = st[i, : sl[i]].tobytes()
             if _nex_overflowed(blob, kind, emax):
-                blob = _press_one(press, b.sig[i, : b.n[i]], b.L, dev)
-            rows.append(blob)
-        outs.append(rows)
-    return restore_order(buckets, outs)
+                blob = _press_one(press, sig[j, : n[j]], L, dev)
+            out.append(blob)
+    return out
+
+
+def depress_bucket(streams, n: np.ndarray, L: int, codec_name: str,
+                   device="cuda", rows: int = None) -> list[np.ndarray]:
+    """Decode one bucket's streams (the rows of one press_bucket, from
+    either package) -> each row's int16 signal.  Decodes in slices of
+    `rows` rows (slice_rows by default); the output does not depend on
+    it."""
+    kind = engine_kind(codec_name)
+    dev = resolve_device(device)
+    _, depress = batch_engine(codec_name, dev)
+    B = len(streams)
+    emax = _emax(L)
+    rows = rows or slice_rows(codec_name, L, dev)
+    alone = {j for j, blob in enumerate(streams)
+             if _nex_overflowed(blob, kind, emax) or _per_read(blob, kind)}
+
+    def buf_of(s):
+        # rows decoded alone stay zero here: a zero row parses as an
+        # empty stream, so the group keeps the encoder's membership
+        W = max(128, -(-max(len(streams[j]) for j in range(s.start, s.stop))
+                     // 128) * 128)
+        buf = np.zeros((s.stop - s.start, W), np.uint8)
+        for i, j in enumerate(range(s.start, s.stop)):
+            if j not in alone:
+                buf[i, : len(streams[j])] = np.frombuffer(streams[j],
+                                                          np.uint8)
+        return torch.from_numpy(buf).to(dev)
+
+    def n_of(s):
+        return torch.from_numpy(n[s]).to(dev)
+
+    dec = [None] * B
+    if kind in _GROUPED:
+        parts = [slice(0, B)] if len(alone) < B else []
+        outs = [depress(buf_of(s), n_of(s), L, emax, rows) for s in parts]
+    else:
+        parts = [s for s in row_slices(B, rows)
+                 if any(j not in alone for j in range(s.start, s.stop))]
+        outs = [depress(buf_of(s), n_of(s), L, emax) for s in parts]
+    for s, out in zip(parts, outs):
+        out = out.cpu().numpy()
+        for i, j in enumerate(range(s.start, s.stop)):
+            if j not in alone:
+                dec[j] = out[i, : n[j]]
+    for j in alone:
+        dec[j] = _depress_one(depress, streams[j], int(n[j]), L, dev)
+    return dec
+
+
+def press_signals(signals, codec_name: str = "drans_vbbe21_zd",
+                  max_b: int = 256, device="cuda"):
+    """Compress int16 reads -> list[bytes] in original order."""
+    engine_kind(codec_name)
+    buckets = bucket_reads(signals, max_b=max_b)
+    return restore_order(buckets, [
+        press_bucket(b.sig, b.n, codec_name, device) for b in buckets])
 
 
 def depress_signals(streams, lengths, codec_name: str = "drans_vbbe21_zd",
                     max_b: int = 256, device="cuda"):
     """Decode per-read streams (from either package) -> int16 arrays in
     original order.  The bucketing must match the encoder's max_b."""
-    kind = engine_kind(codec_name)
-    dev = resolve_device(device)
-    _, depress = batch_engine(codec_name, dev)
+    engine_kind(codec_name)
     buckets = bucket_reads([np.zeros(int(m), np.int16) for m in lengths],
                            max_b=max_b)
-    outs = []
-    for b in buckets:
-        emax = _emax(b.L)
-        rows = [streams[i] for i in b.indices]
-        alone = {j for j, blob in enumerate(rows)
-                 if _nex_overflowed(blob, kind, emax) or _per_read(blob, kind)}
-        dec = [None] * len(rows)
-        if len(alone) < len(rows):
-            # rows decoded alone stay zero here: a zero row parses as an
-            # empty stream, so the group keeps the encoder's membership
-            W = max(128, -(-max(len(r) for r in rows) // 128) * 128)
-            buf = np.zeros((len(rows), W), np.uint8)
-            for j, blob in enumerate(rows):
-                if j not in alone:
-                    buf[j, : len(blob)] = np.frombuffer(blob, np.uint8)
-            out = depress(torch.from_numpy(buf).to(dev),
-                          torch.from_numpy(b.n).to(dev), b.L, emax)
-            out = out.cpu().numpy()
-            for j in range(len(rows)):
-                if j not in alone:
-                    dec[j] = out[j, : b.n[j]]
-        for j in alone:
-            dec[j] = _depress_one(depress, rows[j], int(b.n[j]), b.L, dev)
-        outs.append(dec)
-    return restore_order(buckets, outs)
+    return restore_order(buckets, [
+        depress_bucket([streams[i] for i in b.indices], b.n, b.L,
+                       codec_name, device) for b in buckets])

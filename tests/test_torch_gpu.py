@@ -1481,3 +1481,91 @@ def test_bench_section_on_card_has_cpu_lengths(bench_runs, name):
     """Each section's stream lengths on the card are the CPU route's."""
     card, cpu = bench_runs[0][1], bench_runs[1][1]
     assert card.lengths[name] == cpu.lengths[name]
+
+
+# ---------------------------------------------------------------------------
+# reads longer than 262,144 samples (chip_smoke.py phase 9's functions)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def smoke(cuda):
+    """chip_smoke.py, loaded by its path (the repo root is no package)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+#: (rows, bucket width, samples a read): two reads of 2^20 + 3 samples in
+#: their bucket, and one read filling L = 2^22
+LONG_ROWS = {"2 x (2^20 + 3) in [2, 2^21]": (2, 1 << 21, (1 << 20) + 3),
+             "[1, 2^22]": (1, 1 << 22, 1 << 22)}
+
+
+@pytest.mark.parametrize("shape", list(LONG_ROWS))
+def test_kernels_match_plain_at_long_rows(smoke, shape):
+    """Every kernel on long rows, with the inputs the main paths give it
+    (chip_smoke.row_cases: kernel 1's entries, o1_fc, the walks, svb16
+    zd on and off, o1n_fc, find_stall, rice_decode, huffman_decode),
+    equal to its plain version.  The walks' plain versions (a Python
+    loop pass a step) run on copies of their inputs on the host."""
+    from honours_tpu_torch.synth import synthesize_corpus
+
+    B, L, m = LONG_ROWS[shape]
+    reads = [synthesize_corpus(m, seed=20 + i) for i in range(B)]
+    sig, n = smoke.rows_on_card(reads, L)
+    names = set()
+    for name, kern, plain, *_ in smoke.row_cases(sig, n):
+        if isinstance(plain, smoke.Call):
+            plain = plain.on_cpu()
+        got = smoke.to_cpu(smoke.flatten(kern()))
+        want = smoke.to_cpu(smoke.flatten(plain()))
+        assert smoke.max_abs_err(got, want) == 0, name
+        names.add(name.split()[0])
+    assert names == set(smoke.REPLACES)
+
+
+@pytest.fixture(scope="module")
+def long_set(smoke):
+    parts = smoke.long_set(0)
+    return parts, [r for k in "abcde" for r in parts[k]]
+
+
+#: the 21 engine codecs (engine/runner.py ENGINE_CODECS)
+ENGINE_21 = sorted([
+    "drans_vbbe21_zd", "srans_vbbe21_zd", "srans2_vbbe21_zd",
+    "srans3_vbbe21_zd", "shuffman_vbbe21_zd", "svb12_zd", "svb12",
+    "vb1e2_zd", "vbe21_zd", "vbbe21_zd", "vbsbe21_zd", "vbsse21_zd",
+    "svb_zd", "svb0124_zd", "hasgam_vbsse21_zdq", "rice_vbe21_zd",
+    "rice_vbbe21_zd", "rice_vbsbe21_zd", "rice_vbsse21_zd", "dstall_srans2",
+    "dstall_drans"])
+
+
+@pytest.mark.parametrize("codec", ENGINE_21)
+def test_long_set_round_trips(smoke, long_set, codec):
+    """The long-read set (a full bucket at L = 2^20, 8 reads at 2^21, one
+    at 2^22, an overflow read on the one-row path, one of 262,145
+    samples) through the runner on the card: every read back bit for
+    bit, the path's kernels launched (chip_smoke.long_path); the card's
+    stream of the 262,145-sample read equals the CPU route's."""
+    from honours_tpu_torch.engine.runner import press_signals
+
+    parts, reads = long_set
+    _, streams = smoke.long_path(codec, reads, smoke.nvidia_smi())
+    (e,) = parts["e"]
+    assert streams[-1] == press_signals([e], codec, device="cpu")[0]
+
+
+@pytest.mark.parametrize("codec", ["rice_vbbe21_zd", "shuffman_vbbe21_zd",
+                                   "drans_vbbe21_zd", "dstall_drans"])
+def test_full_bucket_in_slices(smoke, long_set, codec):
+    """A full [256, 2^21] bucket in more than one slice round-trips, and
+    on the [256, 2^20] bucket, which fits unsliced, streams in slices of
+    that size equal the unsliced ones (chip_smoke.full_bucket)."""
+    assert codec in smoke.FULL_BUCKET
+    smoke.full_bucket(codec, long_set[0]["a"], smoke.nvidia_smi())

@@ -1,0 +1,77 @@
+"""Device memory a bucket slot takes, for each engine codec, on the card.
+
+    python tools/bytes_a_slot.py [--B 16] [--L 1048576] [codec ...]
+
+For each codec (all 21 by default) presses and depresses one unsliced
+bucket of B synthetic reads (lengths uniform in (L/2, L], synth.py,
+seed 0) through engine.runner.press_bucket / depress_bucket with
+rows = B, and prints one JSON line: the peak of
+torch.cuda.max_memory_allocated() above what was allocated before, for
+the press and for the depress, and each over the bucket's B * L slots.
+engine.runner.BYTES_A_SLOT holds the larger of the two, rounded up.
+The last line is the card's name and power limit (nvidia-smi).  Needs a
+CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+
+def measure(codec: str, sig: np.ndarray, n: np.ndarray) -> dict:
+    from honours_tpu_torch.engine.runner import depress_bucket, press_bucket
+
+    B, L = sig.shape
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    streams = press_bucket(sig, n, codec, rows=B)
+    torch.cuda.synchronize()
+    enc = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    out = depress_bucket(streams, n, L, codec, rows=B)
+    torch.cuda.synchronize()
+    dec = torch.cuda.max_memory_allocated() - base
+    if not all(np.array_equal(out[j], sig[j, : n[j]]) for j in range(B)):
+        raise AssertionError(f"{codec}: a read did not round-trip")
+    slots = B * L
+    return {"codec": codec, "B": B, "L": L, "peak_press": enc,
+            "peak_depress": dec, "press_bytes_a_slot": enc / slots,
+            "depress_bytes_a_slot": dec / slots,
+            "bytes_a_slot": math.ceil(max(enc, dec) / slots)}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("codecs", nargs="*")
+    ap.add_argument("--B", type=int, default=16)
+    ap.add_argument("--L", type=int, default=1 << 20)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("bytes_a_slot: CUDA is not available", file=sys.stderr)
+        return 2
+    from honours_tpu_torch.engine.runner import engine_codec_names
+    from honours_tpu_torch.synth import synthesize_bucket
+
+    sig, n = synthesize_bucket(args.B, args.L, seed=0)
+    for codec in args.codecs or engine_codec_names():
+        print(json.dumps(measure(codec, sig, n)), flush=True)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    print(smi.stdout.strip() or smi.stderr.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
