@@ -125,7 +125,26 @@
    [256, 2^20] bucket, which fits unsliced, streams in slices of that
    size must equal the unsliced ones, and both decodes give the reads
    back (encode and decode times of both logged).
-10. Prints one {"kernels": [...]} line, then {"ok": true, "device": ...}.
+10. The range-coder codecs (engine.runner.RC_CODECS) and their kernels D
+   (rc_encode) and E (rc_decode), which replace the host's C coder.
+   Before phase 3: D and E held against their plain versions at
+   [16, 4096] for each byte model (o0, o1, cm) on edge rows (empty, one
+   byte, 255s, zeros, a ramp, random and residual-like bytes, rc_rows),
+   also after timed graph replays and in one-row calls, the plain
+   versions on the host in 2 worker processes beside phases 3-9; and D
+   and E timed at the main path's [256, 65536] (rccm_vbbe21_zd's
+   residual bytes of the bucket) for each model beside their bound and
+   chain floor (RC_STEP_CYCLES), every row decoded back.  After phase 9:
+   rccm_vbbe21_zd and dstall_fz over all ~1,028 reads, the other 23
+   codecs over the four edge reads and the 60 shortest reads, and
+   rccm_svbbe21_zd and dstall_fz over the stall set, each with every
+   launch count at 0 just before (every read back, D and E launched,
+   kernel A for the stall codecs; ratio, rates and split rows logged);
+   a BLOW5 through the CLI with the two headline codecs; the card's
+   streams of four reads (rc_check_reads, a stall read among them)
+   equal to the CPU route's for all 25.
+11. Prints one {"kernels": [...]} line (D and E with cm at [16, 4096]),
+   then {"ok": true, "device": ...}.
 
 `--kernels-only` stops after step 2 and prints no result line: it times
 the kernels of whichever honours_tpu_torch is imported, e.g. an older
@@ -1902,6 +1921,343 @@ def long_phase(seed: int, smi: str) -> dict:
     return total
 
 
+#: phase 10: the range-coder codecs (runner.RC_CODECS) and their kernels
+#: D and E, which replace the host's C coder (no TPU kernel)
+RC_REPLACES = {"rc_encode": "honours_tpu/native/rangecoder.c:488",
+               "rc_decode": "honours_tpu/native/rangecoder.c:512"}
+#: the two codecs phase 10 runs over every main-path read (the
+#: reference's best general-purpose method and its best ratio)
+RC_HEADLINE = ("rccm_vbbe21_zd", "dstall_fz")
+#: a step's dependent cycles in the chain-floor model of kernels D and E:
+#: o0 / o1 an L1 read of the probability, the bound's multiply and the
+#: compare; cm three levels of table reads in device memory at L1 latency
+#: (the counters, order-2 cell and weights together, then apm1, then
+#: apm2), four shared-memory lookups and the mixer's integer chain
+RC_STEP_CYCLES = {"o0": 40, "o1": 40, "cm": 3 * 33 + 4 * 30 + 60}
+#: integer operations a coded bit, for the operations bound
+RC_STEP_OPS = {"o0": 12, "o1": 12, "cm": 120}
+
+
+def rc_rows(seed: int, B: int = 16, N: int = 4096):
+    """[B, N] bytes and counts of phase 10's small kernel check: an empty
+    row, one byte 0 and one 255, full rows of 255, of 0, a ramp, random
+    bytes, short random rows, residual-like (geometric) rows of every
+    length."""
+    rng = np.random.default_rng(seed + 10)
+    rows = [np.zeros(0, np.uint8), np.array([0], np.uint8),
+            np.array([255], np.uint8), np.full(N, 255, np.uint8),
+            np.zeros(N, np.uint8), (np.arange(N) % 256).astype(np.uint8),
+            rng.integers(0, 256, N).astype(np.uint8),
+            rng.integers(0, 256, 777).astype(np.uint8)]
+    rows = rows[:B]
+    while len(rows) < B:
+        m = int(rng.integers(1, N + 1))
+        p = float(rng.uniform(0.05, 0.6))
+        rows.append(np.minimum(rng.geometric(p, m), 255).astype(np.uint8))
+    data = np.zeros((B, N), np.uint8)
+    for i, r in enumerate(rows):
+        data[i, : r.size] = r
+    return data, np.array([r.size for r in rows], np.int32)
+
+
+def rc_plain(model: str, data, n, stream):
+    """Kernels D's and E's plain versions on the host, in a worker
+    process on one intra-op thread: the encode of (data, n) and the
+    decode of `stream` (the kernel's), each with its milliseconds."""
+    from honours_tpu_torch.engine import rangecoder as R
+
+    torch.set_num_threads(1)
+    t = time.perf_counter()
+    enc = R.rc_encode_plain(data, n, model)
+    t1 = time.perf_counter()
+    dec = R.rc_decode_plain(stream, torch.zeros_like(n), n, data.shape[1],
+                            model)
+    t2 = time.perf_counter()
+    return enc, (t1 - t) * 1e3, dec, (t2 - t1) * 1e3
+
+
+def rc_bound(nsum: int, slen: int, rows: int, model: str):
+    """(bound ms, "bytes" or "operations") of coding nsum bytes into slen
+    stream bytes: the bytes read once and written once (and 8 a row of
+    counts), 8 coded bits a byte at RC_STEP_OPS."""
+    t_bytes = (nsum + slen + 8 * rows) / HBM_BYTES_PER_S * 1e3
+    t_ops = 8 * nsum * RC_STEP_OPS[model] / INT_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def rc_floor_ms(longest: int, model: str) -> float:
+    """The chain-floor model: the longest row's 8 steps a byte at
+    RC_STEP_CYCLES."""
+    return 8 * longest * RC_STEP_CYCLES[model] / SM_HZ * 1e3
+
+
+def rc_kernels_start(seed: int, pool, smi: str):
+    """Phase 10's kernel half, started before phase 3 so that the plain
+    versions run on the host beside the other phases.  At [16, 4096]
+    (rc_rows) for each model: kernels D and E, their outputs after timed
+    graph replays, one-row calls (a row alone, twice: each call starts
+    its model afresh); the plain versions submitted to `pool`.  At the
+    main path's [256, 65536] (rccm_vbbe21_zd's residual bytes of the
+    bucket): D and E timed for each model (CUDA events around 2 calls),
+    the decode giving every row back, beside the bound and the chain
+    floor (the plain versions, a Python loop pass a coded bit, would take
+    minutes there).  Returns the pending checks for rc_kernels_held."""
+    from honours_tpu_torch.engine import rangecoder_cuda as RC
+    from honours_tpu_torch.engine.rangecoder import MODELS
+    from honours_tpu_torch.engine.rc import vb_zd_parts
+
+    data, n = rc_rows(seed)
+    d, nc = torch.from_numpy(data).cuda(), torch.from_numpy(n).cuda()
+    B, N = data.shape
+    zero = torch.zeros_like(nc)
+    pending = []
+    for model in MODELS:
+        def enc(m=model):
+            return RC.rc_encode_launch(d, nc, m)
+        out, length = enc()
+        if int((length < 0).sum()):
+            raise AssertionError(f"rc_encode {model}: a stream passed its cap")
+
+        def dec(m=model, s=out):
+            return RC.rc_decode(s, zero, nc, N, m)
+        back = dec()
+        e_ms, e_rep = graph_ms(enc, 3)
+        d_ms, d_rep = graph_ms(dec, 3)
+        e_call, d_call = cuda_ms(enc, 3), cuda_ms(dec, 3)
+        alone = [RC.rc_encode_launch(d[6:7].contiguous(), nc[6:7], model)
+                 for _ in range(2)]
+        future = pool.submit(rc_plain, model, torch.from_numpy(data),
+                             torch.from_numpy(n), out.cpu())
+        pending.append((model, to_cpu((out, length)), to_cpu(e_rep),
+                        to_cpu(back), to_cpu(d_rep), to_cpu(alone), e_ms,
+                        d_ms, e_call, d_call, int(length.sum()), future))
+    if not all(torch.equal(p[3], torch.from_numpy(data)) for p in pending):
+        raise AssertionError("rc_decode: [16, 4096] rows not given back")
+
+    sig, sn = make_bucket(seed)
+    _, _, bdata, blen = vb_zd_parts(sig, sn, "vbbe21", sig.shape[1])
+    bdata, blen = bdata.contiguous(), blen.to(torch.int32).contiguous()
+    Bb, Nb = bdata.shape
+    nsum, longest = int(blen.sum()), int(blen.max())
+    bzero = torch.zeros_like(blen)
+    for model in MODELS:
+        out, length = RC.rc_encode(bdata, blen, model)
+        e_ms = cuda_ms(lambda: RC.rc_encode_launch(bdata, blen, model), 2)
+        back = RC.rc_decode(out, bzero, blen, Nb, model)
+        d_ms = cuda_ms(lambda: RC.rc_decode(out, bzero, blen, Nb, model), 2)
+        if not torch.equal(back, bdata):
+            raise AssertionError(f"rc_decode {model} [{Bb}, {Nb}]: rows not "
+                                 "given back")
+        slen = int(length.sum())
+        bound, by = rc_bound(nsum, slen, Bb, model)
+        floor = rc_floor_ms(longest, model)
+        for name, ms in (("rc_encode", e_ms), ("rc_decode", d_ms)):
+            log(f"kernel {name} {model} [{Bb}, {Nb}] (rccm_vbbe21_zd's "
+                f"residual bytes of the bucket, {nsum} bytes, longest row "
+                f"{longest}, {slen} stream bytes; {smi}): {ms:.3f} ms on the "
+                f"card, bound {bound:.4f} ms ({by}), chain floor "
+                f"{floor:.3f} ms ({RC_STEP_CYCLES[model]} cycles a step), "
+                f"{ms / floor:.2f}x the floor, "
+                f"{ms * 1e6 / (8 * longest) * SM_HZ / 1e9:.0f} cycles a "
+                "step")
+    return pending
+
+
+def rc_kernels_held(pending, smi: str) -> dict:
+    """The [16, 4096] outputs of D and E against their plain versions from
+    the host (tolerance 0), also after the timed graph's replays and for
+    the one-row calls; logs each; returns (ms, ms a call, plain ms, max
+    abs err, stream bytes) of rc_encode and rc_decode for cm."""
+    records = {}
+    for (model, got_e, rep_e, got_d, rep_d, alone, e_ms, d_ms, e_call,
+         d_call, slen, future) in pending:
+        want_e, plain_e, want_d, plain_d = future.result()
+        err_e = max(max_abs_err(got_e, want_e), max_abs_err(rep_e, want_e))
+        for out, length in alone:  # row 6 alone
+            err_e = max(err_e, max_abs_err((out[0], length[0]),
+                                           (want_e[0][6], want_e[1][6])))
+        err_d = max(max_abs_err(got_d, want_d), max_abs_err(rep_d, want_d))
+        if err_e or err_d:
+            raise AssertionError(f"rc {model} [16, 4096]: kernel differs "
+                                 f"from its plain version (encode err "
+                                 f"{err_e}, decode err {err_d})")
+        for name, ms, call, plain, err in (
+                ("rc_encode", e_ms, e_call, plain_e, err_e),
+                ("rc_decode", d_ms, d_call, plain_d, err_d)):
+            log(f"kernel {name} {model} [16, 4096] ({smi}): equal to plain "
+                f"(max abs err {err}, also after the replays and alone in "
+                f"a one-row call, twice); {ms:.4f} ms on the card "
+                f"({call:.4f} ms a call from the host) vs plain "
+                f"{plain:.1f} ms on the host (one thread of a worker "
+                "process)")
+            if model == "cm":
+                records[name] = (ms, call, plain, err, slen)
+    return records
+
+
+def rc_records(records, data_n) -> dict:
+    """The kernels line's entries of D and E (cm at [16, 4096])."""
+    out = {}
+    nsum = int(np.asarray(data_n).sum())
+    longest = int(np.asarray(data_n).max())
+    for name, (ms, call, plain, err, slen) in records.items():
+        bound, by = rc_bound(nsum, slen, len(data_n), "cm")
+        out[name] = {
+            "name": name, "route": "cuda",
+            "source": "honours_tpu_torch/csrc/rangecoder.cu",
+            "replaces": RC_REPLACES[name], "launches": 0,
+            "max_abs_err": err, "matches_plain": True, "ms": ms,
+            "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": None, "call_ms": call,
+            "shape": "[16, 4096] cm", "chain_floor_ms": rc_floor_ms(
+                longest, "cm")}
+    return out
+
+
+def cpu_rc_press(reads, codec: str) -> list:
+    """The CPU route's streams of `reads`, in a worker process on one
+    intra-op thread."""
+    from honours_tpu_torch.engine.runner import press_signals
+
+    torch.set_num_threads(1)
+    return press_signals(reads, codec, device="cpu")
+
+
+def rc_check_reads(seed: int, reads) -> list:
+    """The reads whose card streams phase 10 holds to the CPU route's for
+    every range-coder codec: the 1- and 7-sample edge reads, 1,000
+    samples of a main-path read, and a 1,000-sample read with a flat
+    stall of 400 inside its in-band range (which the stall codecs
+    split)."""
+    rng = np.random.default_rng(seed + 11)
+    stall = np.concatenate([rng.integers(200, 1000, 300),
+                            600 + rng.integers(-4, 5, 400),
+                            rng.integers(200, 1000, 300)]).astype(np.int16)
+    return [reads[-4], reads[-3], reads[0][:1000].copy(), stall]
+
+
+def rc_path(codec: str, reads, smi: str) -> dict:
+    """Press and depress `reads` through the runner on the card, every
+    launch count at 0 just before; every read back bit for bit and D and
+    E launched (and kernel A for the stall codecs).  Logs the ratio, the
+    rates and, for the stall codecs, the split rows.  Returns the
+    launches."""
+    from honours_tpu_torch._build import KERNELS
+    from honours_tpu_torch.engine.runner import (
+        depress_signals,
+        press_signals,
+    )
+
+    lens = [r.size for r in reads]
+    raw = 2 * sum(lens)
+    for k in KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    streams = press_signals(reads, codec)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = depress_signals(streams, lens, codec)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    bad = [i for i, (a, b) in enumerate(zip(reads, out))
+           if not np.array_equal(a, b)]
+    if bad:
+        raise AssertionError(f"{codec}: reads {bad[:8]} did not round-trip")
+    want = {"rc_encode", "rc_decode"}
+    if "stall" in codec:
+        want.add("find_stall")
+    idle = sorted(k for k in want if launches[k] == 0)
+    if idle:
+        raise AssertionError(f"{codec}: kernels not launched: {idle}")
+    split = (f", split rows {split_rows(streams)}" if "stall" in codec
+             else "")
+    log(f"rc {codec}: all {len(reads)} reads round-trip bit for bit; ratio "
+        f"{raw / sum(map(len, streams)):.6f}; encode {t1 - t0:.3f} s "
+        f"{raw / (t1 - t0) / 1e6:.1f} MB/s, decode {t2 - t1:.3f} s "
+        f"{raw / (t2 - t1) / 1e6:.1f} MB/s{split} ({smi}); launches "
+        f"rc_encode {launches['rc_encode']}, rc_decode "
+        f"{launches['rc_decode']}")
+    return launches
+
+
+def rc_cli(reads, smi: str) -> dict:
+    """A BLOW5 of the CLI phases' 68 reads pressed and depressed through
+    the port's CLI on the card with rccm_vbbe21_zd and dstall_fz; every
+    signal back.  Returns the launches."""
+    import collections
+
+    from honours_tpu_torch import cli
+    from honours_tpu_torch._build import KERNELS
+    from honours_tpu_torch.io import blow5
+
+    total = collections.Counter()
+    with build_tmp() as tmp:
+        src = Path(tmp) / "src.blow5"
+        sel = cli_file(reads, src)
+        for codec in RC_HEADLINE:
+            for k in KERNELS.values():
+                k.launches = 0
+            pressed = Path(tmp) / f"{codec}.blow5"
+            back = Path(tmp) / f"{codec}.depressed.blow5"
+            t0 = time.perf_counter()
+            if cli.main(["press", str(src), str(pressed), "--codec",
+                         codec]) != 0:
+                raise AssertionError(f"cli press {codec} failed")
+            t1 = time.perf_counter()
+            if cli.main(["depress", str(pressed), str(back)]) != 0:
+                raise AssertionError(f"cli depress {codec} failed")
+            t2 = time.perf_counter()
+            got = blow5.read_blow5(str(back)).reads
+            if len(got) != len(sel) or not all(
+                    np.array_equal(r.signal, s) for r, s in zip(got, sel)):
+                raise AssertionError(f"cli {codec}: signals differ after "
+                                     "press and depress")
+            total.update({name: k.launches for name, k in KERNELS.items()})
+            log(f"rc cli {codec}: press {pressed.stat().st_size} B in "
+                f"{t1 - t0:.3f} s, depress {back.stat().st_size} B in "
+                f"{t2 - t1:.3f} s, every one of {len(sel)} signals back "
+                f"({smi})")
+    return total
+
+
+def rc_phase(seed: int, reads, cpu, smi: str) -> dict:
+    """Phase 10: the two headline codecs (RC_HEADLINE) over every
+    main-path read, the other 23 range-coder codecs over the four edge
+    reads and the 60 shortest reads, rccm_svbbe21_zd and dstall_fz over
+    the stall set, each with every launch count at 0 just before
+    (rc_path); the card's streams of rc_check_reads equal to the CPU
+    route's (`cpu`: futures by codec); the CLI round trip (rc_cli).
+    Returns the launches of its runs."""
+    import collections
+
+    from honours_tpu_torch.engine.runner import RC_CODECS, press_signals
+    from honours_tpu_torch.synth import stall_set
+
+    total = collections.Counter()
+    t = time.perf_counter()
+    for codec in RC_HEADLINE:
+        total.update(rc_path(codec, reads, smi))
+    order = np.argsort([r.size for r in reads[:-4]], kind="stable")
+    few = [reads[i] for i in order[:60]] + reads[-4:]
+    for codec in sorted(set(RC_CODECS) - set(RC_HEADLINE)):
+        total.update(rc_path(codec, few, smi))
+    stalls = stall_set(seed)
+    for codec in ("rccm_svbbe21_zd", "dstall_fz"):
+        total.update(rc_path(codec, stalls, smi))
+    total.update(rc_cli(reads, smi))
+    check = rc_check_reads(seed, reads)
+    for codec, f in cpu.items():
+        if press_signals(check, codec) != f.result():
+            raise AssertionError(f"{codec}: the card's streams differ from "
+                                 "the CPU route's")
+    log(f"rc: the card's streams of {len(check)} reads (n = "
+        f"{[r.size for r in check]}) equal the CPU route's for all "
+        f"{len(cpu)} range-coder codecs; phase 10 took "
+        f"{time.perf_counter() - t:.1f} s")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1928,22 +2284,43 @@ def main(argv=None) -> int:
     results = check_kernels(args.seed)
     if args.kernels_only:
         return 0
-    reads = read_set(args.seed)
-    log(f"main path: {len(reads)} reads, {sum(r.size for r in reads)} "
-        f"samples, {sum(2 * r.size for r in reads) / 1e6:.1f} MB int16")
-    for codec in PATHS:
-        for k, c in main_path(codec, reads).items():
+    import multiprocessing
+
+    from concurrent.futures import ProcessPoolExecutor
+
+    from honours_tpu_torch.engine.runner import RC_CODECS
+
+    # phase 10's plain versions and CPU routes run on the host in 2
+    # worker processes beside phases 3-9
+    with ProcessPoolExecutor(max_workers=2, mp_context=multiprocessing
+                             .get_context("spawn")) as rc_pool:
+        rc_pending = rc_kernels_start(args.seed, rc_pool, smi)
+        reads = read_set(args.seed)
+        check = rc_check_reads(args.seed, reads)
+        rc_cpu = {c: rc_pool.submit(cpu_rc_press, check, c)
+                  for c in sorted(RC_CODECS)}
+        results.update({k: {"launches": 0} for k in RC_REPLACES})
+        log(f"main path: {len(reads)} reads, {sum(r.size for r in reads)} "
+            f"samples, {sum(2 * r.size for r in reads) / 1e6:.1f} MB int16")
+        for codec in PATHS:
+            for k, c in main_path(codec, reads).items():
+                results[k]["launches"] += c
+        stall_phase(args.seed)
+        cli_phase(reads)
+        for k, c in bench_analyze_phase(reads, smi).items():
             results[k]["launches"] += c
-    stall_phase(args.seed)
-    cli_phase(reads)
-    for k, c in bench_analyze_phase(reads, smi).items():
-        results[k]["launches"] += c
-    for k, c in shard_phase(args.seed).items():
-        results[k]["launches"] += c
-    for k, c in bench_phase(smi).items():
-        results[k]["launches"] += c
-    for k, c in long_phase(args.seed, smi).items():
-        results[k]["launches"] += c
+        for k, c in shard_phase(args.seed).items():
+            results[k]["launches"] += c
+        for k, c in bench_phase(smi).items():
+            results[k]["launches"] += c
+        for k, c in long_phase(args.seed, smi).items():
+            results[k]["launches"] += c
+        for k, c in rc_phase(args.seed, reads, rc_cpu, smi).items():
+            results[k]["launches"] += c
+        held = rc_kernels_held(rc_pending, smi)
+    for k, r in rc_records(held, rc_rows(args.seed)[1]).items():
+        r["launches"] = results[k]["launches"]
+        results[k] = r
     idle = [k for k, r in results.items() if r["launches"] == 0]
     if idle:
         raise AssertionError(f"kernels no main path launched: {idle}")

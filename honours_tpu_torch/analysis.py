@@ -323,11 +323,11 @@ def value_histogram(values, bucket: int = 16, device="cuda") -> dict:
 
 
 def method_size_table(signals, methods, device="cuda") -> dict:
-    """Compressed-size comparison table over engine codecs (the one-off
+    """Compressed-size comparison table over ported codecs (the one-off
     per-method analyses the viz shell scripts drive).  Each read is
     pressed alone (engine.runner.press_read), as the JAX table presses
     each read through the host codec, so the sizes are the host codec's;
-    a name that is not an engine codec raises NotImplementedError."""
+    a name the port does not run raises NotImplementedError."""
     from honours_tpu_torch.engine.runner import engine_kind, press_read
 
     dev = resolve_device(device)

@@ -1,4 +1,4 @@
-"""Benchmark harness: round-trip the engine codecs over a SLOW5/BLOW5 file.
+"""Benchmark harness: round-trip the ported codecs over a SLOW5/BLOW5 file.
 
 The port of honours_tpu/bench/harness.py's batched-engine route
 (`--tpu`): one row a codec in the reference driver's TSV schema
@@ -9,7 +9,10 @@ with press_ratio = depress_bytes / press_bytes (press/test.c:40), totals
 over all reads, and every read verified sample for sample (the lossless
 check is the test, press/test.c:402-405).  pressbound_bytes is the host
 codecs' bound (engine/bounds.py).  Reads run through
-engine.runner.press_signals / depress_signals on the device.
+engine.runner.press_signals / depress_signals on the device.  The rows
+are the 21 engine codecs by default; --methods takes any of the 46
+ported codecs (the range-coder codecs too, which the JAX harness runs
+on the host only).
 
 Usage:
   python -m honours_tpu_torch.bench.harness FILE.blow5 [--methods a,b,...]
@@ -36,7 +39,7 @@ HDR = (
 
 
 def run_method_tpu(name: str, signals, out=None, device="cuda"):
-    """One TSV row for an engine codec through the bucketed runner on
+    """One TSV row for a ported codec through the bucketed runner on
     `device` (named after the JAX harness's batched-engine route).
 
     press_time and depress_time are end-to-end wall times of the user
@@ -71,7 +74,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="honours_tpu_torch.bench.harness")
     ap.add_argument("file")
     ap.add_argument("--methods", default=None,
-                    help="comma-separated engine codecs (default: all)")
+                    help="comma-separated ported codecs (default: the 21 "
+                    "engine codecs)")
     ap.add_argument("--list", action="store_true",
                     help="print the engine codecs and stop")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))

@@ -10,17 +10,19 @@
   python -m honours_tpu_torch codecs
 
 `press` rewrites a SLOW5/BLOW5 file with the signal field compressed by
-a ported codec (default drans_vbbe21_zd) through the bucketed runner;
+a ported codec (default drans_vbbe21_zd; any of the 46 of
+engine.runner.CODECS) through the bucketed runner;
 `depress` restores a stock BLOW5 (svb-zd signal, zlib records).  The
 files are byte-identical to `python -m honours_tpu press --tpu` /
 `depress --tpu`.  `bench` round-trips every read through each engine
-codec (default all 21) and prints the reference driver's TSV, one row a
-codec (bench/harness.py; `python -m honours_tpu bench --tpu`'s rows);
+codec (default the 21; --methods takes any ported codec) and prints the
+reference driver's TSV, one row a codec (bench/harness.py; `python -m
+honours_tpu bench --tpu`'s rows);
 `analyze` prints the signal statistics report (analysis.py) as JSON, the
 aggregate or, with --per-read, the whole report, as
 `python -m honours_tpu analyze` does.  All four run on the CUDA card and
-raise without one unless `--device cpu` is given.  `codecs` lists the 21
-engine codecs; any other name raises NotImplementedError.
+raise without one unless `--device cpu` is given.  `codecs` lists the 46
+ported codecs; any other name raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -73,7 +75,7 @@ def main(argv=None) -> int:
     from honours_tpu_torch.engine import runner
 
     if args.cmd == "codecs":
-        for name in runner.engine_codec_names():
+        for name in runner.codec_names():
             print(name)
         return 0
 

@@ -1,7 +1,7 @@
-"""Worst-case stream sizes of the engine codecs.
+"""Worst-case stream sizes of the ported codecs.
 
 The port's copies of the `bound` method of each JAX host codec that
-stands behind an engine codec (honours_tpu/codecs/*.py): the bytes a
+stands behind a ported codec (honours_tpu/codecs/*.py): the bytes a
 codec may emit for a read of n samples, which the bench's
 pressbound_bytes column reports (the reference's press_bound,
 press/test.h:47-54).  The formulas, float arithmetic included, are the
@@ -47,10 +47,16 @@ _BOUND = {
     "rice_zd": lambda n: 2 + n * 2 + 1024,  # rice.py
     "dstall": lambda n: 16 + 4 * n + 2048,  # dstall.py
     "dstall_drans": lambda n: 32 + 2 * (2 + 2 + 4 + rans_bound(2 * n)),
+    "rc_vb_zd": lambda n: 2 + rans_bound(2 * n),  # rc.py RcVbZdCodec
+    "rc_vb": lambda n: rans_bound(2 * n),  # rc.py RcVbCodec
+    "rc_zd": lambda n: rans_bound(2 * n),  # rc.py RcZdCodec
+    "rccm_svb": lambda n: 4 + rans_bound(5 * n),  # rc.py RccmSvbZdCodec
+    "rc_submin": lambda n: 2 + rans_bound(2 * n),  # rc.py submin
+    "stall_fz": lambda n: 16 + 4 * n + 1024,  # stall.py
 }
 
 
 def bound(codec_name: str, n: int) -> int:
     """The host codec's bound for a read of n samples; NotImplementedError
-    for a name that is not an engine codec."""
+    for a name that is not a ported codec."""
     return _BOUND[engine_kind(codec_name).partition(":")[0]](int(n))

@@ -23,7 +23,16 @@ Codecs and their engines:
   dstall_drans        engine/dstall_drans.py (stall split, drans branches)
 These are the 21 codecs of honours_tpu's ENGINE_CODECS; where its
 runner decodes on the host (shuffman and rice), the port decodes on the
-device.
+device.  RC_CODECS are 25 more, which honours_tpu runs on the host only
+(its registry's codecs/rc.py and codecs/stall.py), here on the device
+with the range coder of kernels D and E:
+  rc_*, rcc_*, rccm_* (vb containers with and without zd), rc_zd,
+  rccm_svb_zd, rccm_svb12_zd, rccm_vbbe21_submin
+                      engine/rc.py
+  rccm_svbbe21_zd, dstall_fz_1500, dstall_fz
+                      engine/stall_fz.py  (stall split, rccm branches)
+Their streams are the host codec's for every read (its press bytes for
+n = 0).
 
 Two kinds of rows leave the bucket's group and run alone, as one-row
 batches with emax = L (the grouping of a single-read host press, so the
@@ -69,6 +78,7 @@ from honours_tpu_torch.engine.dstall_drans import (
     press_dstall_drans_batch,
 )
 from honours_tpu_torch.engine.exzd import depress_exzd_batch, press_exzd_batch
+from honours_tpu_torch.engine import rc
 from honours_tpu_torch.engine.pipeline import (
     canned_huffman_tables,
     canned_o1_device_tables,
@@ -86,6 +96,12 @@ from honours_tpu_torch.engine.pipeline import (
 from honours_tpu_torch.engine.rice import (
     depress_rice_vb_zd_batch,
     press_rice_vb_zd_batch,
+)
+from honours_tpu_torch.engine.rangecoder import STATE_BYTES
+from honours_tpu_torch.engine.stall_fz import (
+    depress_stall_fz_batch,
+    press_stall_fz_batch,
+    stall_fz_overflowed,
 )
 from honours_tpu_torch.engine.svb16 import (
     svb16_decode_batch,
@@ -125,14 +141,34 @@ ENGINE_CODECS = {
     "dstall_drans": "dstall_drans",
 }
 
+#: the range-coder codecs (honours_tpu/codecs/rc.py, codecs/stall.py):
+#: codec name -> engine kind ("family:coder:container" for the vb ones)
+RC_CODECS = {
+    **{f"{c}_{k}_zd": f"rc_vb_zd:{c}:{k}" for c in ("rc", "rcc", "rccm")
+       for k in ("vbe21", "vbbe21", "vbsbe21", "vbsse21")},
+    **{f"{c}_{k}": f"rc_vb:{c}:{k}" for c in ("rc", "rccm")
+       for k in ("vbbe21", "vbsbe21", "vbsse21")},
+    "rc_zd": "rc_zd",
+    "rccm_svb_zd": "rccm_svb:svb32",
+    "rccm_svb12_zd": "rccm_svb:svb16",
+    "rccm_vbbe21_submin": "rc_submin",
+    "rccm_svbbe21_zd": "stall_fz:stall",
+    "dstall_fz_1500": "stall_fz:dstall",
+    "dstall_fz": "stall_fz:pick",
+}
+#: every codec the port runs
+CODECS = {**ENGINE_CODECS, **RC_CODECS}
+
 #: byte offset of the exception count in each capped family's stream:
-#: [G:u16][zd0:u16][nex:u32]..., [zd0:u16][nex:u32]... and ex-zd's
-#: [ver:1][nin:u64][q:1][zd0:u16][nex:u32]...; for the dstall families,
-#: in each branch blob (srans2's and drans's); the svb families have no
-#: cap
+#: [G:u16][zd0:u16][nex:u32]..., [zd0:u16][nex:u32]..., [min:u16]
+#: [nex:u32]..., [nex:u32]... and ex-zd's [ver:1][nin:u64][q:1][zd0:u16]
+#: [nex:u32]...; for the dstall families, in each branch blob (srans2's
+#: and drans's; stall_fz.stall_fz_overflowed reads the stall-fz blobs);
+#: the svb families and rc_zd have no cap
 _NEX_AT = {"drans": 4, "srans": 2, "srans2": 2, "srans3": 2, "shuff": 2,
            "vb_zd": 2, "rice_zd": 2, "exzd": 12, "dstall": 2,
-           "dstall_drans": 4}
+           "dstall_drans": 4, "rc_vb_zd": 2, "rc_vb": 0, "rc_submin": 2,
+           "stall_fz": None}
 
 #: capped kind -> (device tables, batched press, batched depress)
 _CAPPED = {
@@ -159,7 +195,12 @@ _GROUPED = ("drans", "dstall_drans")
 #: the peak of the codec's press or depress, the larger of the two: an
 #: unsliced [16, 2^20] bucket of synthetic reads on an NVIDIA H100 80GB
 #: HBM3 (700 W), rounded up (tools/bytes_a_slot.py); flat in B and L
-#: (tools/long_reads_probe.py).
+#: (tools/long_reads_probe.py).  The range-coder codecs': [16, 2^17] for
+#: rc and rcc (whose coder state is small), [8, 2^21] for rccm and the
+#: stall-fz codecs, where the stages' peak passes the coder launch's
+#: (rccm_vbbe21_zd's 61 stands for its three sibling containers, the
+#: submin codec's 43 for the three raw rccm kinds); ROW_BYTES adds the
+#: coder's state.
 BYTES_A_SLOT = {
     "drans_vbbe21_zd": 64, "srans_vbbe21_zd": 61, "srans2_vbbe21_zd": 61,
     "srans3_vbbe21_zd": 61, "shuffman_vbbe21_zd": 182, "svb12_zd": 5,
@@ -168,7 +209,23 @@ BYTES_A_SLOT = {
     "hasgam_vbsse21_zdq": 74, "rice_vbe21_zd": 196, "rice_vbbe21_zd": 196,
     "rice_vbsbe21_zd": 196, "rice_vbsse21_zd": 196, "dstall_srans2": 63,
     "dstall_drans": 73,
+    **{name: 61 for name, kind in RC_CODECS.items()
+       if kind.startswith("rc_vb_zd:")},
+    "rc_vbbe21": 33, "rc_vbsbe21": 34, "rc_vbsse21": 34, "rc_zd": 66,
+    "rccm_vbbe21": 43, "rccm_vbsbe21": 43, "rccm_vbsse21": 43,
+    "rccm_svb_zd": 87, "rccm_svb12_zd": 27, "rccm_vbbe21_submin": 43,
+    "rccm_svbbe21_zd": 62, "dstall_fz_1500": 61, "dstall_fz": 61,
 }
+#: bytes of device memory a bucket row takes beside its slots: the range
+#: coder's model state (rangecoder.STATE_BYTES) for each coder row the
+#: codec launches a bucket row (one; the stall-fz codecs code their
+#: branches in one launch: the nonstall and the stall, and dstall_fz the
+#: whole read too); 0 for the engine codecs
+_CODER_ROWS = {"rccm_svbbe21_zd": 2, "dstall_fz_1500": 2, "dstall_fz": 3}
+ROW_BYTES = {**{name: 0 for name in ENGINE_CODECS}, **{
+    name: _CODER_ROWS.get(name, 1) * STATE_BYTES[rc.MODEL[
+        "rccm" if name.startswith("dstall") else name.split("_")[0]]]
+    for name in RC_CODECS}}
 #: the share of the device's memory one slice's working set may take;
 #: the rest holds what a bucket keeps on the device whole (for drans and
 #: dstall_drans its signal, branch signals and streams) and the
@@ -185,25 +242,58 @@ def device_memory(dev: torch.device) -> int:
 
 def slice_rows(codec_name: str, L: int, dev: torch.device) -> int:
     """Rows a slice of an L-wide bucket of `codec_name` holds on `dev`:
-    as many as keep one slice's working set within SLICE_SHARE of the
-    device's memory, at least one."""
-    need = BYTES_A_SLOT[codec_name] * L
+    as many as keep one slice's working set (its slots and its rows'
+    coder state) within SLICE_SHARE of the device's memory, at least
+    one."""
+    need = BYTES_A_SLOT[codec_name] * L + ROW_BYTES[codec_name]
     return max(1, int(SLICE_SHARE * device_memory(dev)) // need)
 
 
 def engine_kind(codec_name: str) -> str:
-    """The engine kind of an engine codec; NotImplementedError for any
+    """The engine kind of a ported codec; NotImplementedError for any
     other name."""
-    if codec_name not in ENGINE_CODECS:
+    if codec_name not in CODECS:
         raise NotImplementedError(
-            f"{codec_name} is not one of the {len(ENGINE_CODECS)} engine "
-            f"codecs this port runs: {', '.join(ENGINE_CODECS)}")
-    return ENGINE_CODECS[codec_name]
+            f"{codec_name} is not one of the {len(CODECS)} codecs this "
+            f"port runs: {', '.join(sorted(CODECS))}")
+    return CODECS[codec_name]
 
 
 def engine_codec_names() -> list[str]:
     """The engine codecs in honours_tpu's engine_codec_names() order."""
     return sorted(ENGINE_CODECS)
+
+
+def codec_names() -> list[str]:
+    """Every codec the port runs (ENGINE_CODECS and RC_CODECS), sorted."""
+    return sorted(CODECS)
+
+
+def _rc_engine(family: str, sub: str):
+    """batch_engine's pair for a range-coder codec."""
+    if family == "rc_vb_zd":
+        coder, kind = sub.split(":")
+        return (lambda sig, n, emax: rc.press_rc_vb_zd_batch(
+                    sig, n, coder, kind, emax),
+                lambda buf, n, L, emax: rc.depress_rc_vb_zd_batch(
+                    buf, n, coder, kind, L, emax))
+    if family == "rc_vb":
+        coder, kind = sub.split(":")
+        return (lambda sig, n, emax: rc.press_rc_vb_batch(
+                    sig, n, coder, kind, emax),
+                lambda buf, n, L, emax: rc.depress_rc_vb_batch(
+                    buf, n, coder, kind, L, emax))
+    if family == "rc_zd":
+        return (lambda sig, n, emax: rc.press_rc_zd_batch(sig, n),
+                lambda buf, n, L, emax: rc.depress_rc_zd_batch(buf, n, L))
+    if family == "rccm_svb":
+        return (lambda sig, n, emax: rc.press_rccm_svb_batch(sig, n, sub),
+                lambda buf, n, L, emax: rc.depress_rccm_svb_batch(
+                    buf, n, L, sub))
+    if family == "rc_submin":
+        return (rc.press_rc_submin_batch, rc.depress_rc_submin_batch)
+    return (lambda sig, n, emax: press_stall_fz_batch(sig, n, sub, emax),
+            depress_stall_fz_batch)
 
 
 def batch_engine(codec_name: str, dev):
@@ -213,6 +303,8 @@ def batch_engine(codec_name: str, dev):
     they code the batch in."""
     kind = engine_kind(codec_name)
     family, _, sub = kind.partition(":")
+    if codec_name in RC_CODECS:
+        return _rc_engine(family, sub)
     if kind in _GROUPED:
         tables, press, depress = _CAPPED[kind]
         tabs = tables(dev)
@@ -254,6 +346,8 @@ def _nex_overflowed(blob: bytes, kind: str, emax: int) -> bool:
     at = _NEX_AT.get(family)
     if family in ("dstall", "dstall_drans"):
         return _dstall_overflowed(blob, at, emax)
+    if family == "stall_fz":
+        return stall_fz_overflowed(blob, emax)
     if at is None or len(blob) < at + 4:
         return False
     (nex,) = struct.unpack_from("<I", blob, at)

@@ -5,7 +5,7 @@
 Presses and depresses one bucket of 256 synthetic reads at L = 65536
 (the main path's bucket shape; lengths uniform in (L/2, L], seed 0)
 through the codec's batched engine (default drans_vbbe21_zd; any name
-of engine.runner.ENGINE_CODECS) under torch.profiler, after a warm-up
+of engine.runner.CODECS) under torch.profiler, after a warm-up
 pass, and prints for each direction: wall time (host clock ending in a
 synchronize), device busy time (sum of kernel times), the device's idle
 share, and the top kernels by device time.  Needs CUDA.

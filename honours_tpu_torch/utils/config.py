@@ -1,12 +1,14 @@
 """Central configuration: the port's copy of the stall settings of
 honours_tpu/utils/config.py.
 
-The two fields the port's engines read, stall_threshold and stall_margin
-(engine/dstall.py, and through it engine/dstall_drans.py), with the JAX
-package's defaults and its environment overrides: each field reads
-HTPU_<FIELD> (e.g. HTPU_STALL_THRESHOLD=200), so a setting gives both
-packages the same bytes.  The JAX Config's other fields set its host
-codecs and its own geometry, which the port does not have.
+The three fields the port's engines read, stall_threshold and
+stall_margin (engine/dstall.py, and through it engine/dstall_drans.py;
+engine/stall_fz.py) and dstall_threshold (engine/stall_fz.py's
+dstall_fz_1500), with the JAX package's defaults and its environment
+overrides: each field reads HTPU_<FIELD> (e.g. HTPU_STALL_THRESHOLD=200),
+so a setting gives both packages the same bytes.  The JAX Config's
+other fields set its host codecs and its own geometry, which the port
+does not have.
 """
 
 from __future__ import annotations
@@ -17,8 +19,9 @@ import os
 
 @dataclasses.dataclass
 class Config:
-    # stall segmentation (press/press.c:7763, 7772-7773)
+    # stall segmentation (press/press.c:7763, 7913, 7772-7773)
     stall_threshold: int = 140
+    dstall_threshold: int = 1500
     stall_margin: int = 20
 
     @classmethod

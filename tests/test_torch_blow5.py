@@ -28,6 +28,13 @@ CLI_CODECS = ["drans_vbbe21_zd", "srans_vbbe21_zd", "srans2_vbbe21_zd",
               "hasgam_vbsse21_zdq"]
 RICE = ["rice_vbe21_zd", "rice_vbbe21_zd", "rice_vbsbe21_zd",
         "rice_vbsse21_zd"]
+#: the 25 range-coder codecs (honours_tpu/codecs/rc.py, codecs/stall.py)
+RC = ([f"{c}_{k}_zd" for c in ("rc", "rcc", "rccm")
+       for k in ("vbe21", "vbbe21", "vbsbe21", "vbsse21")]
+      + [f"{c}_{k}" for c in ("rc", "rccm")
+         for k in ("vbbe21", "vbsbe21", "vbsse21")]
+      + ["rc_zd", "rccm_svb_zd", "rccm_svb12_zd", "rccm_vbbe21_submin",
+         "rccm_svbbe21_zd", "dstall_fz_1500", "dstall_fz"])
 
 FIELDS = ("read_id", "read_group", "digitisation", "offset", "range",
           "sampling_rate", "aux")
@@ -123,8 +130,9 @@ def test_cli_files_match_reference_and_cross_decode(tmp_path, src_file,
 
 def test_cli_rules(tmp_path, src_file, capsys):
     """Default device is the card (RuntimeError here without one);
-    codecs outside the 21 engine codecs raise NotImplementedError;
-    `codecs` lists the 21, with no mark."""
+    codecs the port does not run raise NotImplementedError; `codecs`
+    lists the 46 it runs (the 21 engine codecs and the 25 range-coder
+    codecs), with no mark."""
     out = str(tmp_path / "out.blow5")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -132,12 +140,12 @@ def test_cli_rules(tmp_path, src_file, capsys):
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(["depress", str(src_file), out])
     with pytest.raises(NotImplementedError,
-                       match="not one of the 21 engine codecs"):
+                       match="not one of the 46 codecs this port runs"):
         cli.main(["press", str(src_file), out, "--codec",
                   "huffman_vbbe21_zd", "--device", "cpu"])
     f5 = tb.read_blow5(str(src_file))
     with pytest.raises(NotImplementedError,
-                       match="not one of the 21 engine codecs"):
+                       match="not one of the 46 codecs this port runs"):
         tb.write_blow5(out, f5, signal_codec="huffman_vbbe21_zd",
                        signal_streams=[b""] * len(f5.reads))
     assert cli.main(["codecs"]) == 0
@@ -147,7 +155,7 @@ def test_cli_rules(tmp_path, src_file, capsys):
         "srans3_vbbe21_zd", "shuffman_vbbe21_zd", "svb12_zd", "svb12",
         "vb1e2_zd", "vbe21_zd", "vbbe21_zd", "vbsbe21_zd", "vbsse21_zd",
         "svb_zd", "svb0124_zd", "hasgam_vbsse21_zdq", *RICE,
-        "dstall_srans2", "dstall_drans"])
+        "dstall_srans2", "dstall_drans", *RC])
 
 
 @pytest.mark.parametrize("codec", RICE)

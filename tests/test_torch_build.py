@@ -15,6 +15,7 @@ from honours_tpu_torch.engine import (  # noqa: F401
     permute_cuda,
     rans_encode_cuda,
     rans_n4_cuda,
+    rangecoder_cuda,
     rans_o1_cuda,
     rice_cuda,
     svb16_cuda,
@@ -34,7 +35,8 @@ def test_registry_holds_every_kernel():
         "monotone_compact_u8", "monotone_compact_i32", "compaction_shifts",
         "monotone_expand_u8", "monotone_expand_i32", "o1_fc", "rans_encode",
         "o1_decode", "o0_decode", "svb16_encode", "svb16_decode", "o1n_fc",
-        "n4_decode", "find_stall", "rice_decode", "huffman_decode"])
+        "n4_decode", "find_stall", "rice_decode", "huffman_decode",
+        "rc_encode", "rc_decode"])
     for k in _build.KERNELS.values():
         assert k.source in _build.SOURCES
 

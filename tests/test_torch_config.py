@@ -1,11 +1,13 @@
 """The port's utils/config.py vs honours_tpu/utils/config.py, and the
-HTPU_STALL_THRESHOLD / HTPU_STALL_MARGIN overrides reaching the port's
-dstall split: under each setting the port's _split_batch and its
-dstall_srans2 and dstall_drans streams equal the JAX package's host
-codecs (codecs/dstall.py _split and press, through the C segmenter;
-codecs/dstall_drans.py), which tests/test_dstall.py and
-tests/test_dstall_drans.py hold equal to the JAX engines.  Both
-packages' cached configs are reset for each case.  No JAX engine is
+HTPU_STALL_THRESHOLD / HTPU_STALL_MARGIN / HTPU_DSTALL_THRESHOLD
+overrides reaching the port's stall splits: under each setting the
+port's _split_batch and its dstall_srans2 and dstall_drans streams equal
+the JAX package's host codecs (codecs/dstall.py _split and press,
+through the C segmenter; codecs/dstall_drans.py), which
+tests/test_dstall.py and tests/test_dstall_drans.py hold equal to the
+JAX engines, and the stall-fz split (engine/stall_fz.py split_batch)
+equals codecs/stall.py's (native.find_stall, its threshold and margin).
+Both packages' cached configs are reset for each case.  No JAX engine is
 compiled.  Splits and streams must be equal (tolerance 0)."""
 
 import dataclasses
@@ -15,6 +17,7 @@ import pytest
 import torch
 
 import honours_tpu.codecs.dstall as jdstall
+from honours_tpu import native
 import honours_tpu.codecs.dstall_drans as dd
 import honours_tpu.utils.config as jconfig
 from honours_tpu.codecs.base import get as get_codec
@@ -23,6 +26,7 @@ from honours_tpu_torch.engine import dstall_drans as tdd
 from honours_tpu_torch.engine import runner
 from honours_tpu_torch.engine.dstall import _split_batch, press_dstall_batch
 from honours_tpu_torch.engine.pipeline import canned_o1_device_tables
+from honours_tpu_torch.engine.stall_fz import split_batch
 from honours_tpu_torch.synth import stall_set
 from stall_rows import knife_cases
 from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
@@ -41,6 +45,10 @@ SETTINGS = {
     "threshold40000_margin5": {"HTPU_STALL_THRESHOLD": "40000",
                                "HTPU_STALL_MARGIN": "5"},
 }
+#: and for the stall-fz splits, dstall_fz_1500's threshold below the
+#: stall set's and the 800- and 2,000-sample stalls
+FZ_SETTINGS = {**SETTINGS,
+               "dstall_threshold500": {"HTPU_DSTALL_THRESHOLD": "500"}}
 
 
 def _stall_signal(rng, n_stall, n_rest=3000):
@@ -92,7 +100,8 @@ def test_defaults_equal_the_reference(monkeypatch):
     assert ours == {k: theirs[k] for k in ours}
     cfg = tconfig.get_config()
     assert tconfig.get_config() is cfg
-    assert (cfg.stall_threshold, cfg.stall_margin) == (140, 20)
+    assert (cfg.stall_threshold, cfg.dstall_threshold,
+            cfg.stall_margin) == (140, 1500, 20)
 
 
 def test_every_field_parses_like_the_reference(monkeypatch):
@@ -102,7 +111,8 @@ def test_every_field_parses_like_the_reference(monkeypatch):
     _use(monkeypatch, env)
     ours = dataclasses.asdict(tconfig.Config.default())
     theirs = dataclasses.asdict(jconfig.Config.default())
-    assert list(ours) == ["stall_threshold", "stall_margin"]
+    assert list(ours) == ["stall_threshold", "dstall_threshold",
+                          "stall_margin"]
     assert ours == {k: theirs[k] for k in ours}
     assert ours == {k: int(env[f"HTPU_{k.upper()}"]) for k in ours}
     monkeypatch.setenv("HTPU_STALL_MARGIN", "twenty")
@@ -118,6 +128,31 @@ def test_split_equals_host_split(monkeypatch, reads, stalls, setting):
         ok, start, length = _split_batch(*_rows(batch))
         assert list(zip(ok.tolist(), start.tolist(), length.tolist())) == [
             tuple(jdstall._split(x)) for x in batch]
+
+
+def _host_fz_split(x, threshold: int):
+    """codecs/stall.py _stall_press's split of one read."""
+    exists, start, length = native.find_stall(x)
+    if length < threshold or not exists:
+        return (False, 0, 0)
+    margin = jconfig.get_config().stall_margin
+    return (True, start + margin, length - 2 * margin)
+
+
+@pytest.mark.parametrize("setting", FZ_SETTINGS)
+def test_stall_fz_split_equals_host_split(monkeypatch, reads, stalls,
+                                          setting):
+    """rccm_svbbe21_zd's and dstall_fz's split (stall_threshold) and
+    dstall_fz_1500's (dstall_threshold) follow the settings as
+    codecs/stall.py's do."""
+    _use(monkeypatch, FZ_SETTINGS[setting])
+    cfg = jconfig.get_config()
+    for threshold in (cfg.stall_threshold, cfg.dstall_threshold):
+        for batch in (reads, stalls):
+            ok, start, length = split_batch(*_rows(batch), threshold)
+            assert list(zip(ok.tolist(), start.tolist(),
+                            length.tolist())) == [
+                _host_fz_split(x, threshold) for x in batch]
 
 
 def _split_flags(streams):

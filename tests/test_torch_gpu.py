@@ -1569,3 +1569,99 @@ def test_full_bucket_in_slices(smoke, long_set, codec):
     that size equal the unsliced ones (chip_smoke.full_bucket)."""
     assert codec in smoke.FULL_BUCKET
     smoke.full_bucket(codec, long_set[0]["a"], smoke.nvidia_smi())
+
+
+# ---------------------------------------------------------------------------
+# kernels D and E (csrc/rangecoder.cu) and the 25 range-coder codecs
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("model", ["o0", "o1", "cm"])
+def test_rc_kernels_match_plain(smoke, model):
+    """D and E at [16, 4096] on chip_smoke.rc_rows (empty, one-byte, 255,
+    0, ramp, random and residual-like rows) equal their plain versions
+    (run on the host); one-row calls give the same rows, twice (each
+    call starts its model afresh)."""
+    from honours_tpu_torch.engine import rangecoder_cuda as RC
+
+    data, n = smoke.rc_rows(0)
+    d, nc = torch.from_numpy(data).cuda(), torch.from_numpy(n).cuda()
+    want = RC.rc_encode_plain(torch.from_numpy(data), torch.from_numpy(n),
+                              model)
+    got = RC.rc_encode(d, nc, model)
+    _same(got, want)
+    for _ in range(2):
+        one = RC.rc_encode(d[7:8].contiguous(), nc[7:8], model)
+        _same(one, (want[0][7:8], want[1][7:8]))
+    zero = torch.zeros_like(nc)
+    _same(RC.rc_decode(got[0], zero, nc, data.shape[1], model),
+          torch.from_numpy(data))
+
+
+@pytest.mark.parametrize("model", ["o0", "o1", "cm"])
+def test_rc_decode_cut_streams_offsets_and_caps(smoke, model):
+    """E on streams cut short and at odd offsets into their rows, with
+    counts past N, equals its plain version; D's stream cap: with slack 0
+    a one-byte row's stream passes it, the launch zeroes the row with
+    length -1 and rc_encode raises."""
+    from honours_tpu_torch.engine import rangecoder_cuda as RC
+
+    data, n = smoke.rc_rows(0, B=4, N=1000)
+    full = RC.rc_encode_plain(torch.from_numpy(data), torch.from_numpy(n),
+                              model)
+    stream = torch.zeros((8, full[0].shape[1] + 64), dtype=torch.uint8)
+    offs = torch.tensor([0, 1, 3, 5, 17, 33, 63, 2], dtype=torch.int32)
+    cnt = torch.tensor([1000, 1, 700, 1200, 0, 5, 1000, 999],
+                       dtype=torch.int32)
+    for i in range(8):
+        row = full[0][i % 4, : max(int(full[1][i % 4]) - i, 0)]
+        stream[i, offs[i]: offs[i] + row.numel()] = row
+    want = RC.rc_decode_plain(stream, offs, cnt, 1000, model)
+    _same(RC.rc_decode(stream.cuda(), offs.cuda(), cnt.cuda(), 1000, model),
+          want)
+    d = torch.from_numpy(data[:2, :8]).cuda()
+    nn = torch.tensor([1, 8], dtype=torch.int32, device="cuda")
+    out, length = RC.rc_encode_launch(d, nn, model, slack=0)
+    assert int(length[0]) == -1 and not out[0].any()
+    _same((out[1], length[1]), tuple(
+        x[1] for x in RC.rc_encode_plain(d.cpu(), nn.cpu(), model, 0)))
+    with pytest.raises(ValueError, match="would pass"):
+        RC.rc_encode(d, nn, model, slack=0)
+
+
+def _rc_reads():
+    from honours_tpu_torch.synth import synthesize_corpus
+
+    rng = np.random.default_rng(18)
+    flat = synthesize_corpus(2000, seed=18)
+    stall = np.concatenate([rng.integers(200, 1000, 300),
+                            600 + rng.integers(-4, 5, 400),
+                            rng.integers(200, 1000, 300)]).astype(np.int16)
+    return [flat[:1000], flat[1000:1400], flat[1500:1501],
+            np.zeros(0, np.int16), np.tile(np.array([0, 30000], np.int16),
+                                           300), stall]
+
+
+@pytest.mark.parametrize("codec", sorted([
+    f"{c}_{k}_zd" for c in ("rc", "rcc", "rccm")
+    for k in ("vbe21", "vbbe21", "vbsbe21", "vbsse21")] + [
+    f"{c}_{k}" for c in ("rc", "rccm")
+    for k in ("vbbe21", "vbsbe21", "vbsse21")] + [
+    "rc_zd", "rccm_svb_zd", "rccm_svb12_zd", "rccm_vbbe21_submin",
+    "rccm_svbbe21_zd", "dstall_fz_1500", "dstall_fz"]))
+def test_rc_codecs_on_card_equal_cpu(cuda, codec):
+    """Each range-coder codec through the runner on the card: its streams
+    equal the CPU route's (an empty read, an overflow read and a stall
+    read among them), every read back, D and E launched."""
+    from honours_tpu_torch._build import KERNELS
+    from honours_tpu_torch.engine.runner import depress_signals, press_signals
+
+    reads = _rc_reads()
+    before = {k: v.launches for k, v in KERNELS.items()}
+    streams = press_signals(reads, codec, device=cuda)
+    assert streams == press_signals(reads, codec, device="cpu")
+    out = depress_signals(streams, [r.size for r in reads], codec,
+                          device=cuda)
+    assert all(np.array_equal(a, b) for a, b in zip(reads, out))
+    grown = {k for k, v in KERNELS.items() if v.launches > before[k]}
+    assert {"rc_encode", "rc_decode"} <= grown

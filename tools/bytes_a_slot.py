@@ -1,16 +1,20 @@
-"""Device memory a bucket slot takes, for each engine codec, on the card.
+"""Device memory a bucket slot takes, for each codec, on the card.
 
-    python tools/bytes_a_slot.py [--B 16] [--L 1048576] [codec ...]
+    python tools/bytes_a_slot.py [--B 16] [--L 1048576] [--rc] [codec ...]
 
-For each codec (all 21 by default) presses and depresses one unsliced
-bucket of B synthetic reads (lengths uniform in (L/2, L], synth.py,
-seed 0) through engine.runner.press_bucket / depress_bucket with
-rows = B, and prints one JSON line: the peak of
-torch.cuda.max_memory_allocated() above what was allocated before, for
-the press and for the depress, and each over the bucket's B * L slots.
-engine.runner.BYTES_A_SLOT holds the larger of the two, rounded up.
-The last line is the card's name and power limit (nvidia-smi).  Needs a
-CUDA device.
+For each codec (the 21 engine codecs by default, the 25 range-coder
+codecs with --rc) presses and depresses one unsliced bucket of B
+synthetic reads (lengths uniform in (L/2, L], synth.py, seed 0) through
+engine.runner.press_bucket / depress_bucket with rows = B, and prints
+one JSON line: the peak of torch.cuda.max_memory_allocated() above what
+was allocated before, for the press and for the depress, and each over
+the bucket's B * L slots.  engine.runner.BYTES_A_SLOT holds the larger
+of the two, rounded up.  A range-coder codec's peak holds its rows'
+coder state too (engine.runner.ROW_BYTES), so for those the line also
+gives the fit of a second bucket at L / 4: bytes a slot from the
+difference of the two peaks, bytes a row from what is left
+(fit_bytes_a_slot, fit_bytes_a_row).  The last line is the card's name
+and power limit (nvidia-smi).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -51,21 +55,45 @@ def measure(codec: str, sig: np.ndarray, n: np.ndarray) -> dict:
             "bytes_a_slot": math.ceil(max(enc, dec) / slots)}
 
 
+def fit(codec: str, B: int, L: int, line: dict) -> dict:
+    """line (measured at [B, L]) with the two-point fit against [B, L/4]:
+    peak = a * B * L + r * B."""
+    from honours_tpu_torch.synth import synthesize_bucket
+
+    sig, n = synthesize_bucket(B, L // 4, seed=0)
+    small = measure(codec, sig, n)
+    big = max(line["peak_press"], line["peak_depress"])
+    little = max(small["peak_press"], small["peak_depress"])
+    a = (big - little) / (B * (L - L // 4))
+    return {**line, "fit_bytes_a_slot": a,
+            "fit_bytes_a_row": (big - a * B * L) / B}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("codecs", nargs="*")
     ap.add_argument("--B", type=int, default=16)
     ap.add_argument("--L", type=int, default=1 << 20)
+    ap.add_argument("--rc", action="store_true",
+                    help="the 25 range-coder codecs (runner.RC_CODECS)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bytes_a_slot: CUDA is not available", file=sys.stderr)
         return 2
-    from honours_tpu_torch.engine.runner import engine_codec_names
+    from honours_tpu_torch.engine.runner import (
+        RC_CODECS,
+        engine_codec_names,
+    )
     from honours_tpu_torch.synth import synthesize_bucket
 
     sig, n = synthesize_bucket(args.B, args.L, seed=0)
-    for codec in args.codecs or engine_codec_names():
-        print(json.dumps(measure(codec, sig, n)), flush=True)
+    codecs = args.codecs or (sorted(RC_CODECS) if args.rc
+                             else engine_codec_names())
+    for codec in codecs:
+        line = measure(codec, sig, n)
+        if codec in RC_CODECS:
+            line = fit(codec, args.B, args.L, line)
+        print(json.dumps(line), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)
