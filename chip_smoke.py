@@ -127,24 +127,28 @@
    back (encode and decode times of both logged).
 10. The range-coder codecs (engine.runner.RC_CODECS) and their kernels D
    (rc_encode) and E (rc_decode), which replace the host's C coder.
-   Before phase 3: D and E held against their plain versions at
-   [16, 4096] for each byte model (o0, o1, cm) on edge rows (empty, one
-   byte, 255s, zeros, a ramp, random and residual-like bytes, rc_rows),
-   also after timed graph replays and in one-row calls, the plain
-   versions on the host in 2 worker processes beside phases 3-9; and D
-   and E timed at the main path's [256, 65536] (rccm_vbbe21_zd's
-   residual bytes of the bucket) for each model beside their bound and
-   chain floor (RC_STEP_CYCLES), every row decoded back.  After phase 9:
+   Before phase 3, for each byte model (o0, o1, cm): D and E timed at
+   the main path's [256, 65536] (rccm_vbbe21_zd's residual bytes of the
+   bucket) beside their bound and chain floor (RC_STEP_CYCLES), every
+   row decoded back; the bucket's 4 longest rows (about 65,000 bytes
+   each) coded alone and timed, their streams equal to the bucket
+   call's rows and held to the plain encode (cm: the plain decode too,
+   for its time); D and E held against their plain versions at
+   [16, 4096] on edge rows (empty, one byte, 255s, zeros, a ramp,
+   random and residual-like bytes, rc_rows), also after timed graph
+   replays and in one-row calls.  The plain versions run on the host in
+   3 worker processes beside phases 3-9.  After phase 9:
    rccm_vbbe21_zd and dstall_fz over all ~1,028 reads, the other 23
    codecs over the four edge reads and the 60 shortest reads, and
    rccm_svbbe21_zd and dstall_fz over the stall set, each with every
    launch count at 0 just before (every read back, D and E launched,
-   kernel A for the stall codecs; ratio, rates and split rows logged);
-   a BLOW5 through the CLI with the two headline codecs; the card's
-   streams of four reads (rc_check_reads, a stall read among them)
-   equal to the CPU route's for all 25.
-11. Prints one {"kernels": [...]} line (D and E with cm at [16, 4096]),
-   then {"ok": true, "device": ...}.
+   kernel A for the stall codecs; ratio, split rows, and rates for the
+   1,028-read runs only); a BLOW5 through the CLI with the two headline
+   codecs; the card's streams of four reads (rc_check_reads, a stall
+   read among them) equal to the CPU route's for all 25.
+11. Prints one {"kernels": [...]} line (D and E with cm on the bucket's
+   4 longest rows, the [256, 65536] times beside them), then
+   {"ok": true, "device": ...}.
 
 `--kernels-only` stops after step 2 and prints no result line: it times
 the kernels of whichever honours_tpu_torch is imported, e.g. an older
@@ -1962,18 +1966,18 @@ def rc_rows(seed: int, B: int = 16, N: int = 4096):
 
 def rc_plain(model: str, data, n, stream):
     """Kernels D's and E's plain versions on the host, in a worker
-    process on one intra-op thread: the encode of (data, n) and the
-    decode of `stream` (the kernel's), each with its milliseconds."""
+    process on one intra-op thread: the encode of (data, n), or, given
+    `stream` (the kernel's), its decode; (output, milliseconds)."""
     from honours_tpu_torch.engine import rangecoder as R
 
     torch.set_num_threads(1)
     t = time.perf_counter()
-    enc = R.rc_encode_plain(data, n, model)
-    t1 = time.perf_counter()
-    dec = R.rc_decode_plain(stream, torch.zeros_like(n), n, data.shape[1],
-                            model)
-    t2 = time.perf_counter()
-    return enc, (t1 - t) * 1e3, dec, (t2 - t1) * 1e3
+    if stream is None:
+        out = R.rc_encode_plain(data, n, model)
+    else:
+        out = R.rc_decode_plain(stream, torch.zeros_like(n), n,
+                                data.shape[1], model)
+    return out, (time.perf_counter() - t) * 1e3
 
 
 def rc_bound(nsum: int, slen: int, rows: int, model: str):
@@ -1991,24 +1995,80 @@ def rc_floor_ms(longest: int, model: str) -> float:
     return 8 * longest * RC_STEP_CYCLES[model] / SM_HZ * 1e3
 
 
+#: rows of the main path's bucket whose D and E outputs phase 10 holds to
+#: the plain versions (its longest rows: the plain cm coder takes ~0.35
+#: ms a coded bit on one host thread, ~3 minutes for a 65,000-byte row)
+RC_LONG_ROWS = 4
+
+
 def rc_kernels_start(seed: int, pool, smi: str):
     """Phase 10's kernel half, started before phase 3 so that the plain
-    versions run on the host beside the other phases.  At [16, 4096]
-    (rc_rows) for each model: kernels D and E, their outputs after timed
-    graph replays, one-row calls (a row alone, twice: each call starts
-    its model afresh); the plain versions submitted to `pool`.  At the
+    versions run in `pool` on the host beside the other phases.  At the
     main path's [256, 65536] (rccm_vbbe21_zd's residual bytes of the
-    bucket): D and E timed for each model (CUDA events around 2 calls),
-    the decode giving every row back, beside the bound and the chain
-    floor (the plain versions, a Python loop pass a coded bit, would take
-    minutes there).  Returns the pending checks for rc_kernels_held."""
+    bucket), for each model: D and E timed (CUDA events around 2 calls)
+    beside the bound and the chain floor, every row decoded back; and
+    the bucket's RC_LONG_ROWS longest rows, [4, 65536], coded alone and
+    timed, their streams equal to the bucket call's rows, decoded back,
+    and submitted to the plain encode (cm: and the plain decode of D's
+    streams).  At [16, 4096] (rc_rows) for each model: D and E, their
+    outputs after timed graph replays, one-row calls (a row alone,
+    twice: each call starts its model afresh), submitted to the plain
+    versions.  Returns the pending checks for rc_kernels_held."""
     from honours_tpu_torch.engine import rangecoder_cuda as RC
     from honours_tpu_torch.engine.rangecoder import MODELS
     from honours_tpu_torch.engine.rc import vb_zd_parts
 
+    sig, sn = make_bucket(seed)
+    _, _, bdata, blen = vb_zd_parts(sig, sn, "vbbe21", sig.shape[1])
+    bdata, blen = bdata.contiguous(), blen.to(torch.int32).contiguous()
+    Bb, Nb = bdata.shape
+    nsum, longest = int(blen.sum()), int(blen.max())
+    bzero = torch.zeros_like(blen)
+    top = torch.argsort(blen, descending=True, stable=True)[:RC_LONG_ROWS]
+    ldata, ln = bdata[top].contiguous(), blen[top].contiguous()
+    lzero = torch.zeros_like(ln)
+    long_pending = {}
+    for model in ("cm", "o1", "o0"):  # the longest plain job first
+        out, length = RC.rc_encode(bdata, blen, model)
+        e_ms = cuda_ms(lambda: RC.rc_encode_launch(bdata, blen, model), 2)
+        back = RC.rc_decode(out, bzero, blen, Nb, model)
+        d_ms = cuda_ms(lambda: RC.rc_decode(out, bzero, blen, Nb, model), 2)
+        if not torch.equal(back, bdata):
+            raise AssertionError(f"rc_decode {model} [{Bb}, {Nb}]: rows not "
+                                 "given back")
+        lout, llen = RC.rc_encode(ldata, ln, model)
+        le_ms = cuda_ms(lambda: RC.rc_encode_launch(ldata, ln, model), 2)
+        lback = RC.rc_decode(lout, lzero, ln, Nb, model)
+        ld_ms = cuda_ms(lambda: RC.rc_decode(lout, lzero, ln, Nb, model), 2)
+        if not (torch.equal(lback, ldata) and torch.equal(llen, length[top])
+                and torch.equal(lout, out[top])):
+            raise AssertionError(f"rc {model} [{RC_LONG_ROWS}, {Nb}]: the "
+                                 "longest rows alone differ from the "
+                                 "bucket's or do not decode back")
+        futures = [pool.submit(rc_plain, model, ldata.cpu(), ln.cpu(), None)]
+        if model == "cm":
+            futures.append(pool.submit(rc_plain, model, ldata.cpu(),
+                                       ln.cpu(), lout.cpu()))
+        slen = int(length.sum())
+        bound, by = rc_bound(nsum, slen, Bb, model)
+        floor = rc_floor_ms(longest, model)
+        for name, ms in (("rc_encode", e_ms), ("rc_decode", d_ms)):
+            log(f"kernel {name} {model} [{Bb}, {Nb}] (rccm_vbbe21_zd's "
+                f"residual bytes of the bucket, {nsum} bytes, longest row "
+                f"{longest}, {slen} stream bytes; {smi}): {ms:.3f} ms on the "
+                f"card, bound {bound:.4f} ms ({by}), chain floor "
+                f"{floor:.3f} ms ({RC_STEP_CYCLES[model]} cycles a step), "
+                f"{ms / floor:.2f}x the floor, "
+                f"{ms * 1e6 / (8 * longest) * SM_HZ / 1e9:.0f} cycles a "
+                "step")
+        long_pending[model] = dict(
+            data=ldata.cpu(), n=ln.cpu(), got_e=to_cpu((lout, llen)),
+            got_d=lback.cpu(), e_ms=le_ms, d_ms=ld_ms,
+            bucket=(e_ms, d_ms, bound, by, floor), futures=futures)
+
     data, n = rc_rows(seed)
     d, nc = torch.from_numpy(data).cuda(), torch.from_numpy(n).cuda()
-    B, N = data.shape
+    N = data.shape[1]
     zero = torch.zeros_like(nc)
     pending = []
     for model in MODELS:
@@ -2023,55 +2083,31 @@ def rc_kernels_start(seed: int, pool, smi: str):
         back = dec()
         e_ms, e_rep = graph_ms(enc, 3)
         d_ms, d_rep = graph_ms(dec, 3)
-        e_call, d_call = cuda_ms(enc, 3), cuda_ms(dec, 3)
         alone = [RC.rc_encode_launch(d[6:7].contiguous(), nc[6:7], model)
                  for _ in range(2)]
-        future = pool.submit(rc_plain, model, torch.from_numpy(data),
-                             torch.from_numpy(n), out.cpu())
+        futures = [pool.submit(rc_plain, model, torch.from_numpy(data),
+                               torch.from_numpy(n), s)
+                   for s in (None, out.cpu())]
         pending.append((model, to_cpu((out, length)), to_cpu(e_rep),
                         to_cpu(back), to_cpu(d_rep), to_cpu(alone), e_ms,
-                        d_ms, e_call, d_call, int(length.sum()), future))
+                        d_ms, futures))
     if not all(torch.equal(p[3], torch.from_numpy(data)) for p in pending):
         raise AssertionError("rc_decode: [16, 4096] rows not given back")
-
-    sig, sn = make_bucket(seed)
-    _, _, bdata, blen = vb_zd_parts(sig, sn, "vbbe21", sig.shape[1])
-    bdata, blen = bdata.contiguous(), blen.to(torch.int32).contiguous()
-    Bb, Nb = bdata.shape
-    nsum, longest = int(blen.sum()), int(blen.max())
-    bzero = torch.zeros_like(blen)
-    for model in MODELS:
-        out, length = RC.rc_encode(bdata, blen, model)
-        e_ms = cuda_ms(lambda: RC.rc_encode_launch(bdata, blen, model), 2)
-        back = RC.rc_decode(out, bzero, blen, Nb, model)
-        d_ms = cuda_ms(lambda: RC.rc_decode(out, bzero, blen, Nb, model), 2)
-        if not torch.equal(back, bdata):
-            raise AssertionError(f"rc_decode {model} [{Bb}, {Nb}]: rows not "
-                                 "given back")
-        slen = int(length.sum())
-        bound, by = rc_bound(nsum, slen, Bb, model)
-        floor = rc_floor_ms(longest, model)
-        for name, ms in (("rc_encode", e_ms), ("rc_decode", d_ms)):
-            log(f"kernel {name} {model} [{Bb}, {Nb}] (rccm_vbbe21_zd's "
-                f"residual bytes of the bucket, {nsum} bytes, longest row "
-                f"{longest}, {slen} stream bytes; {smi}): {ms:.3f} ms on the "
-                f"card, bound {bound:.4f} ms ({by}), chain floor "
-                f"{floor:.3f} ms ({RC_STEP_CYCLES[model]} cycles a step), "
-                f"{ms / floor:.2f}x the floor, "
-                f"{ms * 1e6 / (8 * longest) * SM_HZ / 1e9:.0f} cycles a "
-                "step")
-    return pending
+    return pending, long_pending
 
 
 def rc_kernels_held(pending, smi: str) -> dict:
-    """The [16, 4096] outputs of D and E against their plain versions from
-    the host (tolerance 0), also after the timed graph's replays and for
-    the one-row calls; logs each; returns (ms, ms a call, plain ms, max
-    abs err, stream bytes) of rc_encode and rc_decode for cm."""
-    records = {}
-    for (model, got_e, rep_e, got_d, rep_d, alone, e_ms, d_ms, e_call,
-         d_call, slen, future) in pending:
-        want_e, plain_e, want_d, plain_d = future.result()
+    """D's and E's outputs against their plain versions from the host
+    (tolerance 0): at [16, 4096], also after the timed graph's replays
+    and for the one-row calls; on the main path bucket's longest rows,
+    D's streams (E gave those rows back from them).  Logs each; returns
+    the kernels line's entries of rc_encode and rc_decode: cm on the
+    longest rows, the bucket's times beside them."""
+    small, long_rows = pending
+    err = {"rc_encode": 0, "rc_decode": 0}
+    for (model, got_e, rep_e, got_d, rep_d, alone, e_ms, d_ms,
+         futures) in small:
+        (want_e, plain_e), (want_d, plain_d) = (f.result() for f in futures)
         err_e = max(max_abs_err(got_e, want_e), max_abs_err(rep_e, want_e))
         for out, length in alone:  # row 6 alone
             err_e = max(err_e, max_abs_err((out[0], length[0]),
@@ -2081,37 +2117,58 @@ def rc_kernels_held(pending, smi: str) -> dict:
             raise AssertionError(f"rc {model} [16, 4096]: kernel differs "
                                  f"from its plain version (encode err "
                                  f"{err_e}, decode err {err_d})")
-        for name, ms, call, plain, err in (
-                ("rc_encode", e_ms, e_call, plain_e, err_e),
-                ("rc_decode", d_ms, d_call, plain_d, err_d)):
+        for name, ms, plain, e in (("rc_encode", e_ms, plain_e, err_e),
+                                   ("rc_decode", d_ms, plain_d, err_d)):
             log(f"kernel {name} {model} [16, 4096] ({smi}): equal to plain "
-                f"(max abs err {err}, also after the replays and alone in "
-                f"a one-row call, twice); {ms:.4f} ms on the card "
-                f"({call:.4f} ms a call from the host) vs plain "
+                f"(max abs err {e}, also after the replays and alone in a "
+                f"one-row call, twice); {ms:.4f} ms on the card vs plain "
                 f"{plain:.1f} ms on the host (one thread of a worker "
                 "process)")
-            if model == "cm":
-                records[name] = (ms, call, plain, err, slen)
+    records = {}
+    for model, p in long_rows.items():
+        results = [f.result() for f in p["futures"]]
+        (want_e, plain_e) = results[0]
+        e = max_abs_err(p["got_e"], want_e)
+        d = max_abs_err(p["got_d"], p["data"])
+        if len(results) > 1:
+            d = max(d, max_abs_err(p["got_d"], results[1][0]))
+        if e or d:
+            raise AssertionError(f"rc {model} [{RC_LONG_ROWS}, 65536], the "
+                                 "main path bucket's longest rows: kernel "
+                                 f"differs from its plain version (encode "
+                                 f"err {e}, decode err {d})")
+        rows = p["n"].tolist()
+        log(f"kernel rc_encode {model} [{RC_LONG_ROWS}, 65536], the main "
+            f"path bucket's longest rows ({rows} bytes; {smi}): streams "
+            f"equal to plain, and rc_decode gives the rows back from them "
+            f"(max abs err {e}, {d}); {p['e_ms']:.3f} / {p['d_ms']:.3f} ms "
+            f"on the card vs plain {plain_e:.1f} ms"
+            + (f" / {results[1][1]:.1f} ms" if len(results) > 1 else "")
+            + " on the host (one thread of a worker process)")
+        err = {k: max(v, e, d) for k, v in err.items()}
+        if model != "cm":
+            continue
+        nsum = sum(rows)
+        slen = int(p["got_e"][1].sum())
+        bound, by = rc_bound(nsum, slen, len(rows), "cm")
+        e_b, d_b, b_bound, b_by, b_floor = p["bucket"]
+        for name, ms, plain, bucket_ms in (
+                ("rc_encode", p["e_ms"], plain_e, e_b),
+                ("rc_decode", p["d_ms"], results[1][1], d_b)):
+            records[name] = {
+                "name": name, "route": "cuda",
+                "source": "honours_tpu_torch/csrc/rangecoder.cu",
+                "replaces": RC_REPLACES[name], "launches": 0,
+                "max_abs_err": err[name], "matches_plain": True, "ms": ms,
+                "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                "library_ms": None,
+                "shape": f"[{RC_LONG_ROWS}, 65536] cm, the main path "
+                         "bucket's longest rows",
+                "chain_floor_ms": rc_floor_ms(max(rows), "cm"),
+                "bucket_ms": bucket_ms, "bucket_shape": "[256, 65536] cm",
+                "bucket_bound_ms": b_bound, "bucket_bound_by": b_by,
+                "bucket_chain_floor_ms": b_floor}
     return records
-
-
-def rc_records(records, data_n) -> dict:
-    """The kernels line's entries of D and E (cm at [16, 4096])."""
-    out = {}
-    nsum = int(np.asarray(data_n).sum())
-    longest = int(np.asarray(data_n).max())
-    for name, (ms, call, plain, err, slen) in records.items():
-        bound, by = rc_bound(nsum, slen, len(data_n), "cm")
-        out[name] = {
-            "name": name, "route": "cuda",
-            "source": "honours_tpu_torch/csrc/rangecoder.cu",
-            "replaces": RC_REPLACES[name], "launches": 0,
-            "max_abs_err": err, "matches_plain": True, "ms": ms,
-            "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-            "library_ms": None, "call_ms": call,
-            "shape": "[16, 4096] cm", "chain_floor_ms": rc_floor_ms(
-                longest, "cm")}
-    return out
 
 
 def cpu_rc_press(reads, codec: str) -> list:
@@ -2136,11 +2193,13 @@ def rc_check_reads(seed: int, reads) -> list:
     return [reads[-4], reads[-3], reads[0][:1000].copy(), stall]
 
 
-def rc_path(codec: str, reads, smi: str) -> dict:
+def rc_path(codec: str, reads, smi: str, rates: bool = True) -> dict:
     """Press and depress `reads` through the runner on the card, every
     launch count at 0 just before; every read back bit for bit and D and
-    E launched (and kernel A for the stall codecs).  Logs the ratio, the
-    rates and, for the stall codecs, the split rows.  Returns the
+    E launched (and kernel A for the stall codecs).  Logs the ratio,
+    the rates (or, without `rates`, the times: of a small set, where
+    one-row re-presses and short reads take most of them, no
+    throughput) and, for the stall codecs, the split rows.  Returns the
     launches."""
     from honours_tpu_torch._build import KERNELS
     from honours_tpu_torch.engine.runner import (
@@ -2172,10 +2231,13 @@ def rc_path(codec: str, reads, smi: str) -> dict:
         raise AssertionError(f"{codec}: kernels not launched: {idle}")
     split = (f", split rows {split_rows(streams)}" if "stall" in codec
              else "")
+    times = (f"encode {t1 - t0:.3f} s {raw / (t1 - t0) / 1e6:.1f} MB/s, "
+             f"decode {t2 - t1:.3f} s {raw / (t2 - t1) / 1e6:.1f} MB/s"
+             if rates else f"encode {t1 - t0:.3f} s, decode {t2 - t1:.3f} s "
+             "(a small set: no throughput)")
     log(f"rc {codec}: all {len(reads)} reads round-trip bit for bit; ratio "
-        f"{raw / sum(map(len, streams)):.6f}; encode {t1 - t0:.3f} s "
-        f"{raw / (t1 - t0) / 1e6:.1f} MB/s, decode {t2 - t1:.3f} s "
-        f"{raw / (t2 - t1) / 1e6:.1f} MB/s{split} ({smi}); launches "
+        f"{raw / sum(map(len, streams)):.6f}; {times}{split} ({smi}); "
+        "launches "
         f"rc_encode {launches['rc_encode']}, rc_decode "
         f"{launches['rc_decode']}")
     return launches
@@ -2241,10 +2303,10 @@ def rc_phase(seed: int, reads, cpu, smi: str) -> dict:
     order = np.argsort([r.size for r in reads[:-4]], kind="stable")
     few = [reads[i] for i in order[:60]] + reads[-4:]
     for codec in sorted(set(RC_CODECS) - set(RC_HEADLINE)):
-        total.update(rc_path(codec, few, smi))
+        total.update(rc_path(codec, few, smi, rates=False))
     stalls = stall_set(seed)
     for codec in ("rccm_svbbe21_zd", "dstall_fz"):
-        total.update(rc_path(codec, stalls, smi))
+        total.update(rc_path(codec, stalls, smi, rates=False))
     total.update(rc_cli(reads, smi))
     check = rc_check_reads(seed, reads)
     for codec, f in cpu.items():
@@ -2290,9 +2352,9 @@ def main(argv=None) -> int:
 
     from honours_tpu_torch.engine.runner import RC_CODECS
 
-    # phase 10's plain versions and CPU routes run on the host in 2
+    # phase 10's plain versions and CPU routes run on the host in 3
     # worker processes beside phases 3-9
-    with ProcessPoolExecutor(max_workers=2, mp_context=multiprocessing
+    with ProcessPoolExecutor(max_workers=3, mp_context=multiprocessing
                              .get_context("spawn")) as rc_pool:
         rc_pending = rc_kernels_start(args.seed, rc_pool, smi)
         reads = read_set(args.seed)
@@ -2318,7 +2380,7 @@ def main(argv=None) -> int:
         for k, c in rc_phase(args.seed, reads, rc_cpu, smi).items():
             results[k]["launches"] += c
         held = rc_kernels_held(rc_pending, smi)
-    for k, r in rc_records(held, rc_rows(args.seed)[1]).items():
+    for k, r in held.items():
         r["launches"] = results[k]["launches"]
         results[k] = r
     idle = [k for k, r in results.items() if r["launches"] == 0]

@@ -44,8 +44,9 @@
 // one after another's result (the counters, order-2 cell and weights
 // together, then apm1, then apm2) with shared-memory lookups between.
 // The bytes moved (a read in, its stream out) are small beside that.
-// Design: one thread a read (rows_per_block threads a block, one row a
-// block by default so that each row has an SM's L1 to itself); the
+// Design: one thread a read, one read a block (so that each read has an
+// SM's L1 and schedulers to itself; blocks of 2, 8 and 32 reads were
+// slower on an H100); the
 // model's tables stay in device memory, SQUASH and STRETCH in shared
 // memory.  A faster design (several reads sharing an SM's cycles, the
 // hot tables in shared memory) is later work.
@@ -286,24 +287,20 @@ __device__ typename ModelOf<MODEL>::T make_model(const Scratch& s,
 template <int MODEL>
 __device__ void load_tables(const short* tables, short* sh) {
   if constexpr (MODEL == 2) {
-    for (int i = threadIdx.x; i < 8192 + 4096; i += blockDim.x)
-      sh[i] = tables[i];
-    __syncthreads();
+    for (int i = 0; i < 8192 + 4096; ++i) sh[i] = tables[i];
   }
 }
 
 template <int MODEL>
 __global__ void rc_encode_kernel(const uint8_t* __restrict__ data,
-                                 long long B, long long N,
+                                 long long N,
                                  const int* __restrict__ n,
                                  uint8_t* __restrict__ out, long long W,
                                  long long* __restrict__ len, long long slack,
                                  Scratch s, const short* __restrict__ tables) {
   __shared__ short sh[MODEL == 2 ? 8192 + 4096 : 1];
   load_tables<MODEL>(tables, sh);
-  const long long b = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (b >= B) return;
+  const long long b = blockIdx.x;
   const long long cnt = min(max(static_cast<long long>(n[b]), 0LL), N);
   auto m = make_model<MODEL>(s, tables, sh, b);
   Enc e;
@@ -332,16 +329,14 @@ __global__ void rc_encode_kernel(const uint8_t* __restrict__ data,
 
 template <int MODEL>
 __global__ void rc_decode_kernel(const uint8_t* __restrict__ stream,
-                                 long long B, long long M,
+                                 long long M,
                                  const int* __restrict__ off,
                                  const int* __restrict__ count, long long N,
                                  uint8_t* __restrict__ out, Scratch s,
                                  const short* __restrict__ tables) {
   __shared__ short sh[MODEL == 2 ? 8192 + 4096 : 1];
   load_tables<MODEL>(tables, sh);
-  const long long b = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (b >= B) return;
+  const long long b = blockIdx.x;
   const long long cnt = min(max(static_cast<long long>(count[b]), 0LL), N);
   const long long start = min(max(static_cast<long long>(off[b]), 0LL), M);
   auto m = make_model<MODEL>(s, tables, sh, b);
@@ -362,18 +357,13 @@ __global__ void rc_decode_kernel(const uint8_t* __restrict__ stream,
   }
 }
 
-inline unsigned blocks(long long B, long long rpb) {
-  return static_cast<unsigned>((B + rpb - 1) / rpb);
-}
-
 }  // namespace
 
 HTT_EXPORT int htt_rc_encode(long long model, const void* data, long long B,
                              long long N, const void* n, void* out,
                              long long W, void* len, long long slack,
                              void* probs, void* o2, void* w,
-                             const void* tables, long long rows_per_block,
-                             void* cuda_stream) {
+                             const void* tables, void* cuda_stream) {
   if (B > 0) {
     const Scratch s{static_cast<uint16_t*>(probs), static_cast<uint16_t*>(o2),
                     static_cast<int*>(w)};
@@ -383,14 +373,13 @@ HTT_EXPORT int htt_rc_encode(long long model, const void* data, long long B,
     auto* l = static_cast<long long*>(len);
     const auto* t = static_cast<const short*>(tables);
     auto st = static_cast<cudaStream_t>(cuda_stream);
-    const unsigned g = blocks(B, rows_per_block);
-    const unsigned th = static_cast<unsigned>(rows_per_block);
+    const unsigned g = static_cast<unsigned>(B);  // one read a block
     if (model == 0)
-      rc_encode_kernel<0><<<g, th, 0, st>>>(d, B, N, nn, o, W, l, slack, s, t);
+      rc_encode_kernel<0><<<g, 1, 0, st>>>(d, N, nn, o, W, l, slack, s, t);
     else if (model == 1)
-      rc_encode_kernel<1><<<g, th, 0, st>>>(d, B, N, nn, o, W, l, slack, s, t);
+      rc_encode_kernel<1><<<g, 1, 0, st>>>(d, N, nn, o, W, l, slack, s, t);
     else
-      rc_encode_kernel<2><<<g, th, 0, st>>>(d, B, N, nn, o, W, l, slack, s, t);
+      rc_encode_kernel<2><<<g, 1, 0, st>>>(d, N, nn, o, W, l, slack, s, t);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -399,7 +388,7 @@ HTT_EXPORT int htt_rc_decode(long long model, const void* stream, long long B,
                              long long M, const void* off, const void* count,
                              long long N, void* out, void* probs, void* o2,
                              void* w, const void* tables,
-                             long long rows_per_block, void* cuda_stream) {
+                             void* cuda_stream) {
   if (B > 0) {
     const Scratch s{static_cast<uint16_t*>(probs), static_cast<uint16_t*>(o2),
                     static_cast<int*>(w)};
@@ -409,14 +398,13 @@ HTT_EXPORT int htt_rc_decode(long long model, const void* stream, long long B,
     auto* o = static_cast<uint8_t*>(out);
     const auto* t = static_cast<const short*>(tables);
     auto st = static_cast<cudaStream_t>(cuda_stream);
-    const unsigned g = blocks(B, rows_per_block);
-    const unsigned th = static_cast<unsigned>(rows_per_block);
+    const unsigned g = static_cast<unsigned>(B);  // one read a block
     if (model == 0)
-      rc_decode_kernel<0><<<g, th, 0, st>>>(in, B, M, of, c, N, o, s, t);
+      rc_decode_kernel<0><<<g, 1, 0, st>>>(in, M, of, c, N, o, s, t);
     else if (model == 1)
-      rc_decode_kernel<1><<<g, th, 0, st>>>(in, B, M, of, c, N, o, s, t);
+      rc_decode_kernel<1><<<g, 1, 0, st>>>(in, M, of, c, N, o, s, t);
     else
-      rc_decode_kernel<2><<<g, th, 0, st>>>(in, B, M, of, c, N, o, s, t);
+      rc_decode_kernel<2><<<g, 1, 0, st>>>(in, M, of, c, N, o, s, t);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -59,41 +59,45 @@ def _split_batch(sig, n):
     return ok, torch.where(ok, start, 0), torch.where(ok, length, 0)
 
 
-def _branch_signals(sig, n, start, length):
-    """(stall_sig, n_stall, ns_sig, n_ns): each row's stall region moved
-    to column 0, and the read without it; a row with no split gives a
-    stall branch of one zero sample and its whole read."""
-    B, L = sig.shape
+def branch_signals(sig, n, start, length):
+    """(stall_sig, n_stall, ns_sig, n_ns): read[start:start + length]
+    moved to column 0, and the read without it, each a Python slice of
+    the read (clipped at n); a row with no split (length 0) gives an
+    empty stall branch and its whole read."""
+    L = sig.shape[1]
     pos = torch.arange(L, device=sig.device)[None, :]
     n = n.to(torch.int64)
-    stall_sig = rowwise_shift_left(sig.to(torch.int32), start, L)
-    stall_sig = torch.where(pos < length[:, None], stall_sig, 0)
-    in_stall = (pos >= start[:, None]) & (pos < (start + length)[:, None])
-    ns_sig, _ = monotone_compact(sig.to(torch.int32),
-                                 (pos < n[:, None]) & ~in_stall)
-    return (stall_sig.to(torch.int16), length.clamp(min=1),
-            ns_sig.to(torch.int16), (n - length).clamp(min=1))
+    a = torch.minimum(start, n)
+    e = torch.minimum(start + length, n)
+    n_stall = e - a
+    stall = rowwise_shift_left(sig.to(torch.int32), a, L)
+    stall = torch.where(pos < n_stall[:, None], stall, 0).to(torch.int16)
+    keep = (pos < n[:, None]) & ~((pos >= a[:, None]) & (pos < e[:, None]))
+    ns, _ = monotone_compact(sig.to(torch.int32), keep)
+    return stall, n_stall, ns.to(torch.int16), n - n_stall
 
 
 def _assemble_split(use, start, length, st_s, sl_s, st_n, sl_n, st_p, sl_p,
-                    total: int):
-    """Rows of [use][start:u16][length:u16][sl_s:u32][stall blob] (the
-    four fields and the stall blob only where use) then [tail_len:u32]
-    [tail], the tail the nonstall blob where use and the plain blob
-    elsewhere -> (stream [B, total] u8, len [B]).  Bytes past `total`
-    are dropped: callers give a bound on every emitted length."""
+                    total: int, len_bytes: int = 4):
+    """Rows of [use][start:u16][length:u16][sl_s][stall blob] (the four
+    fields and the stall blob only where use; sl_s a u32, or a u16 for
+    len_bytes 2) then [tail_len:u32][tail], the tail the nonstall blob
+    where use and the plain blob elsewhere -> (stream [B, total] u8, len
+    [B]).  Bytes past `total` are dropped: callers give a bound on every
+    emitted length."""
     B = use.shape[0]
     dev = use.device
     tail_w = max(st_n.shape[1], st_p.shape[1])
     st_n = torch.nn.functional.pad(st_n, (0, tail_w - st_n.shape[1]))
     st_p = torch.nn.functional.pad(st_p, (0, tail_w - st_p.shape[1]))
     tail_len = torch.where(use, sl_n, sl_p)
-    hdr8 = torch.cat([u16le_bytes(start), u16le_bytes(length),
-                      u32le_bytes(sl_s)], dim=1)
+    field = u16le_bytes if len_bytes == 2 else u32le_bytes
+    hdr = torch.cat([u16le_bytes(start), u16le_bytes(length), field(sl_s)],
+                    dim=1)
     one = torch.ones((B,), dtype=torch.int64, device=dev)
     return rowwise_concat([
         (use.to(torch.uint8)[:, None], one),
-        (hdr8, torch.where(use, 8, 0)),
+        (hdr, torch.where(use, 4 + len_bytes, 0)),
         (st_s, torch.where(use, sl_s, 0)),
         (u32le_bytes(tail_len), 4 * one),
         (torch.where(use[:, None], st_n, st_p), tail_len),
@@ -107,8 +111,8 @@ def press_dstall_batch(sig, n, tabs, emax: int = None):
     exceptions in a branch give invalid streams (each branch's nex field
     is exact either way)."""
     ok, start, length = _split_batch(sig, n)
-    stall_sig, n_stall, ns_sig, n_ns = _branch_signals(sig, n, start,
-                                                       length)
+    stall_sig, n_stall, ns_sig, n_ns = branch_signals(sig, n, start, length)
+    n_stall, n_ns = n_stall.clamp(min=1), n_ns.clamp(min=1)
     st_s, sl_s = press_srans2_batch(stall_sig, n_stall, tabs, emax)
     st_n, sl_n = press_srans2_batch(ns_sig, n_ns, tabs, emax)
     st_p, sl_p = press_srans2_batch(sig, n, tabs, emax)
@@ -119,16 +123,19 @@ def press_dstall_batch(sig, n, tabs, emax: int = None):
                            st_p, sl_p, 13 + st_s.shape[1] + 8)
 
 
-def _split_fields(stream):
-    """(use, start, length, stall_len, ns_off) of each row's header; the
-    fields are 0 and ns_off 5 where the flag byte is 0."""
+def _split_fields(stream, len_bytes: int = 4):
+    """(use, start, length, stall_len, ns_off) of each row's header, its
+    stall_len field a u32 (or a u16 for len_bytes 2); the fields are 0
+    and ns_off 5 where the flag byte is 0."""
     zero = torch.zeros((stream.shape[0],), dtype=torch.int64,
                        device=stream.device)
     use = stream[:, 0] > 0
     start = torch.where(use, read_u16le(stream, zero + 1), 0)
     length = torch.where(use, read_u16le(stream, zero + 3), 0)
-    stall_len = torch.where(use, read_u32le(stream, zero + 5), 0)
-    return use, start, length, stall_len, torch.where(use, 13 + stall_len, 5)
+    read = read_u16le if len_bytes == 2 else read_u32le
+    stall_len = torch.where(use, read(stream, zero + 5), 0)
+    return (use, start, length, stall_len,
+            torch.where(use, 9 + len_bytes + stall_len, 5))
 
 
 def _interleave(d_stall, d_ns, n, start, length, L: int):

@@ -39,10 +39,10 @@ from honours_tpu_torch.engine.drans import (
 )
 from honours_tpu_torch.engine.dstall import (
     _assemble_split,
-    _branch_signals,
     _interleave,
     _split_batch,
     _split_fields,
+    branch_signals,
 )
 from honours_tpu_torch.engine.permute import rowwise_shift_left
 from honours_tpu_torch.shard.mesh import all_reduce, any_across
@@ -88,7 +88,8 @@ def press_dstall_drans_batch(sig, n, tabs, emax: int = None, group=None,
     use = torch.zeros_like(ok)
     if any_across([ok.any()], group)[0]:
         stall_sig, n_stall, ns_sig, n_ns = _by_rows(
-            _branch_signals, parts, sig, n, start, length)
+            branch_signals, parts, sig, n, start, length)
+        n_stall, n_ns = n_stall.clamp(min=1), n_ns.clamp(min=1)
         st_s, sl_s = press_drans_batch(stall_sig, n_stall, tabs, emax,
                                        member=ok, group=group, rows=rows)
         st_n, sl_n = press_drans_batch(ns_sig, n_ns, tabs, emax, member=ok,

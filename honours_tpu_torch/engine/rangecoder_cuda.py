@@ -29,13 +29,9 @@ from honours_tpu_torch.engine.rangecoder import (
 )
 
 _ENCODE = kernel("rc_encode", "rangecoder.cu", "htt_rc_encode",
-                 "lpllpplplpppplp")
+                 "lpllpplplppppp")
 _DECODE = kernel("rc_decode", "rangecoder.cu", "htt_rc_decode",
-                 "lpllpplppppplp")
-
-#: rows (threads) a block: one, so that each read's chain has an SM's
-#: L1 and schedulers to itself
-ROWS_PER_BLOCK = 1
+                 "lpllpplpppppp")
 
 _DEVICE_TABLES: dict = {}
 
@@ -94,8 +90,7 @@ def rc_encode_launch(data, n, model: str, slack: int = SLACK):
     probs, o2, w = _scratch(model, B, dev)
     _ENCODE(m, data.data_ptr(), B, N, n.data_ptr(), out.data_ptr(), W,
             length.data_ptr(), slack, probs.data_ptr(), o2.data_ptr(),
-            w.data_ptr(), _tables(dev).data_ptr(), ROWS_PER_BLOCK,
-            stream_ptr(dev))
+            w.data_ptr(), _tables(dev).data_ptr(), stream_ptr(dev))
     return out, length
 
 
@@ -134,5 +129,5 @@ def rc_decode(stream, off, count, N: int, model: str):
     probs, o2, w = _scratch(model, B, dev)
     _DECODE(m, stream.data_ptr(), B, M, off.data_ptr(), count.data_ptr(), N,
             out.data_ptr(), probs.data_ptr(), o2.data_ptr(), w.data_ptr(),
-            _tables(dev).data_ptr(), ROWS_PER_BLOCK, stream_ptr(dev))
+            _tables(dev).data_ptr(), stream_ptr(dev))
     return out

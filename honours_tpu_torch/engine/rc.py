@@ -57,6 +57,16 @@ from honours_tpu_torch.transforms.core import unzigdelta, zigdelta
 MODEL = {"rc": "o0", "rcc": "o1", "rccm": "cm"}
 
 
+def coder_rows(kind: str) -> tuple:
+    """(byte model, coder rows a bucket row) of a runner kind of this
+    module ("rc_vb_zd:<coder>:<vb>", "rc_vb:<coder>:<vb>", "rc_zd",
+    "rccm_svb:<inner>", "rc_submin"): one coder row each."""
+    family, _, sub = kind.partition(":")
+    if family in ("rc_vb_zd", "rc_vb"):
+        return MODEL[sub.partition(":")[0]], 1
+    return ("o0" if family == "rc_zd" else "cm"), 1
+
+
 def _as_i16(v):
     """uint16-valued ints -> int16 (wrap)."""
     v = v.to(torch.int64) & 0xFFFF

@@ -98,6 +98,7 @@ from honours_tpu_torch.engine.rice import (
     press_rice_vb_zd_batch,
 )
 from honours_tpu_torch.engine.rangecoder import STATE_BYTES
+from honours_tpu_torch.engine.stall_fz import coder_rows as stall_fz_coder_rows
 from honours_tpu_torch.engine.stall_fz import (
     depress_stall_fz_batch,
     press_stall_fz_batch,
@@ -167,8 +168,7 @@ CODECS = {**ENGINE_CODECS, **RC_CODECS}
 #: the svb families and rc_zd have no cap
 _NEX_AT = {"drans": 4, "srans": 2, "srans2": 2, "srans3": 2, "shuff": 2,
            "vb_zd": 2, "rice_zd": 2, "exzd": 12, "dstall": 2,
-           "dstall_drans": 4, "rc_vb_zd": 2, "rc_vb": 0, "rc_submin": 2,
-           "stall_fz": None}
+           "dstall_drans": 4, "rc_vb_zd": 2, "rc_vb": 0, "rc_submin": 2}
 
 #: capped kind -> (device tables, batched press, batched depress)
 _CAPPED = {
@@ -216,16 +216,19 @@ BYTES_A_SLOT = {
     "rccm_svb_zd": 87, "rccm_svb12_zd": 27, "rccm_vbbe21_submin": 43,
     "rccm_svbbe21_zd": 62, "dstall_fz_1500": 61, "dstall_fz": 61,
 }
+def _coder_state(kind: str) -> int:
+    """Device bytes of a range-coder kind's model state a bucket row:
+    rangecoder.STATE_BYTES for each coder row its engine launches."""
+    family, _, sub = kind.partition(":")
+    model, rows = (stall_fz_coder_rows(sub) if family == "stall_fz"
+                   else rc.coder_rows(kind))
+    return rows * STATE_BYTES[model]
+
+
 #: bytes of device memory a bucket row takes beside its slots: the range
-#: coder's model state (rangecoder.STATE_BYTES) for each coder row the
-#: codec launches a bucket row (one; the stall-fz codecs code their
-#: branches in one launch: the nonstall and the stall, and dstall_fz the
-#: whole read too); 0 for the engine codecs
-_CODER_ROWS = {"rccm_svbbe21_zd": 2, "dstall_fz_1500": 2, "dstall_fz": 3}
-ROW_BYTES = {**{name: 0 for name in ENGINE_CODECS}, **{
-    name: _CODER_ROWS.get(name, 1) * STATE_BYTES[rc.MODEL[
-        "rccm" if name.startswith("dstall") else name.split("_")[0]]]
-    for name in RC_CODECS}}
+#: coder's model state; 0 for the engine codecs
+ROW_BYTES = {**{name: 0 for name in ENGINE_CODECS},
+             **{name: _coder_state(kind) for name, kind in RC_CODECS.items()}}
 #: the share of the device's memory one slice's working set may take;
 #: the rest holds what a bucket keeps on the device whole (for drans and
 #: dstall_drans its signal, branch signals and streams) and the

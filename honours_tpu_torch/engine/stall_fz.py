@@ -22,6 +22,8 @@ Where the host codec raises struct.error (a start or length outside
 uint16 after the trim, a stall blob past 65,535 bytes) these raise
 ValueError.  The branches of a batch (stall, nonstall and, for
 dstall_fz, the whole read of each split row) share one coder launch.
+The branch signals, the stream's assembly and its header reads are
+engine/dstall.py's, with the stall_len field a u16 here.
 Streams equal the host codec's for every read of n >= 1, and its press
 bytes for n = 0.
 """
@@ -33,16 +35,11 @@ import struct
 import torch
 import torch.nn.functional as F
 
-from honours_tpu_torch.engine.bits import (
-    read_u16le,
-    rowwise_concat,
-    u16le_bytes,
-    u32le_bytes,
-)
-from honours_tpu_torch.engine.dstall import _interleave
-from honours_tpu_torch.engine.permute import (
-    monotone_compact,
-    rowwise_shift_left,
+from honours_tpu_torch.engine.dstall import (
+    _assemble_split,
+    _interleave,
+    _split_fields,
+    branch_signals,
 )
 from honours_tpu_torch.engine.rc import (
     assemble,
@@ -65,6 +62,13 @@ def threshold_of(kind: str) -> int:
     return cfg.dstall_threshold if kind == "dstall" else cfg.stall_threshold
 
 
+def coder_rows(kind: str) -> tuple:
+    """(byte model, coder rows a bucket row) of press_stall_fz_batch's
+    one coder launch: the nonstall and the stall branch, and for
+    dstall_fz ("pick") the whole read too."""
+    return "cm", 3 if kind == "pick" else 2
+
+
 def split_batch(sig, n, threshold: int):
     """(ok [B] bool, start [B], length [B] int64): each row's split as
     codecs/stall.py _stall_press takes it, 0 where there is none.
@@ -83,23 +87,6 @@ def split_batch(sig, n, threshold: int):
         raise ValueError(f"stall split of rows {rows[:8]} leaves uint16 "
                          "(start or length after the margin trim)")
     return ok, torch.where(ok, start, 0), torch.where(ok, length, 0)
-
-
-def branch_signals(sig, n, start, length):
-    """(stall_sig, n_stall, ns_sig, n_ns): read[start:start + length]
-    moved to column 0, and the read without it, each a Python slice of
-    the read (clipped at n)."""
-    L = sig.shape[1]
-    pos = torch.arange(L, device=sig.device)[None, :]
-    n = n.to(torch.int64)
-    a = torch.minimum(start, n)
-    e = torch.minimum(start + length, n)
-    n_stall = e - a
-    stall = rowwise_shift_left(sig.to(torch.int32), a, L)
-    stall = torch.where(pos < n_stall[:, None], stall, 0).to(torch.int16)
-    keep = (pos < n[:, None]) & ~((pos >= a[:, None]) & (pos < e[:, None]))
-    ns, _ = monotone_compact(sig.to(torch.int32), keep)
-    return stall, n_stall, ns.to(torch.int16), n - n_stall
 
 
 def _scatter_rows(x, rows, B: int):
@@ -148,18 +135,9 @@ def press_stall_fz_batch(sig, n, kind: str, emax: int = None):
         st_p = st_n.index_copy(0, rows, _pad_to(st_w, w))
         sl_p = sl_n.index_copy(0, rows, sl_w)
         use = ok & (1 + 6 + sl_s + 4 + sl_n < 1 + 4 + sl_p)
-    tail = torch.where(use[:, None], st_n, st_p)
-    tail_len = torch.where(use, sl_n, sl_p)
-    hdr6 = torch.cat([u16le_bytes(start), u16le_bytes(length),
-                      u16le_bytes(sl_s)], dim=1)
-    one = torch.ones_like(n)
-    return rowwise_concat([
-        (use.to(torch.uint8)[:, None], one),
-        (hdr6, torch.where(use, 6, 0)),
-        (st_s, torch.where(use, sl_s, 0)),
-        (u32le_bytes(tail_len), 4 * one),
-        (tail, tail_len),
-    ], 11 + st_s.shape[1] + tail.shape[1])
+    return _assemble_split(use, start, length, st_s, sl_s, st_n, sl_n,
+                           st_p, sl_p, 11 + st_s.shape[1] + max(
+                               st_n.shape[1], st_p.shape[1]), len_bytes=2)
 
 
 def depress_stall_fz_batch(stream, n, L: int, emax: int = None):
@@ -168,11 +146,7 @@ def depress_stall_fz_batch(stream, n, L: int, emax: int = None):
     B, M = stream.shape
     n = n.to(torch.int64)
     zero = torch.zeros((B,), dtype=torch.int64, device=stream.device)
-    use = stream[:, 0] > 0
-    start = torch.where(use, read_u16le(stream, zero + 1), 0)
-    length = torch.where(use, read_u16le(stream, zero + 3), 0)
-    stall_len = torch.where(use, read_u16le(stream, zero + 5), 0)
-    ns_base = torch.where(use, 11 + stall_len, 5)
+    use, start, length, _, ns_base = _split_fields(stream, len_bytes=2)
     n_ns = (n - length).clamp(min=0)
     rows = torch.nonzero(use).flatten()
     pn = vb_zd_parse(stream, n_ns, "vbbe21", L, emax, ns_base)

@@ -1629,6 +1629,38 @@ def test_rc_decode_cut_streams_offsets_and_caps(smoke, model):
         RC.rc_encode(d, nn, model, slack=0)
 
 
+@pytest.mark.parametrize("model", ["o0", "o1", "cm"])
+def test_rc_kernels_match_c_coder_at_main_path_rows(smoke, model):
+    """D on the main path's [256, 65536] bucket (chip_smoke.make_bucket's
+    rccm_vbbe21_zd residual bytes, rows of up to ~65,000 bytes): every
+    row's stream equals the C coder's (honours_tpu.native, the host
+    codecs' coder), and E gives every row back from the C's streams."""
+    from honours_tpu import native
+    from honours_tpu_torch.engine import rangecoder_cuda as RC
+    from honours_tpu_torch.engine.rc import vb_zd_parts
+
+    sig, sn = smoke.make_bucket(0)
+    _, _, data, n = vb_zd_parts(sig, sn, "vbbe21", sig.shape[1])
+    data, n = data.contiguous(), n.to(torch.int32).contiguous()
+    counts = n.tolist()
+    assert len(counts) == 256 and max(counts) > 60_000
+    c_encode = {"o0": native.rc0_encode, "o1": native.rc1_encode,
+                "cm": native.rccm_encode}[model]
+    rows_ = data.cpu().numpy()
+    want = [c_encode(rows_[i, :k]) for i, k in enumerate(counts)]
+    out, length = RC.rc_encode(data, n, model)
+    got, got_len = out.cpu().numpy(), length.tolist()
+    bad = [i for i, w in enumerate(want)
+           if got[i, :got_len[i]].tobytes() != w]
+    assert not bad, f"rows {bad[:8]} differ from the C coder's streams"
+    stream = np.zeros((len(want), max(map(len, want))), np.uint8)
+    for i, w in enumerate(want):
+        stream[i, :len(w)] = np.frombuffer(w, np.uint8)
+    back = RC.rc_decode(torch.from_numpy(stream).cuda(), torch.zeros_like(n),
+                        n, data.shape[1], model)
+    _same(back, data)
+
+
 def _rc_reads():
     from honours_tpu_torch.synth import synthesize_corpus
 
