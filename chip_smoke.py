@@ -22,8 +22,13 @@
    Kernel A (the stall segmenter, find_stall), kernel B (rice_decode,
    on rice_vbbe21_zd's residual streams of the bucket) and kernel C
    (huffman_decode, on shuffman_vbbe21_zd's bit streams of the bucket)
-   are held and timed the same way.  Then does the same for kernel 1's
-   five entries, o1_fc, rans_encode, o1_decode (both drans phases),
+   are held and timed the same way, and so are phase 11's kernels F
+   (rccdf_encode) and G (rccdf_decode) on rccdf_vbbe21_zd's residual
+   bytes of the bucket, each beside its chain floor (the longest row's
+   lane steps at RCCDF_STEP_CYCLES), H (huffman_build) on their
+   histograms and C2 (huffman_decode_rows) on huffman_vbbe21_zd's bodies
+   of them, their plain versions on the card.  Then does the same for
+   kernel 1's five entries, o1_fc, rans_encode, o1_decode (both drans phases),
    o0_decode, svb16_encode and svb16_decode (zd on and off), n4_decode,
    find_stall, rice_decode and huffman_decode on one read of L = 262144
    (the one-row shape; each plain version runs once there), for
@@ -146,9 +151,17 @@
    1,028-read runs only); a BLOW5 through the CLI with the two headline
    codecs; the card's streams of four reads (rc_check_reads, a stall
    read among them) equal to the CPU route's for all 25.
-11. Prints one {"kernels": [...]} line (D and E with cm on the bucket's
-   4 longest rows, the [256, 65536] times beside them), then
-   {"ok": true, "device": ...}.
+11. The per-read entropy codecs (engine.runner.ENTROPY_CODECS: rccdf,
+   huffman and shuffman over the vb containers) over every main-path
+   read, each with every launch count at 0 just before: every read back
+   bit for bit, its kernels launched (F and G for rccdf, H and C2 for
+   huffman, C for shuffman; kernel 1's five entries; svb16's two for
+   vbsse21), its ratio and encode and decode rates logged; the card's
+   streams of rc_check_reads equal to the CPU route's for all 11, which
+   run in phase 10's worker processes.
+12. Prints one {"kernels": [...]} line (D and E with cm on the bucket's
+   4 longest rows, the [256, 65536] times beside them; F and G with
+   their chain floors), then {"ok": true, "device": ...}.
 
 `--kernels-only` stops after step 2 and prints no result line: it times
 the kernels of whichever honours_tpu_torch is imported, e.g. an older
@@ -425,6 +438,82 @@ def huffman_case(sig, n):
                                                        tabs),
             lambda: H.huffman_decode_plain(stream, off, cnt, L, tabs),
             bits + B * L + 12 * B, 10 * int(cnt.sum()), None)
+
+
+#: a lane step's dependent cycles in the chain-floor model of kernels F
+#: and G (csrc/rccdf.cu): the encode's compare, shift, 32-bit division
+#: (about 25 cycles) and multiply-add on the state; the decode's table
+#: lookups in shared memory (slot -> symbol, then its frequency and low
+#: end, about 30 each), its multiply-add and compare, and a refill byte
+#: from L1 (about 33)
+RCCDF_STEP_CYCLES = {"rccdf_encode": 40, "rccdf_decode": 100}
+
+
+def entropy_cases(sig, n):
+    """(name, kernel call, plain call, bytes, ops, library call[, chain
+    floor ms]) of kernels F, G, H and C2 on the bucket [B, L]: F and G on
+    rccdf_vbbe21_zd's residual bytes (the data read and the body written,
+    or the body read and [B, L] bytes written, and the tables), H on
+    their histograms (counts read, the table written; a heap's 2 P log2
+    P comparisons a row), C2 on huffman_vbbe21_zd's bodies of those
+    bytes, in rows as wide as the longest (the bits read, [B, L] bytes
+    written, the tables; 10 operations a symbol, as C).  F: 12
+    operations a coded byte, G: 10; their chain floors, the longest
+    row's ceil(n / 16) lane steps at RCCDF_STEP_CYCLES.  Each plain
+    version runs on the card."""
+    from honours_tpu_torch.engine import huffdec_cuda as H
+    from honours_tpu_torch.engine import huffman as Hf
+    from honours_tpu_torch.engine import rccdf as R
+    from honours_tpu_torch.engine import rccdf_cuda as RC
+    from honours_tpu_torch.engine.permute import rowwise_concat
+    from honours_tpu_torch.engine.rc import vb_zd_parts
+
+    B, L = sig.shape
+    _, _, data, dlen = vb_zd_parts(sig, n, "vbbe21", L)
+    data, dlen = data.contiguous(), dlen.to(torch.int32).contiguous()
+    nsum, longest = int(dlen.sum()), int(dlen.max())
+    floor = {k: -(-longest // 16) * c / SM_HZ * 1e3
+             for k, c in RCCDF_STEP_CYCLES.items()}
+    hist = R.byte_histogram(data, dlen)
+    freqs = R.fit_freqs_batch(hist).to(torch.int32)
+    cum = R.cum_of(freqs).to(torch.int32)
+    body, blen = RC.rccdf_encode(data, dlen, freqs, cum)
+    zero = torch.zeros_like(dlen)
+    segs, W = Hf.encode_huffman_batch(data, dlen)
+    st, slen = rowwise_concat(segs, W)
+    st = st[:, : int(slen.max())].contiguous()
+    t = Hf.parse_tables_batch(st, zero.to(torch.int64))
+    end = t["end"].to(torch.int32)
+    cnt = torch.minimum(t["data_bytes"], dlen.to(torch.int64)).to(
+        torch.int32)
+    P = (hist > 0).sum(dim=1).to(torch.float64)
+    heap_ops = int((2 * P * torch.log2(P.clamp(min=2)).ceil()).sum())
+    log(f"phase 11 rows [{B}, {L}]: {nsum} residual bytes, longest row "
+        f"{longest}; rccdf bodies {int(blen.sum())} bytes, huffman bodies "
+        f"{int(slen.sum())} bytes, longest code "
+        f"{int(t['lengths'].max())} bits")
+    table = 256 * 8 * B
+    return [
+        ("rccdf_encode", lambda: RC.rccdf_encode(data, dlen, freqs, cum),
+         lambda: R.rccdf_encode_plain(data, dlen, freqs, cum),
+         nsum + int(blen.sum()) + table + 8 * B, 12 * nsum, None,
+         floor["rccdf_encode"]),
+        ("rccdf_decode",
+         lambda: RC.rccdf_decode(body, zero, dlen, freqs, L),
+         lambda: R.rccdf_decode_plain(body, zero, dlen, freqs, L),
+         int(blen.sum()) + B * L + table // 2 + 8 * B, 10 * nsum, None,
+         floor["rccdf_decode"]),
+        ("huffman_build", lambda: Hf.huffman_build(hist),
+         lambda: Hf.huffman_build_plain(hist), (8 + 12) * 256 * B,
+         heap_ops, None),
+        ("huffman_decode_rows",
+         lambda: H.huffman_decode_rows(st, end, cnt, L, t["lengths"],
+                                       t["codes"]),
+         lambda: H.huffman_decode_rows_plain(st, end, cnt, L, t["lengths"],
+                                             t["codes"]),
+         int((slen - t["end"]).clamp(min=0).sum()) + B * L + 12 * 256 * B
+         + 12 * B, 10 * int(cnt.sum()), None),
+    ] if longest else []
 
 
 def walk_steps(row, count: int, tabs) -> tuple[int, int]:
@@ -740,7 +829,7 @@ def kernel_cases(seed: int):
         stall_case(sig, n, f"[{B}, {L}]"),
         rice_case(sig, n),
         huffman_case(sig, n),
-    ]
+    ] + entropy_cases(sig, n)
     shapes = (f"[{B}, {L}]", f"[{B * K}, {Smax}] (drans phase-grid merge)")
     return cases, options, merge, shapes, vb_cases(sig, n)
 
@@ -1000,6 +1089,12 @@ REPLACES = {
     "find_stall": "honours_tpu/segment/__init__.py:132",
     "rice_decode": "honours_tpu/codecs/rice.py:66",
     "huffman_decode": "honours_tpu/native/huffdec.c:13",
+    # phase 11: no TPU kernel either, the host's rccdf coder, Huffman
+    # table build and per-read Huffman decode
+    "rccdf_encode": "honours_tpu/kernels/rans.py:67",
+    "rccdf_decode": "honours_tpu/kernels/rans.py:126",
+    "huffman_build": "honours_tpu/tables/huffman.py:55",
+    "huffman_decode_rows": "honours_tpu/kernels/huffman_np.py:56",
 }
 
 #: kernels each main path must launch
@@ -1035,14 +1130,16 @@ PATHS = {
 
 
 SLOW = ("rans_encode", "o1_decode", "o0_decode", "n4_decode", "find_stall",
-        "rice_decode", "huffman_decode")
+        "rice_decode", "huffman_decode", "huffman_decode_rows")
 
 
-def time_case(name, kern, plain, nbytes, ops, library) -> dict:
+def time_case(name, kern, plain, nbytes, ops, library,
+              floor_ms: float = None) -> dict:
     """Hold one kernel call against its plain version (tolerance 0), also
     after the timed graph's replays, and time it, its plain version and
     its library yardstick; its bound from the bytes and operations of
-    this call.  `name` is the kernel's, or "kernel option"."""
+    this call, and its chain floor where the case gives one.  `name` is
+    the kernel's, or "kernel option"."""
     from honours_tpu_torch._build import KERNELS
 
     kernel = name.split()[0]
@@ -1069,6 +1166,7 @@ def time_case(name, kern, plain, nbytes, ops, library) -> dict:
         library_ms = graph_ms(library, reps)[0]
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT_OPS_PER_S * 1e3
+    floor = {} if floor_ms is None else {"chain_floor_ms": floor_ms}
     return {
         "name": name, "route": "cuda",
         "source": "honours_tpu_torch/csrc/" + KERNELS[kernel].source,
@@ -1076,7 +1174,7 @@ def time_case(name, kern, plain, nbytes, ops, library) -> dict:
         "matches_plain": True, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": library_ms, "call_ms": call_ms,
+        "library_ms": library_ms, "call_ms": call_ms, **floor,
     }
 
 
@@ -1087,7 +1185,10 @@ def log_case(shape: str, r: dict) -> None:
         f"({r['call_ms']:.4f} ms a call from the host) vs plain "
         f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
         f"({r['bound_by']})"
-        + (f", library {r['library_ms']:.4f} ms" if r["library_ms"] else ""))
+        + (f", library {r['library_ms']:.4f} ms" if r["library_ms"] else "")
+        + (f", chain floor {r['chain_floor_ms']:.4f} ms, "
+           f"{r['ms'] / r['chain_floor_ms']:.2f}x the floor"
+           if "chain_floor_ms" in r else ""))
 
 
 def check_kernels(seed: int) -> dict:
@@ -2193,10 +2294,12 @@ def rc_check_reads(seed: int, reads) -> list:
     return [reads[-4], reads[-3], reads[0][:1000].copy(), stall]
 
 
-def rc_path(codec: str, reads, smi: str, rates: bool = True) -> dict:
+def rc_path(codec: str, reads, smi: str, rates: bool = True,
+            want: set = None, tag: str = "rc") -> dict:
     """Press and depress `reads` through the runner on the card, every
-    launch count at 0 just before; every read back bit for bit and D and
-    E launched (and kernel A for the stall codecs).  Logs the ratio,
+    launch count at 0 just before; every read back bit for bit and the
+    kernels `want` launched (by default D and E, and kernel A for the
+    stall codecs).  Logs the ratio,
     the rates (or, without `rates`, the times: of a small set, where
     one-row re-presses and short reads take most of them, no
     throughput) and, for the stall codecs, the split rows.  Returns the
@@ -2223,9 +2326,10 @@ def rc_path(codec: str, reads, smi: str, rates: bool = True) -> dict:
            if not np.array_equal(a, b)]
     if bad:
         raise AssertionError(f"{codec}: reads {bad[:8]} did not round-trip")
-    want = {"rc_encode", "rc_decode"}
-    if "stall" in codec:
-        want.add("find_stall")
+    if want is None:
+        want = {"rc_encode", "rc_decode"}
+        if "stall" in codec:
+            want.add("find_stall")
     idle = sorted(k for k in want if launches[k] == 0)
     if idle:
         raise AssertionError(f"{codec}: kernels not launched: {idle}")
@@ -2235,11 +2339,10 @@ def rc_path(codec: str, reads, smi: str, rates: bool = True) -> dict:
              f"decode {t2 - t1:.3f} s {raw / (t2 - t1) / 1e6:.1f} MB/s"
              if rates else f"encode {t1 - t0:.3f} s, decode {t2 - t1:.3f} s "
              "(a small set: no throughput)")
-    log(f"rc {codec}: all {len(reads)} reads round-trip bit for bit; ratio "
-        f"{raw / sum(map(len, streams)):.6f}; {times}{split} ({smi}); "
+    log(f"{tag} {codec}: all {len(reads)} reads round-trip bit for bit; "
+        f"ratio {raw / sum(map(len, streams)):.6f}; {times}{split} ({smi}); "
         "launches "
-        f"rc_encode {launches['rc_encode']}, rc_decode "
-        f"{launches['rc_decode']}")
+        + ", ".join(f"{k} {launches[k]}" for k in sorted(want)))
     return launches
 
 
@@ -2320,6 +2423,49 @@ def rc_phase(seed: int, reads, cpu, smi: str) -> dict:
     return total
 
 
+#: kernels each phase-11 codec must launch besides kernel 1's five
+#: entries (every exception block) and, for vbsse21, svb16's two (its
+#: exception values)
+ENTROPY_PATHS = {
+    **{f"rccdf_{k}_zd": {"rccdf_encode", "rccdf_decode"}
+       for k in ("vbe21", "vbbe21", "vbsbe21", "vbsse21")},
+    **{f"huffman_{k}_zd": {"huffman_build", "huffman_decode_rows"}
+       for k in ("vbe21", "vbbe21", "vbsbe21", "vbsse21")},
+    **{f"shuffman_{k}_zd": {"huffman_decode"}
+       for k in ("vbe21", "vbsbe21", "vbsse21")},
+}
+
+
+def entropy_phase(reads, check, cpu, smi: str) -> dict:
+    """Phase 11: the 11 per-read entropy codecs (engine.runner
+    .ENTROPY_CODECS) over every main-path read, each with every launch
+    count at 0 just before (rc_path: every read back bit for bit, its
+    kernels and kernel 1 launched, svb16 for vbsse21; its ratio and
+    rates logged); the card's streams of `check` (rc_check_reads) equal
+    to the CPU route's (`cpu`: futures by codec).  Returns the
+    launches."""
+    import collections
+
+    from honours_tpu_torch.engine.runner import press_signals
+
+    total = collections.Counter()
+    t = time.perf_counter()
+    for codec, kernels in ENTROPY_PATHS.items():
+        want = kernels | KERNEL_1
+        if "vbsse21" in codec:
+            want |= {"svb16_encode", "svb16_decode"}
+        total.update(rc_path(codec, reads, smi, want=want, tag="entropy"))
+    for codec, f in cpu.items():
+        if press_signals(check, codec) != f.result():
+            raise AssertionError(f"{codec}: the card's streams differ from "
+                                 "the CPU route's")
+    log(f"entropy: the card's streams of {len(check)} reads (n = "
+        f"{[r.size for r in check]}) equal the CPU route's for all "
+        f"{len(cpu)} per-read entropy codecs; phase 11 took "
+        f"{time.perf_counter() - t:.1f} s")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2350,10 +2496,10 @@ def main(argv=None) -> int:
 
     from concurrent.futures import ProcessPoolExecutor
 
-    from honours_tpu_torch.engine.runner import RC_CODECS
+    from honours_tpu_torch.engine.runner import ENTROPY_CODECS, RC_CODECS
 
-    # phase 10's plain versions and CPU routes run on the host in 3
-    # worker processes beside phases 3-9
+    # phase 10's plain versions and CPU routes (and phase 11's CPU
+    # routes) run on the host in 3 worker processes beside phases 3-9
     with ProcessPoolExecutor(max_workers=3, mp_context=multiprocessing
                              .get_context("spawn")) as rc_pool:
         rc_pending = rc_kernels_start(args.seed, rc_pool, smi)
@@ -2361,6 +2507,8 @@ def main(argv=None) -> int:
         check = rc_check_reads(args.seed, reads)
         rc_cpu = {c: rc_pool.submit(cpu_rc_press, check, c)
                   for c in sorted(RC_CODECS)}
+        entropy_cpu = {c: rc_pool.submit(cpu_rc_press, check, c)
+                       for c in sorted(ENTROPY_CODECS)}
         results.update({k: {"launches": 0} for k in RC_REPLACES})
         log(f"main path: {len(reads)} reads, {sum(r.size for r in reads)} "
             f"samples, {sum(2 * r.size for r in reads) / 1e6:.1f} MB int16")
@@ -2378,6 +2526,8 @@ def main(argv=None) -> int:
         for k, c in long_phase(args.seed, smi).items():
             results[k]["launches"] += c
         for k, c in rc_phase(args.seed, reads, rc_cpu, smi).items():
+            results[k]["launches"] += c
+        for k, c in entropy_phase(reads, check, entropy_cpu, smi).items():
             results[k]["launches"] += c
         held = rc_kernels_held(rc_pending, smi)
     for k, r in held.items():

@@ -1,4 +1,5 @@
-// Kernel C: static-Huffman decode of one LSB-first bit stream per read.
+// Kernel C: static-Huffman decode of one LSB-first bit stream per read;
+// and C2, its entry with a table of its own for each read.
 //
 // No TPU kernel stands behind it: honours_tpu decodes shuffman_vbbe21_zd
 // only on the host (honours_tpu/codecs/huffman.py:49
@@ -39,6 +40,22 @@
 // emit take two symbols a step where l1 holds both; a code longer than
 // 12 bits (2.4% of them) reads lut in L2 (a second level for them in
 // shared memory gained nothing on the H100: PERF.md, row C).
+//
+// C2 (huffman_decode_rows) keeps C's contract and walk with a table for
+// each row (huffman_vb*_zd's per-read tables, honours_tpu/codecs/
+// huffman.py:39 huffman_decode_memory on the host: native/huffdec.c:13's
+// LUT walk, and a search of the codes above 24 bits), codes of 1 to 32
+// bits a symbol.  A row's table comes as lengths (-1 for an absent
+// symbol) and codes; entries of length 0 or above 32, or with code bits
+// above their length, never match, except that a table whose present
+// symbols all have length 0 (a lone symbol's) decodes count copies of
+// its lowest one.  The block builds the row's l1 in shared memory (as C's,
+// from the codes of up to 12 bits) and, for the longer codes, a list
+// sorted by their low 12 bits: where a 12-bit window starts no short code
+// but starts long ones, its l1 word holds their run in the list, start |
+// count << 16 (length bits 0), and the step searches that run.  The tail
+// takes the row's zero-window code.  For a table that is not prefix-free,
+// which code a window takes is unspecified.
 //
 // Output ownership: stated in common.cuh (htt_chunked): each symbol byte
 // is written by the thread whose chunk holds the symbol's code, in words
@@ -128,7 +145,184 @@ __global__ void __launch_bounds__(THREADS, 2)
   if (threadIdx.x == 0) got[b] = static_cast<int>(n);
 }
 
+// C2's code: a row's l1 and its long codes, in shared memory
+constexpr int SYMS = 256;
+struct RowHuffman {
+  const unsigned* l1;
+  const unsigned* lcode;  // the long codes, sorted by their low 12 bits
+  const unsigned* lmeta;  // sym | len << 8 of each
+  unsigned limit;
+  unsigned zlen, zsym;  // the zero window's code (zlen 0: none)
+
+  // the long code at window w, whose l1 word is e; false where none
+  __device__ __forceinline__ bool search(unsigned w, unsigned e, unsigned& n,
+                                         unsigned& sym) const {
+    const unsigned a = e & 0xFFu, z = a + ((e >> 16) & 0x1FFu);
+    for (unsigned i = a; i < z; ++i) {
+      const unsigned m = lmeta[i], L = m >> 8;
+      const unsigned mask = L >= 32 ? ~0u : (1u << L) - 1u;
+      if ((w & mask) == lcode[i]) {
+        n = L;
+        sym = m & 0xFFu;
+        return true;
+      }
+    }
+    return false;
+  }
+  __device__ __forceinline__ unsigned step(const Source& s, unsigned p,
+                                           unsigned& len1, unsigned& len,
+                                           unsigned& sym) const {
+    const unsigned w = s.peek32(p);
+    const unsigned e = l1[w & L1_MASK];
+    unsigned n = (e >> 8) & 31;
+    if (n == 0) {  // a code longer than 12 bits, or none
+      if (!search(w, e, n, sym) || p + n > limit) return 0;
+      len1 = len = n;
+      return 1;
+    }
+    if (p + n > limit) return 0;
+    len1 = len = n;
+    sym = e & 0xFFu;
+    const unsigned n12 = e >> 24;
+    if (n12 == 0 || p + n12 > limit) return 1;
+    len = n12;
+    sym |= (e >> 8) & 0xFF00u;
+    return 2;
+  }
+  __device__ __forceinline__ void tail(unsigned e, unsigned& n,
+                                       unsigned& sym) const {
+    n = zlen ? (limit - e) / zlen : 0u;
+    sym = zsym;
+  }
+};
+
+// C2's shared memory before the decode's words: l1, the long list
+// (codes, metas), each symbol's sort key, and 4 words of the row's
+// scalars
+constexpr int ROW_TABLE_WORDS = L1_WORDS + 3 * SYMS + 4;
+
+__global__ void __launch_bounds__(THREADS, 2)
+    huffman_decode_rows_kernel(const uint8_t* __restrict__ stream,
+                               long long M, const int* __restrict__ off,
+                               const int* __restrict__ count, int N,
+                               const int* __restrict__ lengths,
+                               const long long* __restrict__ codes,
+                               uint8_t* __restrict__ out,
+                               int* __restrict__ got) {
+  extern __shared__ __align__(16) unsigned smem[];
+  unsigned* l1 = smem;
+  unsigned* lcode = l1 + L1_WORDS;
+  unsigned* lmeta = lcode + SYMS;
+  unsigned* key = lmeta + SYMS;
+  unsigned* row_s = key + SYMS;  // lone symbol, zero code's len and sym,
+                                 // and whether a present length is not 0
+  const long long b = blockIdx.x;
+  const unsigned t = threadIdx.x;
+  for (unsigned j = t; j < L1_WORDS; j += THREADS) l1[j] = 0;
+  if (t == 0) {
+    row_s[0] = ~0u;
+    row_s[1] = row_s[2] = row_s[3] = 0;
+  }
+  __syncthreads();
+  // each symbol's entry: short codes fill l1, long ones get a sort key
+  unsigned L = 0, code = 0;
+  bool present = false, usable = false;
+  if (t < SYMS) {
+    const int li = lengths[b * SYMS + t];
+    const long long ci = codes[b * SYMS + t];
+    present = li >= 0;
+    usable = li >= 1 && li <= 32 && ci >= 0 && (ci >> li) == 0;
+    L = usable ? static_cast<unsigned>(li) : 0u;
+    code = static_cast<unsigned>(ci);
+    key[t] = usable && L > L1_BITS ? (code & L1_MASK) << 8 | t : ~0u;
+    if (usable && L <= L1_BITS)
+      for (unsigned k = 0; k < (1u << (L1_BITS - L)); ++k)
+        l1[code | k << L] = t | L << 8;
+    if (present && li != 0) atomicOr(row_s + 3, 1u);  // not all length 0
+  }
+  __syncthreads();
+  if (t < SYMS && present && row_s[3] == 0) atomicMin(row_s, t);
+  // second codes where a window holds two short ones whole
+  unsigned two[L1_WORDS / THREADS];
+#pragma unroll
+  for (int i = 0; i < L1_WORDS / THREADS; ++i) {
+    const unsigned w = t + i * THREADS, e = l1[w], n1 = (e >> 8) & 31;
+    two[i] = e;
+    if (n1 >= 1 && n1 <= L1_BITS) {
+      const unsigned e2 = l1[w >> n1], n2 = (e2 >> 8) & 31;
+      if (n2 >= 1 && n1 + n2 <= L1_BITS)
+        two[i] = e | (e2 & 0xFFu) << 16 | (n1 + n2) << 24;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < L1_WORDS / THREADS; ++i) l1[t + i * THREADS] = two[i];
+  __syncthreads();
+  // the long codes sorted by key; a run's first marks its window in l1
+  if (t < SYMS && key[t] != ~0u) {
+    const unsigned k = key[t], pre = k >> 8;
+    unsigned rank = 0, first = 0, runs = 0;
+    for (int j = 0; j < SYMS; ++j) {
+      const unsigned kj = key[j];
+      rank += kj < k;
+      first += kj != ~0u && (kj >> 8) < pre;
+      runs += kj != ~0u && (kj >> 8) == pre;
+    }
+    lcode[rank] = code;
+    lmeta[rank] = t | L << 8;
+    if (rank == first && l1[pre] == 0) l1[pre] = first | runs << 16;
+  }
+  __syncthreads();
+  if (t == 0) {  // the zero window's code
+    const unsigned e = l1[0];
+    unsigned n = (e >> 8) & 31, sym = e & 0xFFu;
+    if (n == 0 && !RowHuffman{l1, lcode, lmeta, 0, 0, 0}.search(0, e, n, sym))
+      n = 0;
+    row_s[1] = n;
+    row_s[2] = sym;
+  }
+  __syncthreads();
+
+  const unsigned cnt = static_cast<unsigned>(min(max(count[b], 0), N));
+  uint8_t* row = out + b * static_cast<long long>(N);
+  unsigned n;
+  if (row_s[0] != ~0u) {  // a lone symbol of length 0
+    n = cnt;
+    fill(row, 0, cnt, row_s[0]);
+    fill(row, cnt, static_cast<unsigned>(N), 0u);
+  } else {
+    const long long start = min(max(static_cast<long long>(off[b]), 0LL), M);
+    const unsigned limit = static_cast<unsigned>(8 * (M - start));
+    Source src = make_source(stream + b * M, M, start);
+    const RowHuffman code_of{l1, lcode, lmeta, limit, row_s[1], row_s[2]};
+    n = decode_row(code_of, src, 0u, limit, cnt, row,
+                   static_cast<unsigned>(N), smem + ROW_TABLE_WORDS);
+  }
+  if (t == 0) got[b] = static_cast<int>(n);
+}
+
 }  // namespace
+
+HTT_EXPORT int htt_huffman_decode_rows(const void* stream, long long B,
+                                       long long M, const void* off,
+                                       const void* count, long long N,
+                                       const void* lengths, const void* codes,
+                                       void* out, void* got,
+                                       void* cuda_stream) {
+  if (B > 0) {
+    constexpr int bytes = 4 * (ROW_TABLE_WORDS + SMEM_WORDS);
+    static bool smem_set[64];
+    htt_smem_limit_once(huffman_decode_rows_kernel, bytes, smem_set);
+    huffman_decode_rows_kernel<<<static_cast<unsigned>(B), THREADS, bytes,
+                                 static_cast<cudaStream_t>(cuda_stream)>>>(
+        static_cast<const uint8_t*>(stream), M,
+        static_cast<const int*>(off), static_cast<const int*>(count),
+        static_cast<int>(N), static_cast<const int*>(lengths),
+        static_cast<const long long*>(codes), static_cast<uint8_t*>(out),
+        static_cast<int*>(got));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 HTT_EXPORT int htt_huffman_decode(const void* stream, long long B,
                                   long long M, const void* off,

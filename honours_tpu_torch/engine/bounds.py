@@ -11,15 +11,7 @@ host codecs'.
 from __future__ import annotations
 
 from honours_tpu_torch.engine.runner import engine_kind
-
-#: interleaved rANS lanes of the drans/srans stream bound
-#: (honours_tpu/kernels/rans.py K_DEFAULT)
-RANS_K = 16
-
-
-def rans_bound(n: int, K: int = RANS_K) -> int:
-    """honours_tpu/kernels/rans.py rans_bound over n payload bytes."""
-    return 32 + 384 + 8 * K + 2 * n + 64
+from honours_tpu_torch.kernels.rans import rans_bound
 
 
 def vb_bound(nin: int) -> int:
@@ -39,6 +31,7 @@ _BOUND = {
     "srans2": lambda n: 2 + 4 + rans_bound(2 * n),  # srans2.py
     "srans3": lambda n: 2 + rans_bound(2 * n) + 8,  # srans3.py
     "shuff": lambda n: 2 + n * 2 + 2048,  # huffman.py
+    "huffman_zd": lambda n: 2 + n * 2 + 2048,  # huffman.py
     "svb16_zd": svb16_max_encoded_length,  # svb.py Svb12
     "svb16": svb16_max_encoded_length,
     "vb_zd": lambda n: 2 + vb_bound(n - 1),  # vb.py VbZdCodec
@@ -47,7 +40,7 @@ _BOUND = {
     "rice_zd": lambda n: 2 + n * 2 + 1024,  # rice.py
     "dstall": lambda n: 16 + 4 * n + 2048,  # dstall.py
     "dstall_drans": lambda n: 32 + 2 * (2 + 2 + 4 + rans_bound(2 * n)),
-    "rc_vb_zd": lambda n: 2 + rans_bound(2 * n),  # rc.py RcVbZdCodec
+    "rc_vb_zd": lambda n: 2 + rans_bound(2 * n),  # rc.py RcVbZdCodec, rccdf
     "rc_vb": lambda n: rans_bound(2 * n),  # rc.py RcVbCodec
     "rc_zd": lambda n: rans_bound(2 * n),  # rc.py RcZdCodec
     "rccm_svb": lambda n: 4 + rans_bound(5 * n),  # rc.py RccmSvbZdCodec

@@ -1,13 +1,15 @@
 """The zigzag-delta split shared by the vbbe21_zd pipelines, the canned
 tables on a device, and the srans family's and shuffman's pipelines.
 
-Each stream is [zd0:u16][vbbe21 exception block][entropy body]:
+Each stream is [zd0:u16][vbbe21 exception block][entropy body] (for
+shuffman, the exception block of any of four containers):
   srans_vbbe21_zd     v2 body, canned order-0 table (engine/entropy.py)
   srans2_vbbe21_zd    v3 body, canned order-1 table (engine/entropy_o1.py)
   srans3_vbbe21_zd    v4 body, canned nibble tables (engine/entropy_o1n.py)
-  shuffman_vbbe21_zd  [dataBytes:u32 BE][LSB-first bits], canned NA12878
+  shuffman_<vb>_zd    [dataBytes:u32 BE][LSB-first bits], canned NA12878
                       Huffman table (engine/entropy.py encode, kernel C
-                      decode, engine/huffdec_cuda.py)
+                      decode, engine/huffdec_cuda.py), over any container
+                      but vb1e2 (engine/vb_batch.py's exception blocks)
 Byte-exact with honours_tpu's engines and host codecs per row (no
 batch-shared state, so any grouping gives the same bytes); for shuffman,
 with the host codec where honours_tpu's engine cuts a row's bits
@@ -199,31 +201,43 @@ def depress_srans3_batch(stream, n, tabs, L: int, emax: int = None):
         lambda st, off, dl, N: rans_o1n_decode_batch(st, off, dl, tabs, N))
 
 
-def press_shuff_batch(sig, n, tabs, emax: int = None):
-    """Batched shuffman_vbbe21_zd encode; `tabs` from
-    canned_huffman_tables.  Without emax, the exception buffers are
-    uncapped, as in honours_tpu's engine."""
-    def encode_body(data, dlen):
-        blob, blen = shuff_encode_batch(data, dlen, tabs)
-        return [(blob, blen)], blob.shape[1]
+def press_shuff_batch(sig, n, tabs, emax: int = None,
+                      kind: str = "vbbe21"):
+    """Batched shuffman_<kind>_zd encode, kind any vb container but vb1e2
+    (codecs/huffman.py ShuffmanVbZd); `tabs` from canned_huffman_tables.
+    Without emax, the exception buffers are uncapped, as in honours_tpu's
+    engine.  As that engine, an empty read keeps its zd0 and its
+    dataBytes is 0xFFFFFFFF."""
+    from honours_tpu_torch.engine.vb_batch import _exblock_parts  # cycle
 
-    return _press_zd_vbbe21(sig, n, emax, encode_body, 0)
+    B, L = sig.shape
+    emax = emax or L
+    n = n.to(torch.int64)
+    zd0, rest = _zd_parts(sig, n)
+    segs, width, data, data_len = _exblock_parts(kind, rest, n - 1, emax)
+    blob, blen = shuff_encode_batch(data, data_len, tabs)
+    two = torch.full((B,), 2, device=sig.device)
+    return rowwise_concat([(u16le_bytes(zd0), two)] + segs + [(blob, blen)],
+                          2 + width + blob.shape[1])
 
 
-def depress_shuff_batch(stream, n, tabs, L: int, emax: int = None):
-    """Batched shuffman_vbbe21_zd decode -> [B, L] int16 (the contract of
+def depress_shuff_batch(stream, n, tabs, L: int, emax: int = None,
+                        kind: str = "vbbe21"):
+    """Batched shuffman_<kind>_zd decode -> [B, L] int16 (the contract of
     honours_tpu's host ShuffmanVbZd.depress).  Each row decodes its
     dataBytes symbols, at most n - 1 - nex (so an empty read's
     0xFFFFFFFF decodes none); ValueError if a row's walk stops short (a
     cut or corrupt stream)."""
-    def decode_body(st, off, dlen, N):
-        cnt = torch.minimum(read_u32be(st, off), dlen.clamp(min=0))
-        data, got = huffman_decode(
-            st, (off + 4).clamp(0, st.shape[1]).to(torch.int32),
-            cnt.to(torch.int32), N, tabs)
-        if bool((got < cnt).any()):
-            raise ValueError("shuffman stream corrupt: a row decoded fewer "
-                             "symbols than its dataBytes")
-        return data
+    from honours_tpu_torch.engine.rc import vb_zd_fill, vb_zd_parse  # cycle
 
-    return _depress_zd_vbbe21(stream, n, L, emax, decode_body)
+    zero = torch.zeros((stream.shape[0],), dtype=torch.int64,
+                       device=stream.device)
+    p = vb_zd_parse(stream, n, kind, L, emax, zero)
+    cnt = torch.minimum(read_u32be(stream, p["off"]), p["count"])
+    data, got = huffman_decode(
+        stream, (p["off"] + 4).clamp(0, stream.shape[1]).to(torch.int32),
+        cnt.to(torch.int32), L, tabs)
+    if bool((got < cnt).any()):
+        raise ValueError("shuffman stream corrupt: a row decoded fewer "
+                         "symbols than its dataBytes")
+    return vb_zd_fill(p, data, n, L)

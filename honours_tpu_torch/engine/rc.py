@@ -1,10 +1,13 @@
 """Batched range-coder codecs: rc (order-0), rcc (order-1) and rccm
-(context mixing) over the vb exception containers, zd, svb and submin.
+(context mixing) over the vb exception containers, zd, svb and submin,
+and rccdf (static-CDF rANS, engine/rccdf.py) over the vb containers.
 
 The counterparts of honours_tpu/codecs/rc.py's host codecs, whose coder
 is honours_tpu/native/rangecoder.c (here kernels D and E,
-rangecoder_cuda.py).  Wire formats (byte for byte the host codec's for
-every read of n >= 1, and its press bytes for n = 0):
+rangecoder_cuda.py), and, for rccdf, honours_tpu/kernels/rans.py's
+per-read rANS (here kernels F and G, rccdf_cuda.py).  Wire formats
+(byte for byte the host codec's for every read of n >= 1, and its press
+bytes for n = 0):
   <coder>_<vb>_zd    [zd0:u16][<vb> exception block][coder(1-byte data)]
                      (no zd0 for n = 0, as zigdelta of an empty read)
   <coder>_<vb>       [<vb> exception block][coder(1-byte data)], over the
@@ -39,6 +42,10 @@ from honours_tpu_torch.engine.bits import (
 )
 from honours_tpu_torch.engine.pipeline import _zd_merge, _zd_parts
 from honours_tpu_torch.engine.rangecoder_cuda import rc_decode, rc_encode
+from honours_tpu_torch.engine.rccdf import (
+    decode_rccdf_batch,
+    encode_rccdf_batch,
+)
 from honours_tpu_torch.engine.svb16 import (
     _interleave2,
     svb16_decode_batch,
@@ -53,8 +60,9 @@ from honours_tpu_torch.engine.vb_batch import (
 from honours_tpu_torch.engine.vbbe21 import vbbe21_fill_batch
 from honours_tpu_torch.transforms.core import unzigdelta, zigdelta
 
-#: coder name -> byte model of rangecoder.py
-MODEL = {"rc": "o0", "rcc": "o1", "rccm": "cm"}
+#: coder name -> byte model of rangecoder.py ("cdf": rccdf's per-read
+#: static table, engine/rccdf.py)
+MODEL = {"rc": "o0", "rcc": "o1", "rccm": "cm", "rccdf": "cdf"}
 
 
 def coder_rows(kind: str) -> tuple:
@@ -202,6 +210,9 @@ def submin_fill(p, data, n, L: int):
 def press_rc_vb_zd_batch(sig, n, coder: str, kind: str, emax: int = None):
     """<coder>_<kind>_zd (rc.py RcVbZdCodec)."""
     parts = vb_zd_parts(sig, n, kind, emax or sig.shape[1])
+    if coder == "rccdf":
+        body, width = encode_rccdf_batch(parts[2], parts[3])
+        return rowwise_concat(parts[0] + body, parts[1] + width)
     (coded,) = encode_groups([(parts[2], parts[3])], MODEL[coder])
     return assemble(parts, coded)
 
@@ -210,8 +221,11 @@ def depress_rc_vb_zd_batch(stream, n, coder: str, kind: str, L: int,
                            emax: int = None):
     p = vb_zd_parse(stream, n, kind, L, emax,
                     _zeros(stream.shape[0], stream.device))
-    (data,) = decode_groups([(stream, p["off"], p["count"])], L,
-                            MODEL[coder])
+    if coder == "rccdf":
+        data = decode_rccdf_batch(stream, p["off"], p["count"], L)
+    else:
+        (data,) = decode_groups([(stream, p["off"], p["count"])], L,
+                                MODEL[coder])
     return vb_zd_fill(p, data, n, L)
 
 

@@ -32,7 +32,18 @@ with the range coder of kernels D and E:
   rccm_svbbe21_zd, dstall_fz_1500, dstall_fz
                       engine/stall_fz.py  (stall split, rccm branches)
 Their streams are the host codec's for every read (its press bytes for
-n = 0).
+n = 0).  ENTROPY_CODECS are 11 more, the per-read entropy codecs that
+honours_tpu runs on the host only (codecs/rc.py's rccdf, codecs/
+huffman.py), here on the device:
+  rccdf_vbe21_zd, rccdf_vbbe21_zd, rccdf_vbsbe21_zd, rccdf_vbsse21_zd
+                      engine/rc.py, engine/rccdf.py (kernels F and G)
+  huffman_vbe21_zd, huffman_vbbe21_zd, huffman_vbsbe21_zd,
+  huffman_vbsse21_zd  engine/huffman.py (kernel H, and C2 to decode)
+  shuffman_vbe21_zd, shuffman_vbsbe21_zd, shuffman_vbsse21_zd
+                      engine/pipeline.py (as shuffman_vbbe21_zd)
+Their streams are the host codec's for every read of n >= 1 (rccdf's and
+huffman's press bytes for n = 0 too; shuffman's keep their zd0 there, as
+shuffman_vbbe21_zd's engine does).
 
 Two kinds of rows leave the bucket's group and run alone, as one-row
 batches with emax = L (the grouping of a single-read host press, so the
@@ -78,6 +89,11 @@ from honours_tpu_torch.engine.dstall_drans import (
     press_dstall_drans_batch,
 )
 from honours_tpu_torch.engine.exzd import depress_exzd_batch, press_exzd_batch
+from honours_tpu_torch.engine.huffman import STATE_BYTES as HUFF_STATE
+from honours_tpu_torch.engine.huffman import (
+    depress_huffman_batch,
+    press_huffman_batch,
+)
 from honours_tpu_torch.engine import rc
 from honours_tpu_torch.engine.pipeline import (
     canned_huffman_tables,
@@ -98,6 +114,7 @@ from honours_tpu_torch.engine.rice import (
     press_rice_vb_zd_batch,
 )
 from honours_tpu_torch.engine.rangecoder import STATE_BYTES
+from honours_tpu_torch.engine.rccdf import STATE_BYTES as RCCDF_STATE
 from honours_tpu_torch.engine.stall_fz import coder_rows as stall_fz_coder_rows
 from honours_tpu_torch.engine.stall_fz import (
     depress_stall_fz_batch,
@@ -157,8 +174,19 @@ RC_CODECS = {
     "dstall_fz_1500": "stall_fz:dstall",
     "dstall_fz": "stall_fz:pick",
 }
+#: the per-read entropy codecs (honours_tpu/codecs/rc.py's rccdf,
+#: codecs/huffman.py): codec name -> engine kind ("rc_vb_zd:rccdf:<vb>",
+#: "huffman_zd:<vb>", "shuff:<vb>")
+ENTROPY_CODECS = {
+    **{f"rccdf_{k}_zd": f"rc_vb_zd:rccdf:{k}"
+       for k in ("vbe21", "vbbe21", "vbsbe21", "vbsse21")},
+    **{f"huffman_{k}_zd": f"huffman_zd:{k}"
+       for k in ("vbe21", "vbbe21", "vbsbe21", "vbsse21")},
+    **{f"shuffman_{k}_zd": f"shuff:{k}"
+       for k in ("vbe21", "vbsbe21", "vbsse21")},
+}
 #: every codec the port runs
-CODECS = {**ENGINE_CODECS, **RC_CODECS}
+CODECS = {**ENGINE_CODECS, **RC_CODECS, **ENTROPY_CODECS}
 
 #: byte offset of the exception count in each capped family's stream:
 #: [G:u16][zd0:u16][nex:u32]..., [zd0:u16][nex:u32]..., [min:u16]
@@ -168,7 +196,8 @@ CODECS = {**ENGINE_CODECS, **RC_CODECS}
 #: the svb families and rc_zd have no cap
 _NEX_AT = {"drans": 4, "srans": 2, "srans2": 2, "srans3": 2, "shuff": 2,
            "vb_zd": 2, "rice_zd": 2, "exzd": 12, "dstall": 2,
-           "dstall_drans": 4, "rc_vb_zd": 2, "rc_vb": 0, "rc_submin": 2}
+           "dstall_drans": 4, "rc_vb_zd": 2, "rc_vb": 0, "rc_submin": 2,
+           "huffman_zd": 2}
 
 #: capped kind -> (device tables, batched press, batched depress)
 _CAPPED = {
@@ -200,7 +229,9 @@ _GROUPED = ("drans", "dstall_drans")
 #: stall-fz codecs, where the stages' peak passes the coder launch's
 #: (rccm_vbbe21_zd's 61 stands for its three sibling containers, the
 #: submin codec's 43 for the three raw rccm kinds); ROW_BYTES adds the
-#: coder's state.
+#: coder's state.  The per-read entropy codecs': [16, 2^20] (tools/
+#: bytes_a_slot.py --entropy), rccdf's peak the depress's, huffman's and
+#: shuffman's the press's.
 BYTES_A_SLOT = {
     "drans_vbbe21_zd": 64, "srans_vbbe21_zd": 61, "srans2_vbbe21_zd": 61,
     "srans3_vbbe21_zd": 61, "shuffman_vbbe21_zd": 182, "svb12_zd": 5,
@@ -215,6 +246,10 @@ BYTES_A_SLOT = {
     "rccm_vbbe21": 43, "rccm_vbsbe21": 43, "rccm_vbsse21": 43,
     "rccm_svb_zd": 87, "rccm_svb12_zd": 27, "rccm_vbbe21_submin": 43,
     "rccm_svbbe21_zd": 62, "dstall_fz_1500": 61, "dstall_fz": 61,
+    **{name: 61 for name in ENTROPY_CODECS if name.startswith("rccdf")},
+    **{name: 163 for name in ENTROPY_CODECS if name.startswith("huffman")},
+    "shuffman_vbe21_zd": 182, "shuffman_vbsbe21_zd": 181,
+    "shuffman_vbsse21_zd": 181,
 }
 def _coder_state(kind: str) -> int:
     """Device bytes of a range-coder kind's model state a bucket row:
@@ -226,9 +261,14 @@ def _coder_state(kind: str) -> int:
 
 
 #: bytes of device memory a bucket row takes beside its slots: the range
-#: coder's model state; 0 for the engine codecs
+#: coder's model state, rccdf's and huffman's per-row tables
+#: (rccdf.STATE_BYTES, huffman.STATE_BYTES); 0 for the engine codecs and
+#: shuffman
 ROW_BYTES = {**{name: 0 for name in ENGINE_CODECS},
-             **{name: _coder_state(kind) for name, kind in RC_CODECS.items()}}
+             **{name: _coder_state(kind) for name, kind in RC_CODECS.items()},
+             **{name: {"rc_vb_zd": RCCDF_STATE, "huffman_zd": HUFF_STATE}.get(
+                 kind.partition(":")[0], 0)
+                for name, kind in ENTROPY_CODECS.items()}}
 #: the share of the device's memory one slice's working set may take;
 #: the rest holds what a bucket keeps on the device whole (for drans and
 #: dstall_drans its signal, branch signals and streams) and the
@@ -268,7 +308,8 @@ def engine_codec_names() -> list[str]:
 
 
 def codec_names() -> list[str]:
-    """Every codec the port runs (ENGINE_CODECS and RC_CODECS), sorted."""
+    """Every codec the port runs (ENGINE_CODECS, RC_CODECS and
+    ENTROPY_CODECS), sorted."""
     return sorted(CODECS)
 
 
@@ -306,8 +347,18 @@ def batch_engine(codec_name: str, dev):
     they code the batch in."""
     kind = engine_kind(codec_name)
     family, _, sub = kind.partition(":")
-    if codec_name in RC_CODECS:
+    if codec_name in RC_CODECS or family == "rc_vb_zd":
         return _rc_engine(family, sub)
+    if family == "huffman_zd":
+        return (lambda sig, n, emax: press_huffman_batch(sig, n, sub, emax),
+                lambda buf, n, L, emax: depress_huffman_batch(
+                    buf, n, sub, L, emax))
+    if family == "shuff" and sub:
+        tabs = canned_huffman_tables(dev)
+        return (lambda sig, n, emax: press_shuff_batch(sig, n, tabs, emax,
+                                                       sub),
+                lambda buf, n, L, emax: depress_shuff_batch(
+                    buf, n, tabs, L, emax, sub))
     if kind in _GROUPED:
         tables, press, depress = _CAPPED[kind]
         tabs = tables(dev)

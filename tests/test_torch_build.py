@@ -12,11 +12,13 @@ from honours_tpu_torch import _build
 # import every wrapper module so the registry is complete
 from honours_tpu_torch.engine import (  # noqa: F401
     huffdec_cuda,
+    huffman,
     permute_cuda,
     rans_encode_cuda,
     rans_n4_cuda,
     rangecoder_cuda,
     rans_o1_cuda,
+    rccdf_cuda,
     rice_cuda,
     svb16_cuda,
 )
@@ -36,7 +38,8 @@ def test_registry_holds_every_kernel():
         "monotone_expand_u8", "monotone_expand_i32", "o1_fc", "rans_encode",
         "o1_decode", "o0_decode", "svb16_encode", "svb16_decode", "o1n_fc",
         "n4_decode", "find_stall", "rice_decode", "huffman_decode",
-        "rc_encode", "rc_decode"])
+        "rc_encode", "rc_decode", "rccdf_encode", "rccdf_decode",
+        "huffman_build", "huffman_decode_rows"])
     for k in _build.KERNELS.values():
         assert k.source in _build.SOURCES
 

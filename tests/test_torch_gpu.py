@@ -13,6 +13,7 @@ import torch
 import chunked_rows as rows
 import stall_rows
 from chunked_rows import place as chunked_place
+from entropy_rows import fib_hist, long_code_read
 
 pytestmark = pytest.mark.gpu
 
@@ -1697,3 +1698,286 @@ def test_rc_codecs_on_card_equal_cpu(cuda, codec):
     assert all(np.array_equal(a, b) for a, b in zip(reads, out))
     grown = {k for k, v in KERNELS.items() if v.launches > before[k]}
     assert {"rc_encode", "rc_decode"} <= grown
+
+
+# ---------------------------------------------------------------------------
+# kernels F, G (rccdf), H (Huffman table build) and C2 (per-row-table
+# Huffman decode), and the 11 per-read entropy codecs
+# ---------------------------------------------------------------------------
+
+
+def _bucket_residuals(codec: str):
+    """The residual bytes (and counts) of `codec`'s exception block over
+    the main path's bucket [256, 65536], on the card."""
+    from honours_tpu_torch.engine.rc import vb_zd_parts
+    from honours_tpu_torch.synth import synthesize_bucket
+
+    sig, n = synthesize_bucket(256, 1 << 16, 0)
+    kind = codec.split("_")[1]
+    _, _, data, dlen = vb_zd_parts(torch.from_numpy(sig).cuda(),
+                                   torch.from_numpy(n).cuda(), kind, 1 << 16)
+    return data.contiguous(), dlen.to(torch.int32).contiguous()
+
+
+def _rccdf_same(data, dlen):
+    """F and G on the card equal their plain versions on (data, dlen), and
+    G gives the rows back."""
+    from honours_tpu_torch.engine import rccdf as R
+    from honours_tpu_torch.engine import rccdf_cuda as RC
+
+    freqs = R.fit_freqs_batch(R.byte_histogram(data, dlen)).to(torch.int32)
+    cum = R.cum_of(freqs).to(torch.int32)
+    got = RC.rccdf_encode(data, dlen, freqs, cum)
+    torch.cuda.synchronize()
+    want = R.rccdf_encode_plain(data, dlen, freqs, cum)
+    _same(got, want)
+    body = got[0]
+    zero = torch.zeros_like(dlen)
+    back = RC.rccdf_decode(body, zero, dlen, freqs, data.shape[1])
+    torch.cuda.synchronize()
+    _same(back, R.rccdf_decode_plain(body, zero, dlen, freqs, data.shape[1]))
+    _same(back, data)
+    return body, freqs
+
+
+def _edge_rows(smoke):
+    """chip_smoke.py's [16, 4096] edge rows (rc_rows: empty, one byte,
+    255s, zeros, a ramp, random and residual-like bytes), as tensors."""
+    data, n = smoke.rc_rows(19)
+    return torch.from_numpy(data), torch.from_numpy(n)
+
+
+def test_rccdf_kernels_match_plain(smoke):
+    """F and G at [16, 4096] on edge rows; G at odd offsets into rows of
+    garbage, with counts cut short and past the row, on a stream cut
+    mid-lane, and on a wrong table."""
+    from honours_tpu_torch.engine import rccdf as R
+    from honours_tpu_torch.engine import rccdf_cuda as RC
+
+    data, dlen = _edge_rows(smoke)
+    body, freqs = _rccdf_same(data.cuda(), dlen.cuda())
+    B, W = body.shape
+    g = torch.Generator().manual_seed(19)
+    pad = torch.arange(B, dtype=torch.int32) % 5
+    st = torch.randint(0, 256, (B, W + 5), generator=g, dtype=torch.uint8)
+    for i in range(B):
+        st[i, int(pad[i]): int(pad[i]) + W] = body[i].cpu()
+    for cnt in (dlen, dlen // 2, dlen + 100):
+        cnt = cnt.clamp(max=4096).to(torch.int32)
+        for s in (st, st[:, : W // 3].contiguous()):
+            got = RC.rccdf_decode(s.cuda(), pad.cuda(), cnt.cuda(),
+                                  freqs, 4096)
+            _same(got, R.rccdf_decode_plain(s, pad, cnt, freqs.cpu(), 4096))
+    wrong = freqs.roll(1, dims=1).contiguous()
+    got = RC.rccdf_decode(st.cuda(), pad.cuda(), dlen.cuda(), wrong, 4096)
+    _same(got, R.rccdf_decode_plain(st, pad, dlen, wrong.cpu(), 4096))
+
+
+def test_rccdf_kernels_at_main_path_rows(cuda):
+    """F and G on rccdf_vbbe21_zd's residual bytes of the main path's
+    bucket [256, 65536]."""
+    _rccdf_same(*_bucket_residuals("rccdf_vbbe21_zd"))
+
+
+def test_huffman_build_kernel_matches_plain(cuda):
+    """H against its plain version and build_table (tables/huffman.py) on
+    ties (all equal, 1 1 1 2, pairs equal to merged sums), Fibonacci
+    counts to depth 31 and 32, a lone symbol, an empty row and random
+    histograms; then on the bucket's residual histograms."""
+    from honours_tpu_torch.engine import huffman as Hf
+    from honours_tpu_torch.engine.rccdf import byte_histogram
+    from honours_tpu_torch.tables.huffman import build_table
+
+    rng = np.random.default_rng(19)
+    hs = [np.zeros(256, np.int64), np.ones(256, np.int64),
+          fib_hist(31), fib_hist(32, at=200), fib_hist(22, at=7)]
+    h = np.zeros(256, np.int64)
+    h[[3, 9, 11, 200]] = [1, 1, 1, 2]
+    hs.append(h)
+    h = np.zeros(256, np.int64)
+    h[40] = 12345
+    hs.append(h)
+    h = np.zeros(256, np.int64)
+    h[:8] = [2, 2, 4, 4, 8, 8, 16, 16]
+    hs.append(h)
+    for _ in range(56):
+        k = int(rng.integers(1, 257))
+        h = np.zeros(256, np.int64)
+        h[rng.choice(256, k, replace=False)] = rng.integers(
+            1, int(rng.integers(2, 40)), k)
+        hs.append(h)
+    hist = torch.from_numpy(np.stack(hs))
+    got = Hf.huffman_build(hist.cuda())
+    torch.cuda.synchronize()
+    want = Hf.huffman_build_plain(hist)
+    _same(got, want)
+    for i, h in enumerate(hs):
+        t = build_table(h)
+        assert np.array_equal(want[0][i].numpy(), t.lengths), i
+        assert np.array_equal(want[1][i].numpy().astype(np.uint64),
+                              t.codes), i
+    data, dlen = _bucket_residuals("huffman_vbbe21_zd")
+    bh = byte_histogram(data, dlen)
+    _same(Hf.huffman_build(bh), Hf.huffman_build_plain(bh.cpu()))
+
+
+def _c2_case(data, dlen):
+    """The huffman bodies of (data, dlen) on the CPU route and their
+    parsed tables -> (stream, off, count, lengths, codes)."""
+    from honours_tpu_torch.engine import huffman as Hf
+    from honours_tpu_torch.engine.permute import rowwise_concat
+
+    segs, W = Hf.encode_huffman_batch(data.cpu(), dlen.cpu())
+    st, _ = rowwise_concat(segs, W)
+    t = Hf.parse_tables_batch(st, torch.zeros_like(dlen, dtype=torch.int64))
+    cnt = torch.minimum(t["data_bytes"], dlen.to(torch.int64))
+    return (st, t["end"].to(torch.int32), cnt.to(torch.int32),
+            t["lengths"], t["codes"])
+
+
+def _c2_same(st, off, cnt, N, lengths, codes):
+    from honours_tpu_torch.engine import huffdec_cuda as H
+
+    got = H.huffman_decode_rows(st.cuda(), off.cuda(), cnt.cuda(), N,
+                                lengths.cuda(), codes.cuda())
+    torch.cuda.synchronize()
+    want = H.huffman_decode_rows_plain(st.cpu(), off.cpu(), cnt.cpu(), N,
+                                       lengths.cpu(), codes.cpu())
+    _same(got, want)
+    return want
+
+
+def test_huffman_decode_rows_kernel_matches_plain(cuda, smoke):
+    """C2 at [16, 4096] on edge rows with their own tables (a lone
+    symbol's length-0 table and an empty one among them): every row
+    back; at odd offsets into garbage on a view at an odd address; with
+    counts cut short and past the codes; on cut streams; on tables of
+    another row; over poisoned output memory."""
+    data, dlen = _edge_rows(smoke)
+    st, off, cnt, lengths, codes = _c2_case(data, dlen)
+    out, got = _c2_same(st, off, cnt, 4096, lengths, codes)
+    assert got.tolist() == dlen.tolist()
+    _same(out, data)
+    B, W = st.shape
+    g = torch.Generator().manual_seed(20)
+    store = torch.randint(0, 256, (B * (W + 8) + 16,), generator=g,
+                          dtype=torch.uint8)
+    view = store[3: 3 + B * (W + 8)].view(B, W + 8)
+    pad = torch.arange(B, dtype=torch.int32) % 5
+    for i in range(B):
+        view[i, int(pad[i]): int(pad[i]) + W] = st[i]
+    cview = store.cuda()[3: 3 + B * (W + 8)].view(B, W + 8)
+    assert cview.data_ptr() % 4 == 3
+    from honours_tpu_torch.engine import huffdec_cuda as H
+
+    got = H.huffman_decode_rows(cview, (off + pad).cuda(), cnt.cuda(), 4096,
+                                lengths.cuda(), codes.cuda())
+    _same(got, H.huffman_decode_rows_plain(view, off + pad, cnt, 4096,
+                                           lengths, codes))
+    for c in (cnt // 3, cnt + 500):
+        _c2_same(st, off, c.clamp(max=4096).to(torch.int32), 4096, lengths,
+                 codes)
+    _c2_same(st[:, : W // 2].contiguous(), off, cnt, 4096, lengths, codes)
+    _c2_same(st, off, cnt, 4096, lengths.roll(1, dims=0).contiguous(),
+             codes.roll(1, dims=0).contiguous())
+    torch.cuda.empty_cache()
+    junk = torch.full((B, 4096), 0xA5, dtype=torch.uint8, device=cuda)
+    del junk
+    _c2_same(st, off, cnt, 4096, lengths, codes)
+
+
+def test_huffman_decode_rows_kernel_long_codes(cuda):
+    """C2 on rows whose tables have codes of 23, 31 and 32 bits (Fibonacci
+    histograms), each code used, at their row's last byte too."""
+    from honours_tpu_torch.engine import huffman as Hf
+
+    rng = np.random.default_rng(21)
+    rows = []
+    for depth in (23, 31, 32):
+        h = fib_hist(depth)
+        L, _ = Hf.huffman_build_plain(torch.from_numpy(h)[None])
+        syms = np.nonzero(h)[0]
+        r = rng.choice(syms, 3000).astype(np.uint8)
+        r[:len(syms)] = syms
+        assert int(L.max()) == depth
+        rows.append(r)
+    data = torch.from_numpy(np.stack(rows))
+    dlen = torch.full((3,), 3000, dtype=torch.int32)
+    st, off, cnt, lengths, codes = _c2_case(data, dlen)
+    out, got = _c2_same(st, off, cnt, 3000, lengths, codes)
+    _same(out, data)
+    assert got.tolist() == [3000] * 3
+
+
+def test_huffman_decode_rows_at_main_path_rows(cuda):
+    """H and C2 on huffman_vbbe21_zd's residual bytes of the main path's
+    bucket [256, 65536]: C2 equals its plain version and gives the rows
+    back."""
+    from honours_tpu_torch.engine import huffman as Hf
+    from honours_tpu_torch.engine.permute import rowwise_concat
+
+    data, dlen = _bucket_residuals("huffman_vbbe21_zd")
+    segs, W = Hf.encode_huffman_batch(data, dlen)
+    st, _ = rowwise_concat(segs, W)
+    t = Hf.parse_tables_batch(st, torch.zeros_like(dlen, dtype=torch.int64))
+    cnt = torch.minimum(t["data_bytes"], dlen.to(torch.int64)).to(
+        torch.int32)
+    out, got = _c2_same(st, t["end"].to(torch.int32), cnt, data.shape[1],
+                        t["lengths"], t["codes"])
+    _same(out, data.cpu())
+
+
+def _entropy_reads():
+    """Reads for the codecs on the card: a main-path-like read, short
+    ones, the empty read, an overflow read and a read whose Huffman
+    table has a code of more than 22 bits."""
+    from honours_tpu_torch.synth import synthesize_corpus
+
+    flat = synthesize_corpus(3000, seed=19)
+    return [flat[:2000], flat[2000:2400], flat[2500:2501],
+            np.zeros(0, np.int16),
+            np.tile(np.array([0, 30000], np.int16), 300)]
+
+
+ENTROPY_KERNELS = {"rccdf": {"rccdf_encode", "rccdf_decode"},
+                   "huffman": {"huffman_build", "huffman_decode_rows"},
+                   "shuffman": {"huffman_decode"}}
+
+
+@pytest.mark.parametrize("codec", sorted(
+    [f"{c}_{k}_zd" for c in ("rccdf", "huffman")
+     for k in ("vbe21", "vbbe21", "vbsbe21", "vbsse21")]
+    + [f"shuffman_{k}_zd" for k in ("vbe21", "vbsbe21", "vbsse21")]))
+def test_entropy_codecs_on_card_equal_cpu(cuda, codec):
+    """Each per-read entropy codec through the runner on the card: its
+    streams equal the CPU route's, every read back, its kernels (and
+    kernel 1, and svb16 for vbsse21) launched."""
+    from honours_tpu_torch._build import KERNELS
+    from honours_tpu_torch.engine.runner import depress_signals, press_signals
+
+    reads = _entropy_reads()
+    before = {k: v.launches for k, v in KERNELS.items()}
+    streams = press_signals(reads, codec, device=cuda)
+    assert streams == press_signals(reads, codec, device="cpu")
+    out = depress_signals(streams, [r.size for r in reads], codec,
+                          device=cuda)
+    assert all(np.array_equal(a, b) for a, b in zip(reads, out))
+    grown = {k for k, v in KERNELS.items() if v.launches > before[k]}
+    want = ENTROPY_KERNELS[codec.split("_")[0]] | {"monotone_compact_u8"}
+    if "vbsse21" in codec:
+        want |= {"svb16_encode", "svb16_decode"}
+    assert want <= grown
+
+
+def test_huffman_codec_long_codes_on_card(cuda):
+    """huffman_vbbe21_zd over a read whose residual bytes have a
+    Fibonacci histogram (a code of 24 bits): the card's stream equals
+    the CPU route's and comes back."""
+    from honours_tpu_torch.engine.runner import depress_signals, press_signals
+
+    read = long_code_read()
+    (st,) = press_signals([read], "huffman_vbbe21_zd", device=cuda)
+    assert [st] == press_signals([read], "huffman_vbbe21_zd", device="cpu")
+    (back,) = depress_signals([st], [read.size], "huffman_vbbe21_zd",
+                              device=cuda)
+    assert np.array_equal(back, read)

@@ -1,17 +1,19 @@
 """Device memory a bucket slot takes, for each codec, on the card.
 
-    python tools/bytes_a_slot.py [--B 16] [--L 1048576] [--rc] [codec ...]
+    python tools/bytes_a_slot.py [--B 16] [--L 1048576] [--rc] [--entropy]
+        [codec ...]
 
 For each codec (the 21 engine codecs by default, the 25 range-coder
-codecs with --rc) presses and depresses one unsliced bucket of B
-synthetic reads (lengths uniform in (L/2, L], synth.py, seed 0) through
+codecs with --rc, the 11 per-read entropy codecs with --entropy)
+presses and depresses one unsliced bucket of B synthetic reads (lengths
+uniform in (L/2, L], synth.py, seed 0) through
 engine.runner.press_bucket / depress_bucket with rows = B, and prints
 one JSON line: the peak of torch.cuda.max_memory_allocated() above what
 was allocated before, for the press and for the depress, and each over
 the bucket's B * L slots.  engine.runner.BYTES_A_SLOT holds the larger
-of the two, rounded up.  A range-coder codec's peak holds its rows'
-coder state too (engine.runner.ROW_BYTES), so for those the line also
-gives the fit of a second bucket at L / 4: bytes a slot from the
+of the two, rounded up.  A range-coder or entropy codec's peak holds its
+rows' coder state or tables too (engine.runner.ROW_BYTES), so for those
+the line also gives the fit of a second bucket at L / 4: bytes a slot from the
 difference of the two peaks, bytes a row from what is left
 (fit_bytes_a_slot, fit_bytes_a_row).  The last line is the card's name
 and power limit (nvidia-smi).  Needs a CUDA device.
@@ -76,11 +78,16 @@ def main(argv=None) -> int:
     ap.add_argument("--L", type=int, default=1 << 20)
     ap.add_argument("--rc", action="store_true",
                     help="the 25 range-coder codecs (runner.RC_CODECS)")
+    ap.add_argument("--entropy", action="store_true",
+                    help="the 11 per-read entropy codecs "
+                    "(runner.ENTROPY_CODECS)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bytes_a_slot: CUDA is not available", file=sys.stderr)
         return 2
     from honours_tpu_torch.engine.runner import (
+        ENGINE_CODECS,
+        ENTROPY_CODECS,
         RC_CODECS,
         engine_codec_names,
     )
@@ -88,10 +95,11 @@ def main(argv=None) -> int:
 
     sig, n = synthesize_bucket(args.B, args.L, seed=0)
     codecs = args.codecs or (sorted(RC_CODECS) if args.rc
+                             else sorted(ENTROPY_CODECS) if args.entropy
                              else engine_codec_names())
     for codec in codecs:
         line = measure(codec, sig, n)
-        if codec in RC_CODECS:
+        if codec not in ENGINE_CODECS:
             line = fit(codec, args.B, args.L, line)
         print(json.dumps(line), flush=True)
     smi = subprocess.run(
