@@ -27,7 +27,11 @@
    bytes of the bucket, each beside its chain floor (the longest row's
    lane steps at RCCDF_STEP_CYCLES), H (huffman_build) on their
    histograms and C2 (huffman_decode_rows) on huffman_vbbe21_zd's bodies
-   of them, their plain versions on the card.  Then does the same for
+   of them, and phase 12's kernels I (bitpack_msb) on uint_zd's fields of
+   the bucket, J (bitunpack_msb) on I's packed rows, K (flats_partition)
+   on the samples at step 64 and L (zsm_mean) on the samples, K and L
+   each beside its chain floor (FLATS_STEP_CYCLES, ZSM_STEP_CYCLES),
+   their plain versions on the card.  Then does the same for
    kernel 1's five entries, o1_fc, rans_encode, o1_decode (both drans phases),
    o0_decode, svb16_encode and svb16_decode (zd on and off), n4_decode,
    find_stall, rice_decode and huffman_decode on one read of L = 262144
@@ -159,9 +163,21 @@
    vbsse21), its ratio and encode and decode rates logged; the card's
    streams of rc_check_reads equal to the CPU route's for all 11, which
    run in phase 10's worker processes.
-12. Prints one {"kernels": [...]} line (D and E with cm on the bucket's
-   4 longest rows, the [256, 65536] times beside them; F and G with
-   their chain floors), then {"ok": true, "device": ...}.
+12. The raw-sample and bit-packing codecs (engine.runner.RAW_CODECS:
+   vb1e2, vbe21, vbbe21, vbsbe21, vbsse21, svb and svb0124 over the
+   samples as uint16, svb12_nosimd and svb12_zd_nosimd, the uint family
+   and flat_uint_submin) over every main-path read, each with every
+   launch count at 0 just before: its kernels launched (I and J for the
+   uint family and flats, K for flats, L for uint_zsm; kernel 1, svb16),
+   ratio and rates logged; every read back bit for bit, except uint11's
+   (11 bits a sample, lossy by design), whose streams and decode equal
+   the CPU route's for all ~1,028 reads (run in phase 10's worker
+   processes) and whose reads that do not round-trip are counted; the
+   card's streams of rc_check_reads equal the CPU route's for all 16.
+   Phase 9 also runs uint_zd and flat_uint_submin over the long set.
+13. Prints one {"kernels": [...]} line (D and E with cm on the bucket's
+   4 longest rows, the [256, 65536] times beside them; F, G, K and L
+   with their chain floors), then {"ok": true, "device": ...}.
 
 `--kernels-only` stops after step 2 and prints no result line: it times
 the kernels of whichever honours_tpu_torch is imported, e.g. an older
@@ -516,6 +532,81 @@ def entropy_cases(sig, n):
     ] if longest else []
 
 
+#: dependent cycles a step in the chain-floor models of kernels K and L:
+#: K's step (csrc/flats.cu) is its thread's share of the (i, j) pairs
+#: (shared loads, min, max, clz, a multiply-add: about 20 cycles a pair,
+#: a few pairs a thread at the bucket's m), two 5-level butterflies of
+#: 64-bit minima (about 30 cycles a level) and a barrier (about 40); L's
+#: (csrc/zsm.cu) an fp64 subtract and add (about 8 each) and a correctly
+#: rounded fp64 divide (about 50)
+FLATS_STEP_CYCLES = 400
+ZSM_STEP_CYCLES = 66
+#: flat_uint_submin's step in phase 12's kernel case (the default)
+FLATS_STEP = 64
+
+
+def raw_cases(sig, n):
+    """(name, kernel call, plain call, bytes, ops, library call[, chain
+    floor ms]) of kernels I, J, K and L on the bucket [B, L]: I on
+    uint_zd's fields (its zigzag deltas: 4 B a field read, the packed
+    bytes written, 32 B a row of offsets; 8 operations a field), J on I's
+    rows (the packed bytes read, 4 B a field written), K on the samples
+    at FLATS_STEP (2 B a sample read, the cuts written; 12 operations an
+    (i, j) pair; chain floor the longest read's chunks at
+    FLATS_STEP_CYCLES), L on the samples (2 B a sample read, 8 B a row
+    written; 3 float64 operations a sample; chain floor the longest
+    read's samples at ZSM_STEP_CYCLES).  Each plain version runs on the
+    card."""
+    from honours_tpu_torch.engine import bitpack as BP
+    from honours_tpu_torch.engine import bitpack_cuda as BC
+    from honours_tpu_torch.engine import flats as Fl
+    from honours_tpu_torch.engine import flats_cuda as FC
+    from honours_tpu_torch.engine import uint as U
+    from honours_tpu_torch.engine import zsm_cuda as Z
+
+    B, L = sig.shape
+    dev = sig.device
+    n32 = n.to(torch.int32).contiguous()
+    _, v, cnt, b = U.fields(sig, n32, "zd")
+    vals = v.to(torch.int32).reshape(-1).contiguous()
+    rows = torch.arange(B, device=dev)
+    voff, ooff = rows * L, rows * 2 * L
+    nb = (cnt * b + 7) // 8
+
+    def out8():
+        return torch.zeros(2 * B * L, dtype=torch.uint8, device=dev)
+
+    def out32():
+        return torch.zeros(B * L, dtype=torch.int32, device=dev)
+
+    packed = BC.pack_msb(vals, voff, cnt, b, out8(), ooff)
+    fields, pbytes = int(cnt.sum()), int(nb.sum())
+    nsum = int(n32.to(torch.int64).sum())
+    m = (n32.to(torch.int64) + FLATS_STEP - 1) // FLATS_STEP
+    pairs, mmax, nmax = int((m * (m + 1) // 2).sum()), int(m.max()), int(
+        n32.max())
+    log(f"phase 12 rows [{B}, {L}]: uint_zd {fields} fields of "
+        f"{int(b.min())}-{int(b.max())} bits, {pbytes} packed bytes; flats "
+        f"at step {FLATS_STEP}: up to {mmax} chunks a read, {pairs} (i, j) "
+        f"pairs; zsm: up to {nmax} samples a read")
+    return [
+        ("bitpack_msb", lambda: BC.pack_msb(vals, voff, cnt, b, out8(), ooff),
+         lambda: BP.pack_msb_plain(vals, voff, cnt, b, out8(), ooff),
+         4 * fields + pbytes + 32 * B, 8 * fields, None),
+        ("bitunpack_msb",
+         lambda: BC.unpack_msb(packed, ooff, nb, cnt, b, out32(), voff),
+         lambda: BP.unpack_msb_plain(packed, ooff, nb, cnt, b, out32(), voff),
+         pbytes + 4 * fields + 40 * B, 8 * fields, None),
+        ("flats_partition", lambda: FC.flats_partition(sig, n32, FLATS_STEP),
+         lambda: Fl.flats_partition_plain(sig, n32, FLATS_STEP),
+         2 * nsum + B * (-(-L // FLATS_STEP) + 1), 12 * pairs, None,
+         mmax * FLATS_STEP_CYCLES / SM_HZ * 1e3),
+        ("zsm_mean", lambda: Z.zsm_mean(sig, n32),
+         lambda: U.zsm_mean_plain(sig, n32), 2 * nsum + 8 * B, 3 * nsum,
+         None, nmax * ZSM_STEP_CYCLES / SM_HZ * 1e3),
+    ]
+
+
 def walk_steps(row, count: int, tabs) -> tuple[int, int]:
     """The steps kernel C's walk takes over one stream (its first-level
     lookups: a step emits two symbols where l1 holds two), and those of
@@ -829,7 +920,7 @@ def kernel_cases(seed: int):
         stall_case(sig, n, f"[{B}, {L}]"),
         rice_case(sig, n),
         huffman_case(sig, n),
-    ] + entropy_cases(sig, n)
+    ] + entropy_cases(sig, n) + raw_cases(sig, n)
     shapes = (f"[{B}, {L}]", f"[{B * K}, {Smax}] (drans phase-grid merge)")
     return cases, options, merge, shapes, vb_cases(sig, n)
 
@@ -1089,12 +1180,22 @@ REPLACES = {
     "find_stall": "honours_tpu/segment/__init__.py:132",
     "rice_decode": "honours_tpu/codecs/rice.py:66",
     "huffman_decode": "honours_tpu/native/huffdec.c:13",
-    # phase 11: no TPU kernel either, the host's rccdf coder, Huffman
-    # table build and per-read Huffman decode
+}
+#: phase 11's kernels: no TPU kernel either, the host's rccdf coder,
+#: Huffman table build and per-read Huffman decode; and phase 12's: the
+#: host's bit packer, flats partition and uint_zsm mean.  Like phase
+#: 10's (RC_REPLACES) they are held by GPU tests of their own (I to L on
+#: rows of up to 2^22 samples), not by row_cases, whose kernels REPLACES
+#: lists.
+PHASE_REPLACES = {
     "rccdf_encode": "honours_tpu/kernels/rans.py:67",
     "rccdf_decode": "honours_tpu/kernels/rans.py:126",
     "huffman_build": "honours_tpu/tables/huffman.py:55",
     "huffman_decode_rows": "honours_tpu/kernels/huffman_np.py:56",
+    "bitpack_msb": "honours_tpu/kernels/bitpack.py:26",
+    "bitunpack_msb": "honours_tpu/kernels/bitpack.py:38",
+    "flats_partition": "honours_tpu/codecs/flats.py:57",
+    "zsm_mean": "honours_tpu/codecs/uintc.py:128",
 }
 
 #: kernels each main path must launch
@@ -1170,7 +1271,8 @@ def time_case(name, kern, plain, nbytes, ops, library,
     return {
         "name": name, "route": "cuda",
         "source": "honours_tpu_torch/csrc/" + KERNELS[kernel].source,
-        "replaces": REPLACES[kernel], "launches": 0, "max_abs_err": err,
+        "replaces": {**REPLACES, **PHASE_REPLACES}[kernel], "launches": 0,
+        "max_abs_err": err,
         "matches_plain": True, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1876,7 +1978,8 @@ def long_path(codec: str, reads, smi: str):
     if bad:
         raise AssertionError(f"{codec}: long reads {bad[:8]} did not "
                              "round-trip")
-    idle = sorted(k for k in PATHS[codec] if launches[k] == 0)
+    idle = sorted(k for k in {**PATHS, **RAW_PATHS}[codec]
+                  if launches[k] == 0)
     if idle:
         raise AssertionError(f"{codec}: kernels not launched on the long "
                              f"set: {idle}")
@@ -1978,11 +2081,15 @@ def full_bucket(codec: str, a_reads, smi: str) -> dict:
     return launches
 
 
+#: phase 12's codecs that phase 9 also runs over the long set
+LONG_RAW = ("uint_zd", "flat_uint_submin")
+
+
 def long_phase(seed: int, smi: str) -> dict:
     """Phase 9: every kernel at [1, 2^22] (long_kernels), the long-read
-    configuration (long_set) through all 21 codecs on the card
-    (long_path), full [256, 2^21] buckets in slices (full_bucket), and
-    the card's streams of read (e) held to the CPU route's.  The CPU
+    configuration (long_set) through all 21 codecs and LONG_RAW on the
+    card (long_path), full [256, 2^21] buckets in slices (full_bucket),
+    and the card's streams of read (e) held to the CPU route's.  The CPU
     routes and the walks' plain versions run in 4 worker processes
     beside the card's work.  Returns the launches of the long set's and
     the full buckets' runs."""
@@ -2004,9 +2111,10 @@ def long_phase(seed: int, smi: str) -> dict:
     # for their own host work
     with ProcessPoolExecutor(max_workers=4, mp_context=ctx) as pool:
         pending = long_kernels(parts["c"][0], pool, smi)
-        cpu = {c: pool.submit(cpu_press_read, e_read, c) for c in PATHS}
+        cpu = {c: pool.submit(cpu_press_read, e_read, c)
+               for c in (*PATHS, *LONG_RAW)}
         card = {}
-        for codec in PATHS:
+        for codec in cpu:
             launches, streams = long_path(codec, reads, smi)
             total.update(launches)
             card[codec] = streams[-1]
@@ -2019,7 +2127,7 @@ def long_phase(seed: int, smi: str) -> dict:
                                      "(e) differs from the CPU route's")
         long_kernels_held(pending, smi)
     log(f"long set: the card's streams of read (e) ({e_read.size} samples) "
-        "equal the CPU route's for all 21 codecs (then waited "
+        f"equal the CPU route's for all {len(cpu)} codecs (then waited "
         f"{time.perf_counter() - t:.1f} s for the host's plain versions and "
         "CPU routes)")
     log(f"long phase launches: {dict(total)}")
@@ -2466,6 +2574,112 @@ def entropy_phase(reads, check, cpu, smi: str) -> dict:
     return total
 
 
+#: kernels each phase-12 codec must launch
+RAW_PATHS = {
+    **{k: KERNEL_1 for k in ("vb1e2", "vbe21", "vbbe21", "vbsbe21")},
+    "vbsse21": KERNEL_1 | {"svb16_encode", "svb16_decode"},
+    "svb": SVB32,
+    "svb0124": SVB32,
+    "svb12_nosimd": {"svb16_encode", "svb16_decode"},
+    "svb12_zd_nosimd": {"svb16_encode", "svb16_decode"},
+    **{k: {"bitpack_msb", "bitunpack_msb"}
+       for k in ("uintx_16", "uint11", "uint", "uint_submin", "uint_zd")},
+    "uint_zsm": {"bitpack_msb", "bitunpack_msb", "zsm_mean"},
+    "flat_uint_submin": {"flats_partition", "bitpack_msb", "bitunpack_msb",
+                         "monotone_compact_i32"},
+}
+
+
+def cpu_round(reads, codec: str):
+    """The CPU route's streams of `reads` and its decode of them, in a
+    worker process on one intra-op thread."""
+    from honours_tpu_torch.engine.runner import (
+        depress_signals,
+        press_signals,
+    )
+
+    torch.set_num_threads(1)
+    streams = press_signals(reads, codec, device="cpu")
+    return streams, depress_signals(streams, [r.size for r in reads], codec,
+                                    device="cpu")
+
+
+def uint11_path(reads, cpu, smi: str) -> dict:
+    """uint11 over `reads` on the card, every launch count at 0 just
+    before: its streams and its decode equal the CPU route's (`cpu`: a
+    future of cpu_round) for every read, I and J launched; the reads
+    that do not round-trip (a sample outside [0, 2048)) are counted, as
+    uint11 keeps 11 bits a sample.  Returns the launches."""
+    from honours_tpu_torch._build import KERNELS
+    from honours_tpu_torch.engine.runner import (
+        depress_signals,
+        press_signals,
+    )
+
+    lens = [r.size for r in reads]
+    raw = 2 * sum(lens)
+    for k in KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    streams = press_signals(reads, "uint11")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = depress_signals(streams, lens, "uint11")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    want_streams, want_out = cpu.result()
+    if streams != want_streams:
+        raise AssertionError("uint11: the card's streams differ from the "
+                             "CPU route's")
+    bad = [i for i, (a, b) in enumerate(zip(out, want_out))
+           if not np.array_equal(a, b)]
+    if bad:
+        raise AssertionError(f"uint11: the card's decode of reads {bad[:8]} "
+                             "differs from the CPU route's")
+    idle = sorted(k for k in RAW_PATHS["uint11"] if launches[k] == 0)
+    if idle:
+        raise AssertionError(f"uint11: kernels not launched: {idle}")
+    lossy = sum(not np.array_equal(a, r) for a, r in zip(out, reads))
+    log(f"raw uint11: the card's streams and decode equal the CPU route's "
+        f"for all {len(reads)} reads; {lossy} of them do not round-trip "
+        f"(11 bits a sample); ratio {raw / sum(map(len, streams)):.6f}; "
+        f"encode {t1 - t0:.3f} s {raw / (t1 - t0) / 1e6:.1f} MB/s, decode "
+        f"{t2 - t1:.3f} s {raw / (t2 - t1) / 1e6:.1f} MB/s ({smi}); launches "
+        + ", ".join(f"{k} {launches[k]}" for k in sorted(RAW_PATHS["uint11"])))
+    return launches
+
+
+def raw_phase(reads, check, cpu, u11, smi: str) -> dict:
+    """Phase 12: the 16 raw-sample and bit-packing codecs (engine.runner
+    .RAW_CODECS) over every main-path read, each with every launch count
+    at 0 just before (rc_path: every read back bit for bit, its kernels
+    launched, ratio and rates logged; uint11: uint11_path, with `u11` the
+    CPU route's round of every read); the card's streams of `check`
+    (rc_check_reads) equal the CPU route's (`cpu`: futures by codec).
+    Returns the launches."""
+    import collections
+
+    from honours_tpu_torch.engine.runner import press_signals
+
+    total = collections.Counter()
+    t = time.perf_counter()
+    for codec, kernels in RAW_PATHS.items():
+        if codec == "uint11":
+            total.update(uint11_path(reads, u11, smi))
+        else:
+            total.update(rc_path(codec, reads, smi, want=kernels, tag="raw"))
+    for codec, f in cpu.items():
+        if press_signals(check, codec) != f.result():
+            raise AssertionError(f"{codec}: the card's streams differ from "
+                                 "the CPU route's")
+    log(f"raw: the card's streams of {len(check)} reads (n = "
+        f"{[r.size for r in check]}) equal the CPU route's for all "
+        f"{len(cpu)} raw-sample codecs; phase 12 took "
+        f"{time.perf_counter() - t:.1f} s")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2496,10 +2710,14 @@ def main(argv=None) -> int:
 
     from concurrent.futures import ProcessPoolExecutor
 
-    from honours_tpu_torch.engine.runner import ENTROPY_CODECS, RC_CODECS
+    from honours_tpu_torch.engine.runner import (
+        ENTROPY_CODECS,
+        RAW_CODECS,
+        RC_CODECS,
+    )
 
-    # phase 10's plain versions and CPU routes (and phase 11's CPU
-    # routes) run on the host in 3 worker processes beside phases 3-9
+    # phase 10's plain versions and CPU routes (and phase 11's and 12's
+    # CPU routes) run on the host in 3 worker processes beside phases 3-9
     with ProcessPoolExecutor(max_workers=3, mp_context=multiprocessing
                              .get_context("spawn")) as rc_pool:
         rc_pending = rc_kernels_start(args.seed, rc_pool, smi)
@@ -2509,6 +2727,9 @@ def main(argv=None) -> int:
                   for c in sorted(RC_CODECS)}
         entropy_cpu = {c: rc_pool.submit(cpu_rc_press, check, c)
                        for c in sorted(ENTROPY_CODECS)}
+        raw_cpu = {c: rc_pool.submit(cpu_rc_press, check, c)
+                   for c in sorted(RAW_CODECS)}
+        u11_cpu = rc_pool.submit(cpu_round, reads, "uint11")
         results.update({k: {"launches": 0} for k in RC_REPLACES})
         log(f"main path: {len(reads)} reads, {sum(r.size for r in reads)} "
             f"samples, {sum(2 * r.size for r in reads) / 1e6:.1f} MB int16")
@@ -2528,6 +2749,8 @@ def main(argv=None) -> int:
         for k, c in rc_phase(args.seed, reads, rc_cpu, smi).items():
             results[k]["launches"] += c
         for k, c in entropy_phase(reads, check, entropy_cpu, smi).items():
+            results[k]["launches"] += c
+        for k, c in raw_phase(reads, check, raw_cpu, u11_cpu, smi).items():
             results[k]["launches"] += c
         held = rc_kernels_held(rc_pending, smi)
     for k, r in held.items():

@@ -24,7 +24,7 @@ def svb16_max_encoded_length(n: int) -> int:
     return (n >> 3) + (((n & 7) + 7) >> 3) + 2 * n
 
 
-#: engine kind (or family) -> bound formula (honours_tpu/codecs/<file>)
+#: engine kind, or its family, -> bound formula (honours_tpu/codecs/<file>)
 _BOUND = {
     "drans": lambda n: 2 + 2 + 4 + rans_bound(2 * n),  # drans.py
     "srans": lambda n: 2 + rans_bound(2 * n),  # srans.py
@@ -46,10 +46,19 @@ _BOUND = {
     "rccm_svb": lambda n: 4 + rans_bound(5 * n),  # rc.py RccmSvbZdCodec
     "rc_submin": lambda n: 2 + rans_bound(2 * n),  # rc.py submin
     "stall_fz": lambda n: 16 + 4 * n + 1024,  # stall.py
+    "vb": vb_bound,  # vb.py VbCodec
+    "svb32": lambda n: 5 * n + ((n + 3) // 4) + 16,  # svb.py _SvbBase
+    "uint:x16": lambda n: (n * 16 + 7) // 8,  # uintc.py UintxCodec
+    "uint:x11": lambda n: (n * 11 + 7) // 8,
+    "uint:plain": lambda n: 1 + n * 2,  # uintc.py UintCodec
+    "uint": lambda n: 2 + 1 + n * 2,  # uintc.py submin, zd, zsm
+    "flats": lambda n: 8 + n * 3 + 64,  # flats.py
 }
 
 
 def bound(codec_name: str, n: int) -> int:
     """The host codec's bound for a read of n samples; NotImplementedError
     for a name that is not a ported codec."""
-    return _BOUND[engine_kind(codec_name).partition(":")[0]](int(n))
+    kind = engine_kind(codec_name)
+    f = _BOUND.get(kind) or _BOUND[kind.partition(":")[0]]
+    return f(int(n))

@@ -17,7 +17,8 @@ bytes for n = 0):
                      [svb_len:u32][rccm(the svb_zd / svb12_zd stream)]
   rccm_vbbe21_submin [min:u16][vbbe21 exception block][rccm(data)] over
                      the samples minus their minimum (uint16)
-The exception blocks and their parsers are engine/vb_batch.py's; every
+The exception blocks and their parsers (the raw kinds' vb_parts,
+vb_parse and vb_fill among them) are engine/vb_batch.py's; every
 codec here runs the rows of a batch through one coder launch, and the
 stall codecs (engine/stall_fz.py) put the rows of several branches in
 one launch too (encode_groups, decode_groups), so that a bucket's chain
@@ -53,9 +54,13 @@ from honours_tpu_torch.engine.svb16 import (
 )
 from honours_tpu_torch.engine.vb_batch import (
     _exblock_parts,
+    as_i16,
     depress_svb_zd_batch,
     parse_exblock_batch,
     press_svb_zd_batch,
+    vb_fill,
+    vb_parse,
+    vb_parts,
 )
 from honours_tpu_torch.engine.vbbe21 import vbbe21_fill_batch
 from honours_tpu_torch.transforms.core import unzigdelta, zigdelta
@@ -73,12 +78,6 @@ def coder_rows(kind: str) -> tuple:
     if family in ("rc_vb_zd", "rc_vb"):
         return MODEL[sub.partition(":")[0]], 1
     return ("o0" if family == "rc_zd" else "cm"), 1
-
-
-def _as_i16(v):
-    """uint16-valued ints -> int16 (wrap)."""
-    v = v.to(torch.int64) & 0xFFFF
-    return (v - ((v & 0x8000) << 1)).to(torch.int16)
 
 
 def _zeros(B: int, dev):
@@ -136,12 +135,6 @@ def vb_zd_parts(sig, n, kind: str, emax: int):
     return [hdr] + segs, 2 + width, data, data_len.clamp(min=0)
 
 
-def vb_parts(sig, n, kind: str, emax: int):
-    """[<kind> block] over the raw samples as uint16."""
-    return _exblock_parts(kind, sig.to(torch.int64) & 0xFFFF,
-                          n.to(torch.int64), emax)
-
-
 def submin_parts(sig, n, emax: int):
     """[min:u16][vbbe21 block] over the samples minus their minimum."""
     L = sig.shape[1]
@@ -176,18 +169,6 @@ def vb_zd_fill(p, data, n, L: int):
     return _zd_merge(p["zd0"], vals, n, L)
 
 
-def vb_parse(stream, n, kind: str, L: int, emax: int, base):
-    n = n.to(torch.int64)
-    parsed = parse_exblock_batch(kind, stream, base, n, L, emax)
-    return {"parsed": parsed, "off": parsed["end_off"],
-            "count": (n - parsed["nex"]).clamp(0, L)}
-
-
-def vb_fill(p, data, n, L: int):
-    return _as_i16(vbbe21_fill_batch(p["parsed"], data, n.to(torch.int64),
-                                     L))
-
-
 def submin_parse(stream, n, L: int, emax: int, base):
     p = vb_parse(stream, n, "vbbe21", L, emax, base + 2)
     p["min"] = read_u16le(stream, base)
@@ -198,7 +179,7 @@ def submin_fill(p, data, n, L: int):
     n = n.to(torch.int64)
     v = vbbe21_fill_batch(p["parsed"], data, n, L).to(torch.int64)
     live = torch.arange(L, device=data.device)[None, :] < n[:, None]
-    return _as_i16(torch.where(live, v + p["min"][:, None], 0))
+    return as_i16(torch.where(live, v + p["min"][:, None], 0))
 
 
 # ---------------------------------------------------------------------------

@@ -43,7 +43,17 @@ huffman.py), here on the device:
                       engine/pipeline.py (as shuffman_vbbe21_zd)
 Their streams are the host codec's for every read of n >= 1 (rccdf's and
 huffman's press bytes for n = 0 too; shuffman's keep their zd0 there, as
-shuffman_vbbe21_zd's engine does).
+shuffman_vbbe21_zd's engine does).  RAW_CODECS are 16 more, the raw-sample
+containers and the bit-packing codecs, which honours_tpu also runs on the
+host only (codecs/vb.py, svb.py, uintc.py, flats.py):
+  vb1e2, vbe21, vbbe21, vbsbe21, vbsse21, svb, svb0124
+                      engine/vb_batch.py  (the samples as uint16)
+  svb12_nosimd, svb12_zd_nosimd
+                      engine/svb16.py     (svb12's and svb12_zd's format)
+  uintx_16, uint11, uint, uint_submin, uint_zd, uint_zsm
+                      engine/uint.py      (kernels I and J, L's mean)
+  flat_uint_submin    engine/flats.py     (kernel K's partition, I, J)
+Their streams are the host codec's for every read, n = 0 included.
 
 Two kinds of rows leave the bucket's group and run alone, as one-row
 batches with emax = L (the grouping of a single-read host press, so the
@@ -89,6 +99,10 @@ from honours_tpu_torch.engine.dstall_drans import (
     press_dstall_drans_batch,
 )
 from honours_tpu_torch.engine.exzd import depress_exzd_batch, press_exzd_batch
+from honours_tpu_torch.engine.flats import (
+    depress_flats_batch,
+    press_flats_batch,
+)
 from honours_tpu_torch.engine.huffman import STATE_BYTES as HUFF_STATE
 from honours_tpu_torch.engine.huffman import (
     depress_huffman_batch,
@@ -125,10 +139,15 @@ from honours_tpu_torch.engine.svb16 import (
     svb16_decode_batch,
     svb16_encode_batch,
 )
+from honours_tpu_torch.engine.uint import depress_uint_batch, press_uint_batch
 from honours_tpu_torch.engine.vb_batch import (
+    depress_svb_batch,
     depress_svb_zd_batch,
+    depress_vb_batch,
     depress_vb_zd_batch,
+    press_svb_batch,
     press_svb_zd_batch,
+    press_vb_batch,
     press_vb_zd_batch,
 )
 from honours_tpu_torch.io.batching import bucket_reads, restore_order
@@ -185,19 +204,38 @@ ENTROPY_CODECS = {
     **{f"shuffman_{k}_zd": f"shuff:{k}"
        for k in ("vbe21", "vbsbe21", "vbsse21")},
 }
+#: the raw-sample containers and the bit-packing codecs (honours_tpu/
+#: codecs/vb.py VbCodec, svb.py, uintc.py, flats.py): codec name -> engine
+#: kind ("vb:<vb>", "svb32:<variant>", "uint:<variant>", "flats"; the
+#: nosimd pair on svb12's kinds)
+RAW_CODECS = {
+    **{k: f"vb:{k}" for k in ("vb1e2", "vbe21", "vbbe21", "vbsbe21",
+                              "vbsse21")},
+    "svb": "svb32:1234",
+    "svb0124": "svb32:0124",
+    "svb12_nosimd": "svb16",
+    "svb12_zd_nosimd": "svb16_zd",
+    "uintx_16": "uint:x16",
+    "uint11": "uint:x11",
+    "uint": "uint:plain",
+    "uint_submin": "uint:submin",
+    "uint_zd": "uint:zd",
+    "uint_zsm": "uint:zsm",
+    "flat_uint_submin": "flats",
+}
 #: every codec the port runs
-CODECS = {**ENGINE_CODECS, **RC_CODECS, **ENTROPY_CODECS}
+CODECS = {**ENGINE_CODECS, **RC_CODECS, **ENTROPY_CODECS, **RAW_CODECS}
 
 #: byte offset of the exception count in each capped family's stream:
 #: [G:u16][zd0:u16][nex:u32]..., [zd0:u16][nex:u32]..., [min:u16]
 #: [nex:u32]..., [nex:u32]... and ex-zd's [ver:1][nin:u64][q:1][zd0:u16]
 #: [nex:u32]...; for the dstall families, in each branch blob (srans2's
 #: and drans's; stall_fz.stall_fz_overflowed reads the stall-fz blobs);
-#: the svb families and rc_zd have no cap
+#: the svb families, rc_zd, uint and flats have no cap
 _NEX_AT = {"drans": 4, "srans": 2, "srans2": 2, "srans3": 2, "shuff": 2,
            "vb_zd": 2, "rice_zd": 2, "exzd": 12, "dstall": 2,
            "dstall_drans": 4, "rc_vb_zd": 2, "rc_vb": 0, "rc_submin": 2,
-           "huffman_zd": 2}
+           "huffman_zd": 2, "vb": 0}
 
 #: capped kind -> (device tables, batched press, batched depress)
 _CAPPED = {
@@ -231,7 +269,9 @@ _GROUPED = ("drans", "dstall_drans")
 #: submin codec's 43 for the three raw rccm kinds); ROW_BYTES adds the
 #: coder's state.  The per-read entropy codecs': [16, 2^20] (tools/
 #: bytes_a_slot.py --entropy), rccdf's peak the depress's, huffman's and
-#: shuffman's the press's.
+#: shuffman's the press's.  The raw codecs': [16, 2^20] (tools/
+#: bytes_a_slot.py --raw; the raw vb containers' rows overflow the
+#: exception cap there and are pressed alone).
 BYTES_A_SLOT = {
     "drans_vbbe21_zd": 64, "srans_vbbe21_zd": 61, "srans2_vbbe21_zd": 61,
     "srans3_vbbe21_zd": 61, "shuffman_vbbe21_zd": 182, "svb12_zd": 5,
@@ -250,6 +290,10 @@ BYTES_A_SLOT = {
     **{name: 163 for name in ENTROPY_CODECS if name.startswith("huffman")},
     "shuffman_vbe21_zd": 182, "shuffman_vbsbe21_zd": 181,
     "shuffman_vbsse21_zd": 181,
+    "vb1e2": 30, "vbe21": 34, "vbbe21": 33, "vbsbe21": 34, "vbsse21": 34,
+    "svb": 84, "svb0124": 84, "svb12_nosimd": 5, "svb12_zd_nosimd": 5,
+    "uintx_16": 32, "uint11": 31, "uint": 31, "uint_submin": 31,
+    "uint_zd": 51, "uint_zsm": 46, "flat_uint_submin": 55,
 }
 def _coder_state(kind: str) -> int:
     """Device bytes of a range-coder kind's model state a bucket row:
@@ -265,6 +309,7 @@ def _coder_state(kind: str) -> int:
 #: (rccdf.STATE_BYTES, huffman.STATE_BYTES); 0 for the engine codecs and
 #: shuffman
 ROW_BYTES = {**{name: 0 for name in ENGINE_CODECS},
+             **{name: 0 for name in RAW_CODECS},
              **{name: _coder_state(kind) for name, kind in RC_CODECS.items()},
              **{name: {"rc_vb_zd": RCCDF_STATE, "huffman_zd": HUFF_STATE}.get(
                  kind.partition(":")[0], 0)
@@ -308,8 +353,8 @@ def engine_codec_names() -> list[str]:
 
 
 def codec_names() -> list[str]:
-    """Every codec the port runs (ENGINE_CODECS, RC_CODECS and
-    ENTROPY_CODECS), sorted."""
+    """Every codec the port runs (ENGINE_CODECS, RC_CODECS,
+    ENTROPY_CODECS and RAW_CODECS), sorted."""
     return sorted(CODECS)
 
 
@@ -385,6 +430,19 @@ def batch_engine(codec_name: str, dev):
                                                             emax),
                 lambda buf, n, L, emax: depress_rice_vb_zd_batch(
                     buf, n, sub, L, emax))
+    if family == "vb":
+        return (lambda sig, n, emax: press_vb_batch(sig, n, sub, emax),
+                lambda buf, n, L, emax: depress_vb_batch(buf, n, sub, L,
+                                                         emax))
+    if family == "svb32":
+        return (lambda sig, n, emax: press_svb_batch(sig, n, sub),
+                lambda buf, n, L, emax: depress_svb_batch(buf, n, L, sub))
+    if family == "uint":
+        return (lambda sig, n, emax: press_uint_batch(sig, n, sub),
+                lambda buf, n, L, emax: depress_uint_batch(buf, n, L, sub))
+    if family == "flats":
+        return (lambda sig, n, emax: press_flats_batch(sig, n),
+                lambda buf, n, L, emax: depress_flats_batch(buf, n, L))
     zd = kind == "svb16_zd"
     return (lambda sig, n, emax: svb16_encode_batch(sig, n, zd),
             lambda buf, n, L, emax: svb16_decode_batch(buf, n, L, zd))

@@ -16,6 +16,16 @@ The *_zd pipelines are [zd0:u16][container over zd[1:]]
 svb_zd and svb0124_zd are svb32 over the whole zigzag-delta, no header:
 press_svb_zd_batch / depress_svb_zd_batch.  Streams equal honours_tpu's
 engine byte for byte, and its host codecs for every read of n >= 1.
+
+The raw containers (codecs/vb.py VbCodec, codecs/svb.py Svb and
+Svb0124) code the samples themselves as uint16, so a negative sample is
+a value of 0x8000-0xFFFF and an exception: press_vb_batch /
+depress_vb_batch ([<kind> block][1-byte data], or vb1e2's payload) and
+press_svb_batch / depress_svb_batch (svb32 of the samples widened to
+uint32).  Their streams are the host codec's for every read, n = 0
+included.  vb_parts, vb_parse and vb_fill are the raw block's press
+and parse, which the range-coder codecs over raw samples share
+(engine/rc.py).
 """
 
 from __future__ import annotations
@@ -397,3 +407,67 @@ def depress_svb_zd_batch(stream, n, L: int, variant: str = "1234"):
     v = svb32_decode_batch(stream, n, L, variant)
     return torch.where(live, unzigdelta(torch.where(live, v, 0)), 0).to(
         torch.int16)
+
+
+# ---------------------------------------------------------------------------
+# raw containers: the samples themselves as uint16, no zd0 header
+# ---------------------------------------------------------------------------
+
+
+def as_i16(v):
+    """uint16-valued ints -> int16 (wrap)."""
+    v = v.to(torch.int64) & 0xFFFF
+    return (v - ((v & 0x8000) << 1)).to(torch.int16)
+
+
+def vb_parts(sig, n, kind: str, emax: int):
+    """[<kind> block] over the raw samples as uint16: (segs, width,
+    residual bytes [B, L] u8, residual lengths)."""
+    return _exblock_parts(kind, sig.to(torch.int64) & 0xFFFF,
+                          n.to(torch.int64), emax)
+
+
+def vb_parse(stream, n, kind: str, L: int, emax: int, base):
+    """Parse the raw <kind> block at base -> {parsed, off (where the
+    residual bytes start), count}."""
+    n = n.to(torch.int64)
+    parsed = parse_exblock_batch(kind, stream, base, n, L, emax)
+    return {"parsed": parsed, "off": parsed["end_off"],
+            "count": (n - parsed["nex"]).clamp(0, L)}
+
+
+def vb_fill(p, data, n, L: int):
+    """A parsed raw block and its residual bytes -> [B, L] int16."""
+    return as_i16(vbbe21_fill_batch(p["parsed"], data, n.to(torch.int64),
+                                    L))
+
+
+def press_vb_batch(sig, n, kind: str, emax: int = None):
+    """Batched <kind> (vb1e2, vbe21, vbbe21, vbsbe21, vbsse21) over the
+    raw samples of [B, L] int16 (first n valid) -> (stream [B, M] u8,
+    len [B]).  Rows with more than emax exceptions give invalid streams
+    (the nex field at byte 0 is exact either way)."""
+    return rowwise_concat(*_encoder_segs(kind, sig.to(torch.int64) & 0xFFFF,
+                                         n.to(torch.int64),
+                                         emax or sig.shape[1]))
+
+
+def depress_vb_batch(stream, n, kind: str, L: int, emax: int = None):
+    """Inverse of press_vb_batch -> [B, L] int16 (zero past n)."""
+    zero = torch.zeros((stream.shape[0],), dtype=torch.int64,
+                       device=stream.device)
+    if kind == "vb1e2":
+        return as_i16(vb1e2_decode_batch(stream, zero, n, L, emax))
+    p = vb_parse(stream, n, kind, L, emax, zero)
+    return vb_fill(p, rowwise_shift_left(stream, p["off"], L), n, L)
+
+
+def press_svb_batch(sig, n, variant: str = "1234"):
+    """svb ("1234") / svb0124 ("0124"): svb32 of the samples as uint16
+    -> (stream [B, L/4 + 4L] u8, len [B] int32)."""
+    return svb32_encode_batch(sig.to(torch.int64) & 0xFFFF, n, variant)
+
+
+def depress_svb_batch(stream, n, L: int, variant: str = "1234"):
+    """Inverse of press_svb_batch -> [B, L] int16 (zero past n)."""
+    return as_i16(svb32_decode_batch(stream, n, L, variant))

@@ -1,6 +1,7 @@
 """Batched zigzag-delta transform over the last axis, in uint16 wrap
-space (press/trans.c zigdelta_16_u16 / unzigdelta_u16_16 semantics), and
-the batched quantisation shift find_qts (honours_tpu/transforms/core.py's,
+space (press/trans.c zigdelta_16_u16 / unzigdelta_u16_16 semantics), the
+elementwise zigzag16 / unzigzag16, and the batched quantisation shift
+find_qts (honours_tpu/transforms/core.py's,
 a row at a time)."""
 
 from __future__ import annotations
@@ -17,6 +18,20 @@ def zigdelta(x: torch.Tensor) -> torch.Tensor:
     d = (u - prev) & 0xFFFF
     sign = (0x10000 - (d >> 15)) & 0xFFFF  # 0 or 0xFFFF
     return ((d + d) & 0xFFFF) ^ sign
+
+
+def zigzag16(u: torch.Tensor) -> torch.Tensor:
+    """uint16-valued ints -> (u + u) ^ (u >> 15, arithmetic) as uint16
+    values, int64 (press/trans.c:75-78)."""
+    u = u.to(torch.int64) & 0xFFFF
+    return ((u + u) & 0xFFFF) ^ (0xFFFF * (u >> 15))
+
+
+def unzigzag16(z: torch.Tensor) -> torch.Tensor:
+    """Inverse of zigzag16: (z >> 1) ^ -(z & 1) as uint16 values, int64
+    (press/trans.c:80-83)."""
+    z = z.to(torch.int64) & 0xFFFF
+    return (z >> 1) ^ (0xFFFF * (z & 1))
 
 
 def unzigdelta(z: torch.Tensor) -> torch.Tensor:

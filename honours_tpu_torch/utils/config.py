@@ -1,10 +1,11 @@
-"""Central configuration: the port's copy of the stall settings of
-honours_tpu/utils/config.py.
+"""Central configuration: the port's copy of the settings of
+honours_tpu/utils/config.py that its codecs read.
 
-The three fields the port's engines read, stall_threshold and
+The four fields the port's engines read, stall_threshold and
 stall_margin (engine/dstall.py, and through it engine/dstall_drans.py;
-engine/stall_fz.py) and dstall_threshold (engine/stall_fz.py's
-dstall_fz_1500), with the JAX package's defaults and its environment
+engine/stall_fz.py), dstall_threshold (engine/stall_fz.py's
+dstall_fz_1500) and flats_step (engine/flats.py's flat_uint_submin),
+with the JAX package's defaults and its environment
 overrides: each field reads HTPU_<FIELD> (e.g. HTPU_STALL_THRESHOLD=200),
 so a setting gives both packages the same bytes.  The JAX Config's
 other fields set its host codecs and its own geometry, which the port
@@ -23,6 +24,8 @@ class Config:
     stall_threshold: int = 140
     dstall_threshold: int = 1500
     stall_margin: int = 20
+    # flats partitioner step granularity (codecs/flats.py)
+    flats_step: int = 64
 
     @classmethod
     def default(cls) -> "Config":

@@ -1,0 +1,100 @@
+"""Rows for kernels I and J (ragged bit packing), K (the flats partition)
+and L (uint_zsm's running mean), shared by the CPU tests and the GPU
+tests: numpy only, made from seeds."""
+
+import numpy as np
+
+
+def ragged_rows(seed: int, R: int = 48, max_count: int = 300):
+    """(values int32 [V], val_off, count, width int64 [R]): every width
+    0..16 twice, counts 0, 1, 2 and random up to max_count, values random
+    32-bit words (negative too: only each field's low b bits count), each
+    row's values at a random offset (rows may share values)."""
+    rng = np.random.default_rng(seed)
+    width = np.concatenate([np.arange(17), np.arange(17),
+                            rng.integers(0, 17, R - 34)]).astype(np.int64)
+    count = rng.integers(0, max_count, R).astype(np.int64)
+    count[[0, 1, 2, 17, 18, 33]] = [0, 1, 2, 1, 0, 2]
+    V = 4 * max_count
+    values = rng.integers(-2 ** 31, 2 ** 31, V, dtype=np.int64).astype(
+        np.int32)
+    val_off = rng.integers(0, V - max_count, R).astype(np.int64)
+    return values, val_off, count, width
+
+
+def layout(sizes, seed: int):
+    """(offsets int64 [R], total): rows of `sizes` items laid in order
+    with a random gap of 0-5 items before each, and 7 after the last."""
+    rng = np.random.default_rng(seed + 1)
+    gaps = rng.integers(0, 6, len(sizes))
+    off = np.cumsum(gaps + sizes) - sizes
+    return off.astype(np.int64), int(off[-1] + sizes[-1] + 7)
+
+
+def mean16(x: np.ndarray) -> int:
+    """The reference's get_mean_16 (press/util.c:74-88): the serial
+    float64 running mean, truncated toward zero."""
+    mean = 0.0
+    for i, v in enumerate(x.astype(np.float64)):
+        mean += (v - mean) / (i + 1)
+    return int(np.float64(mean))
+
+
+def drift_read():
+    """The first seeded read (seeds from 0, 2-59 full-range samples) whose
+    truncated running mean differs from int(sum / n)."""
+    for seed in range(10_000):
+        rng = np.random.default_rng(seed)
+        x = rng.integers(-32768, 32768, int(rng.integers(2, 60))).astype(
+            np.int16)
+        if int(np.float64(x.astype(np.float64).sum() / x.size)) != mean16(x):
+            return x
+    raise AssertionError("no drift read among the seeds")
+
+
+def zsm_reads():
+    """Reads for kernel L: empty, one sample, a negative mean (-4: its
+    truncation is not its floor), the drift read, full-range random, a
+    ramp, and a long walk around -1,000."""
+    rng = np.random.default_rng(31)
+    return [np.zeros(0, np.int16), np.array([-7], np.int16),
+            np.array([-3, -4, -5], np.int16), drift_read(),
+            rng.integers(-32768, 32768, 5000).astype(np.int16),
+            np.arange(-2000, 2000, 3).astype(np.int16),
+            (np.cumsum(rng.integers(-40, 41, 20000)) - 1000).astype(np.int16)]
+
+
+def tie_read():
+    """(read, step): a read at step 8 whose partition has a tie: one
+    segment of 16 (3 + 16 * 2 / 8 = 7 bytes) costs what the split at 8
+    costs ((3 + 0) + (3 + 8 * 1 / 8) = 7); the least i wins, so it
+    stays one segment."""
+    return np.array([0] * 8 + [2, 3] * 4, np.int16), 8
+
+
+def flats_reads(seed: int):
+    """Reads for kernel K: empty, one and two samples, a constant run,
+    the tie read repeated, steps of flat levels, a small-alphabet read
+    (many ties), a noisy walk, full-range random samples and a read
+    whose length is no multiple of 64."""
+    rng = np.random.default_rng(seed)
+    tie, _ = tie_read()
+    return [np.zeros(0, np.int16), np.array([9], np.int16),
+            np.array([-32768, 32767], np.int16), np.full(700, -5, np.int16),
+            np.tile(tie, 40),
+            np.repeat(rng.integers(0, 1000, 60), 37).astype(np.int16),
+            rng.integers(0, 4, 3000).astype(np.int16),
+            (np.cumsum(rng.integers(-30, 31, 6000)) + 500).astype(np.int16),
+            rng.integers(-32768, 32768, 1500).astype(np.int16),
+            np.concatenate([rng.integers(0, 4, 640),
+                            rng.integers(0, 4000, 453),
+                            np.full(300, 7)]).astype(np.int16)]
+
+
+def pad_rows(reads, L: int = None):
+    """Reads padded to [B, L] int16 and their lengths int32."""
+    L = L or max(1, max(r.size for r in reads))
+    sig = np.zeros((len(reads), L), np.int16)
+    for i, r in enumerate(reads):
+        sig[i, : r.size] = r
+    return sig, np.array([r.size for r in reads], np.int32)

@@ -39,6 +39,11 @@ RC = ([f"{c}_{k}_zd" for c in ("rc", "rcc", "rccm")
 ENTROPY = ([f"{c}_{k}_zd" for c in ("rccdf", "huffman")
             for k in ("vbe21", "vbbe21", "vbsbe21", "vbsse21")]
            + [f"shuffman_{k}_zd" for k in ("vbe21", "vbsbe21", "vbsse21")])
+#: the 16 raw-sample and bit-packing codecs (codecs/vb.py, svb.py,
+#: uintc.py, flats.py)
+RAW = ["vb1e2", "vbe21", "vbbe21", "vbsbe21", "vbsse21", "svb", "svb0124",
+       "svb12_nosimd", "svb12_zd_nosimd", "uintx_16", "uint11", "uint",
+       "uint_submin", "uint_zd", "uint_zsm", "flat_uint_submin"]
 
 FIELDS = ("read_id", "read_group", "digitisation", "offset", "range",
           "sampling_rate", "aux")
@@ -135,8 +140,9 @@ def test_cli_files_match_reference_and_cross_decode(tmp_path, src_file,
 def test_cli_rules(tmp_path, src_file, capsys):
     """Default device is the card (RuntimeError here without one);
     codecs the port does not run raise NotImplementedError; `codecs`
-    lists the 57 it runs (the 21 engine codecs, the 25 range-coder
-    codecs and the 11 per-read entropy codecs), with no mark."""
+    lists the 73 it runs (the 21 engine codecs, the 25 range-coder
+    codecs, the 11 per-read entropy codecs and the 16 raw-sample
+    codecs), with no mark."""
     out = str(tmp_path / "out.blow5")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -144,13 +150,13 @@ def test_cli_rules(tmp_path, src_file, capsys):
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(["depress", str(src_file), out])
     with pytest.raises(NotImplementedError,
-                       match="not one of the 57 codecs this port runs"):
+                       match="not one of the 73 codecs this port runs"):
         cli.main(["press", str(src_file), out, "--codec",
-                  "uint_zd", "--device", "cpu"])
+                  "turbopfor", "--device", "cpu"])
     f5 = tb.read_blow5(str(src_file))
     with pytest.raises(NotImplementedError,
-                       match="not one of the 57 codecs this port runs"):
-        tb.write_blow5(out, f5, signal_codec="uint_zd",
+                       match="not one of the 73 codecs this port runs"):
+        tb.write_blow5(out, f5, signal_codec="turbopfor",
                        signal_streams=[b""] * len(f5.reads))
     assert cli.main(["codecs"]) == 0
     lines = capsys.readouterr().out.splitlines()
@@ -159,7 +165,7 @@ def test_cli_rules(tmp_path, src_file, capsys):
         "srans3_vbbe21_zd", "shuffman_vbbe21_zd", "svb12_zd", "svb12",
         "vb1e2_zd", "vbe21_zd", "vbbe21_zd", "vbsbe21_zd", "vbsse21_zd",
         "svb_zd", "svb0124_zd", "hasgam_vbsse21_zdq", *RICE,
-        "dstall_srans2", "dstall_drans", *RC, *ENTROPY])
+        "dstall_srans2", "dstall_drans", *RC, *ENTROPY, *RAW])
 
 
 @pytest.mark.parametrize("codec", RICE)

@@ -11,6 +11,8 @@ from honours_tpu_torch import _build
 
 # import every wrapper module so the registry is complete
 from honours_tpu_torch.engine import (  # noqa: F401
+    bitpack_cuda,
+    flats_cuda,
     huffdec_cuda,
     huffman,
     permute_cuda,
@@ -21,6 +23,7 @@ from honours_tpu_torch.engine import (  # noqa: F401
     rccdf_cuda,
     rice_cuda,
     svb16_cuda,
+    zsm_cuda,
 )
 from honours_tpu_torch.segment import segment_cuda  # noqa: F401
 
@@ -39,7 +42,8 @@ def test_registry_holds_every_kernel():
         "o1_decode", "o0_decode", "svb16_encode", "svb16_decode", "o1n_fc",
         "n4_decode", "find_stall", "rice_decode", "huffman_decode",
         "rc_encode", "rc_decode", "rccdf_encode", "rccdf_decode",
-        "huffman_build", "huffman_decode_rows"])
+        "huffman_build", "huffman_decode_rows", "bitpack_msb",
+        "bitunpack_msb", "flats_partition", "zsm_mean"])
     for k in _build.KERNELS.values():
         assert k.source in _build.SOURCES
 
@@ -63,6 +67,16 @@ def test_tile_width_matches_permute_source():
     assert consts["TILE"] == permute_cuda.TILE
     assert consts["EPT"] == permute_cuda.EPT
     assert consts["TPB"] * consts["EPT"] == consts["TILE"]
+
+
+def test_flats_smem_limit_matches_source():
+    """flats_cuda.SMEM_MAX (the wrapper's choice of shared memory or
+    scratch for kernel K's state) is flats.cu's."""
+    text = (_build.CSRC / "flats.cu").read_text()
+    (kib,) = re.findall(r"constexpr int SMEM_MAX = (\d+) \* 1024;", text)
+    assert int(kib) * 1024 == flats_cuda.SMEM_MAX
+    assert flats_cuda.state_bytes(17_000) > 0
+    assert flats_cuda.state_bytes(18_000) == 0
 
 
 def test_library_names_follow_sources():

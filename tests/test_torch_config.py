@@ -1,6 +1,8 @@
-"""The port's utils/config.py vs honours_tpu/utils/config.py, and the
-HTPU_STALL_THRESHOLD / HTPU_STALL_MARGIN / HTPU_DSTALL_THRESHOLD
-overrides reaching the port's stall splits: under each setting the
+"""The port's utils/config.py vs honours_tpu/utils/config.py (its four
+fields; HTPU_FLATS_STEP reaching flat_uint_submin is held in
+tests/test_torch_flats.py), and the HTPU_STALL_THRESHOLD /
+HTPU_STALL_MARGIN / HTPU_DSTALL_THRESHOLD overrides reaching the port's
+stall splits: under each setting the
 port's _split_batch and its dstall_srans2 and dstall_drans streams equal
 the JAX package's host codecs (codecs/dstall.py _split and press,
 through the C segmenter; codecs/dstall_drans.py), which
@@ -101,7 +103,7 @@ def test_defaults_equal_the_reference(monkeypatch):
     cfg = tconfig.get_config()
     assert tconfig.get_config() is cfg
     assert (cfg.stall_threshold, cfg.dstall_threshold,
-            cfg.stall_margin) == (140, 1500, 20)
+            cfg.stall_margin, cfg.flats_step) == (140, 1500, 20, 64)
 
 
 def test_every_field_parses_like_the_reference(monkeypatch):
@@ -112,7 +114,7 @@ def test_every_field_parses_like_the_reference(monkeypatch):
     ours = dataclasses.asdict(tconfig.Config.default())
     theirs = dataclasses.asdict(jconfig.Config.default())
     assert list(ours) == ["stall_threshold", "dstall_threshold",
-                          "stall_margin"]
+                          "stall_margin", "flats_step"]
     assert ours == {k: theirs[k] for k in ours}
     assert ours == {k: int(env[f"HTPU_{k.upper()}"]) for k in ours}
     monkeypatch.setenv("HTPU_STALL_MARGIN", "twenty")

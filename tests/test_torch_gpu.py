@@ -1981,3 +1981,199 @@ def test_huffman_codec_long_codes_on_card(cuda):
     (back,) = depress_signals([st], [read.size], "huffman_vbbe21_zd",
                               device=cuda)
     assert np.array_equal(back, read)
+
+
+# ---------------------------------------------------------------------------
+# kernels I-L and the raw-sample codecs
+# ---------------------------------------------------------------------------
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+def _pack_both(values, val_off, count, width, O, out_off, cuda):
+    """Kernel I and its plain version over output memory poisoned with
+    0xA5 (bytes outside the rows must keep it)."""
+    from honours_tpu_torch.engine import bitpack, bitpack_cuda
+
+    poison = torch.full((O,), 0xA5, dtype=torch.uint8)
+    args = (values, val_off, count, width)
+    got = bitpack_cuda.pack_msb(*[a.to(cuda) for a in args],
+                                poison.clone().to(cuda), out_off.to(cuda))
+    want = bitpack.pack_msb_plain(*args, poison.to(values.device), out_off)
+    _same(got, want)
+    return want
+
+
+def _unpack_both(stream, in_off, in_len, count, width, O, out_off, cuda):
+    from honours_tpu_torch.engine import bitpack, bitpack_cuda
+
+    fill = torch.full((O,), -7, dtype=torch.int32)
+    args = (stream, in_off, in_len, count, width)
+    got = bitpack_cuda.unpack_msb(*[a.to(cuda) for a in args],
+                                  fill.clone().to(cuda), out_off.to(cuda))
+    want = bitpack.unpack_msb_plain(*args, fill.to(stream.device), out_off)
+    _same(got, want)
+    return want
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bitpack_kernels_match_plain(cuda, seed):
+    """I and J on ragged rows: every width 0..16 (b = 0 writes nothing),
+    counts 0, 1, 2 and random, 32-bit values of which only the low b bits
+    count, rows at random offsets with gaps between their outputs; J on
+    the packed rows whole, cut to half their bytes and past their end (a
+    byte past a row reads as 0), at those offsets and one byte on; J's
+    fields equal the values' low bits."""
+    import raw_rows
+
+    values, val_off, count, width = raw_rows.ragged_rows(seed)
+    nbytes = (count * width + 7) // 8
+    out_off, O = raw_rows.layout(nbytes, seed)
+    v, vo, c, w, oo = _t(values, val_off, count, width, out_off)
+    packed = _pack_both(v, vo, c, w, O, oo, cuda)
+    f_off, F = raw_rows.layout(count, seed + 5)
+    fo = torch.from_numpy(f_off)
+    for in_off, in_len in ((oo, torch.from_numpy(nbytes)),
+                           (oo, torch.from_numpy(nbytes // 2)),
+                           (oo + 1, torch.from_numpy(nbytes + 3))):
+        out = _unpack_both(packed, in_off, in_len, c, w, F, fo, cuda)
+    out = _unpack_both(packed, oo, torch.from_numpy(nbytes), c, w, F, fo,
+                       cuda)
+    for r in range(len(count)):
+        k, b = int(count[r]), int(width[r])
+        field = out[int(f_off[r]): int(f_off[r]) + k].numpy().astype(np.int64)
+        src = values[val_off[r]: val_off[r] + k].astype(np.int64)
+        assert np.array_equal(field, src & ((1 << b) - 1)), r
+
+
+@pytest.mark.parametrize("b", [1, 11, 16])
+def test_bitpack_kernels_one_row_of_2_22(cuda, b):
+    """I and J on one row of 2^22 fields (a long read's uint stream) and
+    on two rows of 2^21 + 3, against their plain versions on the card."""
+    g = torch.Generator().manual_seed(b)
+    for counts in ([1 << 22], [(1 << 21) + 3, (1 << 21) + 3]):
+        V = sum(counts)
+        v = torch.randint(0, 1 << 16, (V,), generator=g, dtype=torch.int32)
+        c = torch.tensor(counts, dtype=torch.int64)
+        w = torch.full_like(c, b)
+        vo = torch.cumsum(c, 0) - c
+        nb = (c * b + 7) // 8
+        oo = torch.cumsum(nb, 0) - nb
+        O = int(nb.sum())
+        packed = _pack_both(v.to(cuda), vo.to(cuda), c.to(cuda), w.to(cuda),
+                            O, oo.to(cuda), cuda)
+        out = _unpack_both(packed.to(cuda), oo.to(cuda), nb.to(cuda),
+                           c.to(cuda), w.to(cuda), V, vo.to(cuda), cuda)
+        _same(out, v.to(cuda) & ((1 << b) - 1))
+
+
+def _flats_same(reads, step, cuda, L=None):
+    import raw_rows
+    from honours_tpu_torch.engine import flats, flats_cuda
+
+    sig, n = _t(*raw_rows.pad_rows(reads, L))
+    got = flats_cuda.flats_partition(sig.to(cuda), n.to(cuda), step)
+    want = flats.flats_partition_plain(sig.to(cuda), n.to(cuda), step)
+    _same(got, want)
+    return want
+
+
+@pytest.mark.parametrize("step", [64, 8, 17])
+def test_flats_kernel_matches_plain(cuda, step):
+    """K against its plain version on the card: empty, one- and
+    two-sample reads, flat runs, the tie read (repeated: the least i must
+    win every tie), small-alphabet reads with many ties, a walk, random
+    full-range samples, a length no multiple of the step."""
+    import raw_rows
+
+    _flats_same(raw_rows.flats_reads(step), step, cuda)
+
+
+def test_flats_kernel_tie_takes_the_least_i(cuda):
+    """The tie read: the one-segment and the split partitions both cost 7
+    bytes, and K keeps one segment (cuts at 0 and 2 only)."""
+    import raw_rows
+
+    read, step = raw_rows.tie_read()
+    cut = _flats_same([read], step, cuda)
+    assert cut[0].tolist() == [1, 0, 1]
+
+
+@pytest.mark.parametrize("L,step", [(1 << 19, 16), (1 << 22, 64)])
+def test_flats_kernel_state_in_scratch(cuda, L, step):
+    """K where a read's DP state passes the shared memory (m = 32,768 and
+    65,536 chunks: scratch in device memory, 1,024 threads a block): a
+    read of L samples and a shorter one, against the plain version on
+    the card."""
+    from honours_tpu_torch.engine import flats_cuda
+    from honours_tpu_torch.synth import synthesize_corpus
+
+    m = L // step
+    assert flats_cuda.state_bytes(m) == 0 and flats_cuda.threads(m) == 1024
+    flat = synthesize_corpus(L + 5000, seed=23)
+    _flats_same([flat[:L], flat[L: L + 5000]], step, cuda, L)
+
+
+def test_zsm_kernel_matches_plain(cuda):
+    """L against its plain version and the reference's get_mean_16 on the
+    card: empty and one-sample reads, a negative mean (truncated toward
+    zero), the read whose running mean differs from int(sum / n), random,
+    a ramp and a long walk; then a bucket [64, 65536]."""
+    import raw_rows
+    from honours_tpu_torch.engine import uint, zsm_cuda
+    from honours_tpu_torch.synth import synthesize_bucket
+
+    reads = raw_rows.zsm_reads()
+    sig, n = _t(*raw_rows.pad_rows(reads))
+    got = zsm_cuda.zsm_mean(sig.to(cuda), n.to(cuda))
+    _same(got, uint.zsm_mean_plain(sig.to(cuda), n.to(cuda)))
+    assert got.tolist() == [raw_rows.mean16(r) if r.size else 0
+                            for r in reads]
+    sig, n = _t(*synthesize_bucket(64, 1 << 16, 3))
+    sig, n = sig.to(cuda), n.to(torch.int32).to(cuda)
+    _same(zsm_cuda.zsm_mean(sig, n), uint.zsm_mean_plain(sig, n))
+
+
+RAW_KERNELS = {
+    "vb": {"monotone_compact_u8"}, "svb32": {"monotone_compact_u8"},
+    "svb16": {"svb16_encode", "svb16_decode"},
+    "svb16_zd": {"svb16_encode", "svb16_decode"},
+    "uint": {"bitpack_msb", "bitunpack_msb"},
+    "flats": {"flats_partition", "bitpack_msb", "bitunpack_msb"},
+}
+
+
+@pytest.mark.parametrize("codec", [
+    "vb1e2", "vbe21", "vbbe21", "vbsbe21", "vbsse21", "svb", "svb0124",
+    "svb12_nosimd", "svb12_zd_nosimd", "uintx_16", "uint11", "uint",
+    "uint_submin", "uint_zd", "uint_zsm", "flat_uint_submin"])
+def test_raw_codecs_on_card_equal_cpu(cuda, codec):
+    """Each raw-sample codec through the runner on the card: its streams
+    equal the CPU route's, and its decode too (every read back but
+    uint11's, which keeps 11 bits); its kernels launched."""
+    import raw_rows
+    from honours_tpu_torch._build import KERNELS
+    from honours_tpu_torch.engine.runner import (
+        RAW_CODECS,
+        depress_signals,
+        press_signals,
+    )
+
+    reads = _entropy_reads() + raw_rows.zsm_reads()[1:4] + [
+        np.tile(np.array([-32767, 32767], np.int16), 35)]
+    lens = [r.size for r in reads]
+    before = {k: v.launches for k, v in KERNELS.items()}
+    streams = press_signals(reads, codec, device=cuda)
+    assert streams == press_signals(reads, codec, device="cpu")
+    out = depress_signals(streams, lens, codec, device=cuda)
+    cpu = depress_signals(streams, lens, codec, device="cpu")
+    assert all(np.array_equal(a, b) for a, b in zip(cpu, out))
+    if codec != "uint11":
+        assert all(np.array_equal(a, b) for a, b in zip(reads, out))
+    grown = {k for k, v in KERNELS.items() if v.launches > before[k]}
+    want = RAW_KERNELS[RAW_CODECS[codec].partition(":")[0]]
+    if codec == "uint_zsm":
+        want = want | {"zsm_mean"}
+    assert want <= grown

@@ -79,18 +79,18 @@ def test_fixture_ratio_equals_jax(fixture_reads):
 
 def test_unported_codec_raises():
     """A registry codec the port does not run (outside the 21 engine
-    codecs, honours_tpu's ENGINE_CODECS, the 25 range-coder codecs and
-    the 11 per-read entropy codecs) raises; a range-coder codec, ported
-    since, runs on the CPU route with the host codec's bytes.
-    ENGINE_CODECS stays the JAX package's 21."""
+    codecs, honours_tpu's ENGINE_CODECS, the 25 range-coder codecs, the
+    11 per-read entropy codecs and the 16 raw-sample codecs) raises; a
+    range-coder codec, ported since, runs on the CPU route with the host
+    codec's bytes.  ENGINE_CODECS stays the JAX package's 21."""
     assert sorted(runner.ENGINE_CODECS) == jrunner.engine_codec_names()
     with pytest.raises(NotImplementedError,
-                       match="not one of the 57 codecs this port runs"):
-        runner.press_signals([np.zeros(3, np.int16)], "uint_zd",
+                       match="not one of the 73 codecs this port runs"):
+        runner.press_signals([np.zeros(3, np.int16)], "turbopfor",
                              device="cpu")
     with pytest.raises(NotImplementedError,
-                       match="not one of the 57 codecs this port runs"):
-        runner.depress_signals([b""], [3], "uint_zd",
+                       match="not one of the 73 codecs this port runs"):
+        runner.depress_signals([b""], [3], "turbopfor",
                                device="cpu")
     read = np.array([5, 300, -7], np.int16)
     (stream,) = runner.press_signals([read], "rc_vbbe21_zd", device="cpu")

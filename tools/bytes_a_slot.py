@@ -1,10 +1,11 @@
 """Device memory a bucket slot takes, for each codec, on the card.
 
     python tools/bytes_a_slot.py [--B 16] [--L 1048576] [--rc] [--entropy]
-        [codec ...]
+        [--raw] [codec ...]
 
 For each codec (the 21 engine codecs by default, the 25 range-coder
-codecs with --rc, the 11 per-read entropy codecs with --entropy)
+codecs with --rc, the 11 per-read entropy codecs with --entropy, the 16
+raw-sample and bit-packing codecs with --raw)
 presses and depresses one unsliced bucket of B synthetic reads (lengths
 uniform in (L/2, L], synth.py, seed 0) through
 engine.runner.press_bucket / depress_bucket with rows = B, and prints
@@ -48,7 +49,9 @@ def measure(codec: str, sig: np.ndarray, n: np.ndarray) -> dict:
     out = depress_bucket(streams, n, L, codec, rows=B)
     torch.cuda.synchronize()
     dec = torch.cuda.max_memory_allocated() - base
-    if not all(np.array_equal(out[j], sig[j, : n[j]]) for j in range(B)):
+    # uint11 keeps each sample's low 11 bits, as the host codec does
+    want = sig & 0x7FF if codec == "uint11" else sig
+    if not all(np.array_equal(out[j], want[j, : n[j]]) for j in range(B)):
         raise AssertionError(f"{codec}: a read did not round-trip")
     slots = B * L
     return {"codec": codec, "B": B, "L": L, "peak_press": enc,
@@ -81,6 +84,9 @@ def main(argv=None) -> int:
     ap.add_argument("--entropy", action="store_true",
                     help="the 11 per-read entropy codecs "
                     "(runner.ENTROPY_CODECS)")
+    ap.add_argument("--raw", action="store_true",
+                    help="the 16 raw-sample and bit-packing codecs "
+                    "(runner.RAW_CODECS)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bytes_a_slot: CUDA is not available", file=sys.stderr)
@@ -88,6 +94,7 @@ def main(argv=None) -> int:
     from honours_tpu_torch.engine.runner import (
         ENGINE_CODECS,
         ENTROPY_CODECS,
+        RAW_CODECS,
         RC_CODECS,
         engine_codec_names,
     )
@@ -96,10 +103,11 @@ def main(argv=None) -> int:
     sig, n = synthesize_bucket(args.B, args.L, seed=0)
     codecs = args.codecs or (sorted(RC_CODECS) if args.rc
                              else sorted(ENTROPY_CODECS) if args.entropy
+                             else sorted(RAW_CODECS) if args.raw
                              else engine_codec_names())
     for codec in codecs:
         line = measure(codec, sig, n)
-        if codec not in ENGINE_CODECS:
+        if codec not in ENGINE_CODECS and codec not in RAW_CODECS:
             line = fit(codec, args.B, args.L, line)
         print(json.dumps(line), flush=True)
     smi = subprocess.run(
