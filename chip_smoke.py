@@ -31,7 +31,12 @@
    the bucket, J (bitunpack_msb) on I's packed rows, K (flats_partition)
    on the samples at step 64 and L (zsm_mean) on the samples, K and L
    each beside its chain floor (FLATS_STEP_CYCLES, ZSM_STEP_CYCLES),
-   their plain versions on the card.  Then does the same for
+   and phase 13's kernels M (hdrwalk, the segment-header walk) on
+   turbopfor's streams of the bucket and, on a log line of its own, on
+   flat_uint_submin's, and N (flac_decode) on flac's streams of the
+   bucket, each beside its chain floor (HDRWALK_STEP_CYCLES,
+   FLAC_STEP_CYCLES), their plain versions on the card.  Then does the
+   same for
    kernel 1's five entries, o1_fc, rans_encode, o1_decode (both drans phases),
    o0_decode, svb16_encode and svb16_decode (zd on and off), n4_decode,
    find_stall, rice_decode and huffman_decode on one read of L = 262144
@@ -174,10 +179,21 @@
    the CPU route's for all ~1,028 reads (run in phase 10's worker
    processes) and whose reads that do not round-trip are counted; the
    card's streams of rc_check_reads equal the CPU route's for all 16.
-   Phase 9 also runs uint_zd and flat_uint_submin over the long set.
-13. Prints one {"kernels": [...]} line (D and E with cm on the bucket's
-   4 longest rows, the [256, 65536] times beside them; F, G, K and L
-   with their chain floors), then {"ok": true, "device": ...}.
+   flat_uint_submin's decode launches M.  Phase 9 also runs uint_zd and
+   flat_uint_submin over the long set.
+13. The last 33 codecs (engine.runner.BLOCK_CODECS, LAYER_CODECS):
+   turbopfor and flac over every main-path read, each with every launch
+   count at 0 just before: every read back bit for bit, M, I and J
+   (turbopfor) and N (flac) launched, ratio and rates logged; none and
+   the 30 byte layers (the inner codec on the card, the layer on the
+   host) over the four edge reads and the 60 shortest reads, every read
+   back, the 13 zstd codecs only where `zstandard` imports (a log line
+   names them where it does not); the card's streams of rc_check_reads
+   equal the CPU route's for every codec run, computed in phase 10's
+   worker processes.
+14. Prints one {"kernels": [...]} line (D and E with cm on the bucket's
+   4 longest rows, the [256, 65536] times beside them; F, G, K, L, M and
+   N with their chain floors), then {"ok": true, "device": ...}.
 
 `--kernels-only` stops after step 2 and prints no result line: it times
 the kernels of whichever honours_tpu_torch is imported, e.g. an older
@@ -607,6 +623,67 @@ def raw_cases(sig, n):
     ]
 
 
+#: phase 13's kernels' dependent cycles a step on the H100: M
+#: (csrc/hdrwalk.cu) a header byte's load from device memory (each header
+#: lies on a line the thread has not read) and a multiply-add; N
+#: (csrc/flac.cu) a code's bit-buffer shifts, __ffs, masks and
+#: prediction, about ten dependent integer operations
+HDRWALK_STEP_CYCLES = 600
+FLAC_STEP_CYCLES = 40
+
+
+def block_cases(sig, n):
+    """(cases, options) of kernels M and N on the bucket [B, L], each
+    (name, kernel call, plain call, bytes, ops, library call, chain floor
+    ms): M on turbopfor's streams of the bucket (2 header bytes and 8 B of
+    count read a block, 8 B of offset written a column of [B, S], 16 B a
+    row; 6 operations a block; chain floor the longest read's blocks at
+    HDRWALK_STEP_CYCLES) and, as an option, on flat_uint_submin's at
+    FLATS_STEP (1 header byte a segment); N on flac's streams of the
+    bucket (the streams' bytes read, 2 B a sample written, 4 B a row; 20
+    operations a sample; chain floor the longest read's samples at
+    FLAC_STEP_CYCLES).  Each plain version runs on the card."""
+    from honours_tpu_torch.engine import flac, flats, pfor
+    from honours_tpu_torch.engine import flac_cuda as N
+    from honours_tpu_torch.engine import hdrwalk_cuda as M
+
+    B, L = sig.shape
+    n32 = n.to(torch.int32).contiguous()
+    n64 = n32.to(torch.int64)
+    pst, psl = pfor.press_pfor_batch(sig, n32)
+    pst = pst.contiguous()
+    blen = pfor.block_lengths(n64, L)[1].contiguous()
+    nblk = (n64 + pfor.BLOCK - 1) // pfor.BLOCK
+    zero = torch.zeros_like(n64)
+    fst, _ = flats.press_flats_batch(sig, n32, FLATS_STEP)
+    fst = fst.contiguous()
+    first, nseg, lens = flats.walk_args(fst, n64)
+    cst, csl = flac.press_flac_batch(sig, n32)
+    cst = cst.contiguous()
+    blocks, segs, nsum = int(nblk.sum()), int(nseg.sum()), int(n64.sum())
+    log(f"phase 13 rows [{B}, {L}]: turbopfor {blocks} blocks, "
+        f"{int(psl.sum())} bytes; flats {segs} segments at step "
+        f"{FLATS_STEP}; flac {int(csl.sum())} bytes, "
+        f"{int(((n64 + flac.BLOCK - 1) // flac.BLOCK).sum())} blocks")
+    cases = [
+        ("hdrwalk", lambda: M.hdrwalk(pst, zero, nblk, blen, M.TURBOPFOR),
+         lambda: M.hdrwalk_plain(pst, zero, nblk, blen, M.TURBOPFOR),
+         8 * blen.numel() + 10 * blocks + 16 * B, 6 * blocks, None,
+         int(nblk.max()) * HDRWALK_STEP_CYCLES / SM_HZ * 1e3),
+        ("flac_decode", lambda: N.flac_decode(cst, n32, L),
+         lambda: N.flac_decode_plain(cst, n32, L),
+         int(csl.sum()) + 2 * B * L + 4 * B, 20 * nsum, None,
+         int(n64.max()) * FLAC_STEP_CYCLES / SM_HZ * 1e3),
+    ]
+    options = [
+        ("hdrwalk flats", lambda: M.hdrwalk(fst, first, nseg, lens, M.FLATS),
+         lambda: M.hdrwalk_plain(fst, first, nseg, lens, M.FLATS),
+         8 * lens.numel() + 9 * segs + 16 * B, 6 * segs, None,
+         int(nseg.max()) * HDRWALK_STEP_CYCLES / SM_HZ * 1e3),
+    ]
+    return cases, options
+
+
 def walk_steps(row, count: int, tabs) -> tuple[int, int]:
     """The steps kernel C's walk takes over one stream (its first-level
     lookups: a step emits two symbols where l1 holds two), and those of
@@ -915,12 +992,14 @@ def kernel_cases(seed: int):
              expand_bytes(r2, m_shift, m_valid, Smax), 2 * B * K * Smax, None)
 
     svb_n4, options, nt = svb_n4_cases(sig, n)
+    blocks, block_options = block_cases(sig, n)
+    options = options + block_options
     cases = perm_cases + walks + svb_n4 + [
         o1n_case(sym, ctx, nt),
         stall_case(sig, n, f"[{B}, {L}]"),
         rice_case(sig, n),
         huffman_case(sig, n),
-    ] + entropy_cases(sig, n) + raw_cases(sig, n)
+    ] + entropy_cases(sig, n) + raw_cases(sig, n) + blocks
     shapes = (f"[{B}, {L}]", f"[{B * K}, {Smax}] (drans phase-grid merge)")
     return cases, options, merge, shapes, vb_cases(sig, n)
 
@@ -1196,6 +1275,8 @@ PHASE_REPLACES = {
     "bitunpack_msb": "honours_tpu/kernels/bitpack.py:38",
     "flats_partition": "honours_tpu/codecs/flats.py:57",
     "zsm_mean": "honours_tpu/codecs/uintc.py:128",
+    "hdrwalk": "honours_tpu/codecs/pfor.py:60",
+    "flac_decode": "honours_tpu/codecs/flac.py:132",
 }
 
 #: kernels each main path must launch
@@ -1231,7 +1312,8 @@ PATHS = {
 
 
 SLOW = ("rans_encode", "o1_decode", "o0_decode", "n4_decode", "find_stall",
-        "rice_decode", "huffman_decode", "huffman_decode_rows")
+        "rice_decode", "huffman_decode", "huffman_decode_rows",
+        "flac_decode")
 
 
 def time_case(name, kern, plain, nbytes, ops, library,
@@ -2586,7 +2668,7 @@ RAW_PATHS = {
        for k in ("uintx_16", "uint11", "uint", "uint_submin", "uint_zd")},
     "uint_zsm": {"bitpack_msb", "bitunpack_msb", "zsm_mean"},
     "flat_uint_submin": {"flats_partition", "bitpack_msb", "bitunpack_msb",
-                         "monotone_compact_i32"},
+                         "monotone_compact_i32", "hdrwalk"},
 }
 
 
@@ -2680,6 +2762,76 @@ def raw_phase(reads, check, cpu, u11, smi: str) -> dict:
     return total
 
 
+#: kernels each phase-13 codec must launch (kernel 1's i32 entries place
+#: turbopfor's exception bytes and flac's Rice fields)
+BLOCK_PATHS = {
+    "turbopfor": {"hdrwalk", "bitpack_msb", "bitunpack_msb",
+                  "monotone_compact_i32", "monotone_expand_i32"},
+    "flac": {"flac_decode", "monotone_compact_i32", "monotone_expand_i32"},
+}
+
+
+def zstd_missing():
+    """Why the zstd layers cannot run here, or None where `zstandard`
+    imports."""
+    try:
+        import zstandard  # noqa: F401
+    except ImportError as e:
+        return f"{type(e).__name__}: {e}"
+    return None
+
+
+def last_codecs() -> list:
+    """The 33 codecs phase 13 runs: turbopfor, flac, none and the 30 byte
+    layers (runner.BLOCK_CODECS, LAYER_CODECS), less the zstd ones where
+    `zstandard` does not import."""
+    from honours_tpu_torch.engine.runner import BLOCK_CODECS, LAYER_CODECS
+
+    names = sorted({**BLOCK_CODECS, **LAYER_CODECS})
+    return [c for c in names if not (zstd_missing() and "zstd" in c)]
+
+
+def block_phase(reads, check, cpu, smi: str) -> dict:
+    """Phase 13: turbopfor and flac over every main-path read, each with
+    every launch count at 0 just before (rc_path: every read back bit for
+    bit, M, I and J or N launched, ratio and rates logged); none and the
+    30 byte layers over the four edge reads and the 60 shortest reads
+    (every read back; the zstd ones only where `zstandard` imports, the
+    others named on a log line); the card's streams of `check`
+    (rc_check_reads) equal the CPU route's (`cpu`: futures by codec) for
+    all of them.  Returns the launches."""
+    import collections
+
+    from honours_tpu_torch.engine.runner import press_signals
+
+    total = collections.Counter()
+    t = time.perf_counter()
+    for codec, kernels in BLOCK_PATHS.items():
+        total.update(rc_path(codec, reads, smi, want=kernels, tag="block"))
+    order = np.argsort([r.size for r in reads[:-4]], kind="stable")
+    few = [reads[i] for i in order[:60]] + reads[-4:]
+    run = [c for c in last_codecs() if c not in BLOCK_PATHS]
+    for codec in run:
+        total.update(rc_path(codec, few, smi, rates=False, want=set(),
+                             tag="layer"))
+    why = zstd_missing()
+    if why:
+        from honours_tpu_torch.engine.runner import LAYER_CODECS
+
+        skipped = sorted(c for c in LAYER_CODECS if "zstd" in c)
+        log(f"layer: skipped the {len(skipped)} zstd codecs ({why}): "
+            + ", ".join(skipped))
+    for codec, f in cpu.items():
+        if press_signals(check, codec) != f.result():
+            raise AssertionError(f"{codec}: the card's streams differ from "
+                                 "the CPU route's")
+    log(f"block: the card's streams of {len(check)} reads (n = "
+        f"{[r.size for r in check]}) equal the CPU route's for all "
+        f"{len(cpu)} of turbopfor, flac, none and the layers run here; "
+        f"phase 13 took {time.perf_counter() - t:.1f} s")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2716,8 +2868,9 @@ def main(argv=None) -> int:
         RC_CODECS,
     )
 
-    # phase 10's plain versions and CPU routes (and phase 11's and 12's
-    # CPU routes) run on the host in 3 worker processes beside phases 3-9
+    # phase 10's plain versions and CPU routes (and phase 11's, 12's and
+    # 13's CPU routes) run on the host in 3 worker processes beside phases
+    # 3-9
     with ProcessPoolExecutor(max_workers=3, mp_context=multiprocessing
                              .get_context("spawn")) as rc_pool:
         rc_pending = rc_kernels_start(args.seed, rc_pool, smi)
@@ -2729,6 +2882,8 @@ def main(argv=None) -> int:
                        for c in sorted(ENTROPY_CODECS)}
         raw_cpu = {c: rc_pool.submit(cpu_rc_press, check, c)
                    for c in sorted(RAW_CODECS)}
+        block_cpu = {c: rc_pool.submit(cpu_rc_press, check, c)
+                     for c in last_codecs()}
         u11_cpu = rc_pool.submit(cpu_round, reads, "uint11")
         results.update({k: {"launches": 0} for k in RC_REPLACES})
         log(f"main path: {len(reads)} reads, {sum(r.size for r in reads)} "
@@ -2751,6 +2906,8 @@ def main(argv=None) -> int:
         for k, c in entropy_phase(reads, check, entropy_cpu, smi).items():
             results[k]["launches"] += c
         for k, c in raw_phase(reads, check, raw_cpu, u11_cpu, smi).items():
+            results[k]["launches"] += c
+        for k, c in block_phase(reads, check, block_cpu, smi).items():
             results[k]["launches"] += c
         held = rc_kernels_held(rc_pending, smi)
     for k, r in held.items():

@@ -28,7 +28,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = (
     "permute.cu", "rans_o1.cu", "rans_encode.cu", "svb16.cu", "rans_n4.cu",
     "segment.cu", "rice.cu", "huffdec.cu", "rangecoder.cu", "rccdf.cu",
-    "huffbuild.cu", "bitpack.cu", "zsm.cu", "flats.cu",
+    "huffbuild.cu", "bitpack.cu", "zsm.cu", "flats.cu", "hdrwalk.cu",
+    "flac.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -10,9 +10,9 @@ over all reads, and every read verified sample for sample (the lossless
 check is the test, press/test.c:402-405).  pressbound_bytes is the host
 codecs' bound (engine/bounds.py).  Reads run through
 engine.runner.press_signals / depress_signals on the device.  The rows
-are the 21 engine codecs by default; --methods takes any of the 73
-ported codecs (the range-coder, per-read entropy and raw-sample codecs
-too, which the JAX harness runs on the host only).
+are the 21 engine codecs by default; --methods takes any of the 106
+ported codecs (the range-coder, per-read entropy, raw-sample, block and
+byte-layer codecs too, which the JAX harness runs on the host only).
 
 Usage:
   python -m honours_tpu_torch.bench.harness FILE.blow5 [--methods a,b,...]

@@ -10,7 +10,7 @@
   python -m honours_tpu_torch codecs
 
 `press` rewrites a SLOW5/BLOW5 file with the signal field compressed by
-a ported codec (default drans_vbbe21_zd; any of the 73 of
+a ported codec (default drans_vbbe21_zd; any of the 106 of
 engine.runner.CODECS) through the bucketed runner;
 `depress` restores a stock BLOW5 (svb-zd signal, zlib records).  The
 files are byte-identical to `python -m honours_tpu press --tpu` /
@@ -21,7 +21,7 @@ honours_tpu bench --tpu`'s rows);
 `analyze` prints the signal statistics report (analysis.py) as JSON, the
 aggregate or, with --per-read, the whole report, as
 `python -m honours_tpu analyze` does.  All four run on the CUDA card and
-raise without one unless `--device cpu` is given.  `codecs` lists the 73
+raise without one unless `--device cpu` is given.  `codecs` lists the 106
 ported codecs; any other name raises NotImplementedError.
 """
 

@@ -28,7 +28,7 @@ __all__ = [
     "monotone_place", "pack_fields_msb", "pack_fields_lsb",
     "unpack_fields_msb",
     "rowwise_concat", "u32le_bytes", "u16le_bytes", "read_u32le",
-    "read_u16le", "read_u32be",
+    "read_u16le", "read_u32be", "bytes_at",
 ]
 
 
@@ -55,6 +55,18 @@ def _read_le(stream, off, nbytes: int, big: bool = False):
     b = torch.gather(stream, 1, idx.clamp(0, M - 1)).to(torch.int64)
     shifts = torch.arange(0, 8 * nbytes, 8, device=stream.device)[None, :]
     return (b << (shifts.flip(1) if big else shifts)).sum(dim=1)
+
+
+def bytes_at(stream, p):
+    """stream [B, M] u8, p [B, ...] byte offsets of each row -> the bytes
+    there as int64, 0 outside the row (a cut stream reads as zeros)."""
+    B, M = stream.shape
+    q = p.to(torch.int64).reshape(B, -1)
+    ok = (q >= 0) & (q < M)
+    if M == 0:
+        return torch.zeros_like(q).reshape(p.shape)
+    got = stream.gather(1, torch.where(ok, q, 0)).to(torch.int64)
+    return torch.where(ok, got, 0).reshape(p.shape)
 
 
 def read_u32le(stream, off):

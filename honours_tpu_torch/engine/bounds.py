@@ -53,6 +53,9 @@ _BOUND = {
     "uint:plain": lambda n: 1 + n * 2,  # uintc.py UintCodec
     "uint": lambda n: 2 + 1 + n * 2,  # uintc.py submin, zd, zsm
     "flats": lambda n: 8 + n * 3 + 64,  # flats.py
+    "pfor": lambda n: n * 3 + 64,  # pfor.py
+    "flac": lambda n: n * 3 + 64,  # flac.py
+    "none": lambda n: n * 2,  # raw.py
 }
 
 
@@ -60,5 +63,8 @@ def bound(codec_name: str, n: int) -> int:
     """The host codec's bound for a read of n samples; NotImplementedError
     for a name that is not a ported codec."""
     kind = engine_kind(codec_name)
-    f = _BOUND.get(kind) or _BOUND[kind.partition(":")[0]]
+    family, _, sub = kind.partition(":")
+    if family == "layer":  # generic.py: the inner's (none's: 2 n) and more
+        return bound(sub.partition(":")[2], n) + int(n) // 2 + 1024
+    f = _BOUND.get(kind) or _BOUND[family]
     return f(int(n))

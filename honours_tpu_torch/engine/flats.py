@@ -12,8 +12,8 @@ codec's, for every read):
   per segment: [min:u16][b:1B][MSB-first packed (x - min), b bits each]
 an empty read is [0:u32].  The fields are packed and unpacked by kernels
 I and J (engine/bitpack_cuda.py), one row a segment.  The parse walks
-the segment headers in order (a segment's bytes follow from its b), a
-step over every row at a time.
+the segment headers in order (a segment's bytes follow from its b) with
+kernel M (engine/hdrwalk_cuda.py), one launch a bucket.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from honours_tpu_torch.engine.bitpack import minbits
 from honours_tpu_torch.engine.bitpack_cuda import pack_msb, unpack_msb
 from honours_tpu_torch.engine.bits import read_u32le, u32le_bytes
+from honours_tpu_torch.engine.hdrwalk_cuda import FLATS, hdrwalk
 from honours_tpu_torch.engine.permute import monotone_compact, rowwise_shift_left
 from honours_tpu_torch.engine.svb32 import (
     _nbytes_and_codes,
@@ -151,31 +152,44 @@ def press_flats_batch(sig, n, step: int = None):
     return stream[:, :W], 4 + svb_len + size.sum(dim=1)
 
 
+def walk_args(stream, n):
+    """(first, nseg, lens) of flats streams [B, M] u8 of reads of n
+    samples: the byte of each row's first segment header (after [nseg:
+    u32] and the svb32 of the lengths), its segment count (at most n)
+    and its segment lengths [B, S] int64, S the largest count, zeros
+    past a row's own: what kernel M walks."""
+    B, M = stream.shape
+    dev = stream.device
+    zero = torch.zeros((B,), dtype=torch.int64, device=dev)
+    nseg = torch.minimum(read_u32le(stream, zero), n.to(torch.int64))
+    S = int(nseg.max()) if B else 0
+    if S == 0:
+        return zero + 4, nseg, torch.zeros((B, 0), dtype=torch.int64,
+                                            device=dev)
+    S4 = -(-S // 4) * 4
+    lens = svb32_decode_batch(
+        rowwise_shift_left(stream, zero + 4, S4 // 4 + 4 * S4), nseg, S4)
+    seg_ok = torch.arange(S, device=dev)[None, :] < nseg[:, None]
+    lens = torch.where(seg_ok, lens[:, :S].to(torch.int64), 0)
+    nb = _nbytes_and_codes(lens, "1234")[0]
+    used = (nseg + 3) // 4 + torch.where(seg_ok, nb, 0).sum(dim=1)
+    return 4 + used, nseg, lens
+
+
 def depress_flats_batch(stream, n, L: int):
     """Inverse of press_flats_batch (streams from either package) -> [B,
     L] int16, zero past n."""
     B, M = stream.shape
     dev = stream.device
     n = n.to(torch.int64).clamp(0, L)
-    zero = torch.zeros((B,), dtype=torch.int64, device=dev)
-    nseg = torch.minimum(read_u32le(stream, zero), n)
-    S = int(nseg.max()) if B else 0
+    first, nseg, lens = walk_args(stream, n)
+    S = lens.shape[1]
     if S == 0:
         return torch.zeros((B, L), dtype=torch.int16, device=dev)
-    S4 = -(-S // 4) * 4
-    lens = svb32_decode_batch(
-        rowwise_shift_left(stream, zero + 4, S4 // 4 + 4 * S4), nseg, S4)
-    lens = lens[:, :S]
     seg_ok = torch.arange(S, device=dev)[None, :] < nseg[:, None]
-    nb = _nbytes_and_codes(lens, "1234")[0]
-    used = (nseg + 3) // 4 + torch.where(seg_ok, nb, 0).sum(dim=1)
-    # the walk: a segment's header is where the one before it ends
-    hop = torch.where(seg_ok, lens, 0)
-    offs = [4 + used]
-    for s in range(S - 1):
-        b = stream.gather(1, (offs[-1] + 2).clamp(0, M - 1)[:, None])[:, 0]
-        offs.append(offs[-1] + SEG_HDR_BYTES + (hop[:, s] * b + 7) // 8)
-    hdr = torch.stack(offs, dim=1)
+    # the walk (kernel M): a segment's header is where the one before it
+    # ends
+    hdr = hdrwalk(stream.contiguous(), first, nseg, lens, FLATS)
 
     def byte(k):
         return stream.gather(1, (hdr + k).clamp(0, M - 1)).to(torch.int64)

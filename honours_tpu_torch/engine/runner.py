@@ -52,7 +52,18 @@ host only (codecs/vb.py, svb.py, uintc.py, flats.py):
                       engine/svb16.py     (svb12's and svb12_zd's format)
   uintx_16, uint11, uint, uint_submin, uint_zd, uint_zsm
                       engine/uint.py      (kernels I and J, L's mean)
-  flat_uint_submin    engine/flats.py     (kernel K's partition, I, J)
+  flat_uint_submin    engine/flats.py     (kernel K's partition, I, J,
+                                           M's header walk)
+Their streams are the host codec's for every read, n = 0 included.
+BLOCK_CODECS and LAYER_CODECS are the last 33 of honours_tpu's registry,
+which it also runs on the host only (codecs/pfor.py, flac.py, raw.py,
+generic.py):
+  turbopfor           engine/pfor.py      (kernels I, J and M)
+  flac                engine/flac.py      (kernel N to decode)
+  none                engine/layers.py    (the raw samples' bytes)
+  zlib, zstd, bzip2, fast_lzma2 and their 26 compositions
+  <layer>_<inner>     engine/layers.py    (the inner codec on the
+                                           device, the layer on the host)
 Their streams are the host codec's for every read, n = 0 included.
 
 Two kinds of rows leave the bucket's group and run alone, as one-row
@@ -99,6 +110,7 @@ from honours_tpu_torch.engine.dstall_drans import (
     press_dstall_drans_batch,
 )
 from honours_tpu_torch.engine.exzd import depress_exzd_batch, press_exzd_batch
+from honours_tpu_torch.engine.flac import depress_flac_batch, press_flac_batch
 from honours_tpu_torch.engine.flats import (
     depress_flats_batch,
     press_flats_batch,
@@ -108,7 +120,7 @@ from honours_tpu_torch.engine.huffman import (
     depress_huffman_batch,
     press_huffman_batch,
 )
-from honours_tpu_torch.engine import rc
+from honours_tpu_torch.engine import layers, rc
 from honours_tpu_torch.engine.pipeline import (
     canned_huffman_tables,
     canned_o1_device_tables,
@@ -123,6 +135,7 @@ from honours_tpu_torch.engine.pipeline import (
     press_srans3_batch,
     press_srans_batch,
 )
+from honours_tpu_torch.engine.pfor import depress_pfor_batch, press_pfor_batch
 from honours_tpu_torch.engine.rice import (
     depress_rice_vb_zd_batch,
     press_rice_vb_zd_batch,
@@ -223,15 +236,23 @@ RAW_CODECS = {
     "uint_zsm": "uint:zsm",
     "flat_uint_submin": "flats",
 }
-#: every codec the port runs
-CODECS = {**ENGINE_CODECS, **RC_CODECS, **ENTROPY_CODECS, **RAW_CODECS}
+#: turbopfor, flac and none (honours_tpu/codecs/pfor.py, flac.py, raw.py):
+#: codec name -> engine kind
+BLOCK_CODECS = {"turbopfor": "pfor", "flac": "flac", "none": "none"}
+#: the byte layers over none and their compositions (honours_tpu/codecs/
+#: generic.py, exzd.py, flac.py): codec name -> "layer:<layer>:<inner>"
+LAYER_CODECS = {name: f"layer:{layer}:{inner}"
+                for name, (layer, inner, _) in layers.COMPOSED.items()}
+#: every codec the port runs: all of honours_tpu's registry
+CODECS = {**ENGINE_CODECS, **RC_CODECS, **ENTROPY_CODECS, **RAW_CODECS,
+          **BLOCK_CODECS, **LAYER_CODECS}
 
 #: byte offset of the exception count in each capped family's stream:
 #: [G:u16][zd0:u16][nex:u32]..., [zd0:u16][nex:u32]..., [min:u16]
 #: [nex:u32]..., [nex:u32]... and ex-zd's [ver:1][nin:u64][q:1][zd0:u16]
 #: [nex:u32]...; for the dstall families, in each branch blob (srans2's
 #: and drans's; stall_fz.stall_fz_overflowed reads the stall-fz blobs);
-#: the svb families, rc_zd, uint and flats have no cap
+#: the svb families, rc_zd, uint, flats, pfor, flac and none have no cap
 _NEX_AT = {"drans": 4, "srans": 2, "srans2": 2, "srans3": 2, "shuff": 2,
            "vb_zd": 2, "rice_zd": 2, "exzd": 12, "dstall": 2,
            "dstall_drans": 4, "rc_vb_zd": 2, "rc_vb": 0, "rc_submin": 2,
@@ -271,7 +292,9 @@ _GROUPED = ("drans", "dstall_drans")
 #: bytes_a_slot.py --entropy), rccdf's peak the depress's, huffman's and
 #: shuffman's the press's.  The raw codecs': [16, 2^20] (tools/
 #: bytes_a_slot.py --raw; the raw vb containers' rows overflow the
-#: exception cap there and are pressed alone).
+#: exception cap there and are pressed alone).  turbopfor's, flac's and
+#: none's: [16, 2^20] (tools/bytes_a_slot.py --block); a layer codec
+#: takes its inner codec's, as its layer runs on the host.
 BYTES_A_SLOT = {
     "drans_vbbe21_zd": 64, "srans_vbbe21_zd": 61, "srans2_vbbe21_zd": 61,
     "srans3_vbbe21_zd": 61, "shuffman_vbbe21_zd": 182, "svb12_zd": 5,
@@ -294,7 +317,10 @@ BYTES_A_SLOT = {
     "svb": 84, "svb0124": 84, "svb12_nosimd": 5, "svb12_zd_nosimd": 5,
     "uintx_16": 32, "uint11": 31, "uint": 31, "uint_submin": 31,
     "uint_zd": 51, "uint_zsm": 46, "flat_uint_submin": 55,
+    "turbopfor": 105, "flac": 191, "none": 8,
 }
+BYTES_A_SLOT.update({name: BYTES_A_SLOT[inner]
+                     for name, (_, inner, _) in layers.COMPOSED.items()})
 def _coder_state(kind: str) -> int:
     """Device bytes of a range-coder kind's model state a bucket row:
     rangecoder.STATE_BYTES for each coder row its engine launches."""
@@ -310,10 +336,13 @@ def _coder_state(kind: str) -> int:
 #: shuffman
 ROW_BYTES = {**{name: 0 for name in ENGINE_CODECS},
              **{name: 0 for name in RAW_CODECS},
+             **{name: 0 for name in BLOCK_CODECS},
              **{name: _coder_state(kind) for name, kind in RC_CODECS.items()},
              **{name: {"rc_vb_zd": RCCDF_STATE, "huffman_zd": HUFF_STATE}.get(
                  kind.partition(":")[0], 0)
                 for name, kind in ENTROPY_CODECS.items()}}
+ROW_BYTES.update({name: ROW_BYTES[inner]
+                  for name, (_, inner, _) in layers.COMPOSED.items()})
 #: the share of the device's memory one slice's working set may take;
 #: the rest holds what a bucket keeps on the device whole (for drans and
 #: dstall_drans its signal, branch signals and streams) and the
@@ -354,7 +383,8 @@ def engine_codec_names() -> list[str]:
 
 def codec_names() -> list[str]:
     """Every codec the port runs (ENGINE_CODECS, RC_CODECS,
-    ENTROPY_CODECS and RAW_CODECS), sorted."""
+    ENTROPY_CODECS, RAW_CODECS, BLOCK_CODECS and LAYER_CODECS), sorted:
+    honours_tpu.codecs.base.names()."""
     return sorted(CODECS)
 
 
@@ -392,6 +422,9 @@ def batch_engine(codec_name: str, dev):
     they code the batch in."""
     kind = engine_kind(codec_name)
     family, _, sub = kind.partition(":")
+    if family == "layer":
+        return layers.layer_engine(codec_name,
+                                   batch_engine(_inner(kind), dev), dev)
     if codec_name in RC_CODECS or family == "rc_vb_zd":
         return _rc_engine(family, sub)
     if family == "huffman_zd":
@@ -440,12 +473,28 @@ def batch_engine(codec_name: str, dev):
     if family == "uint":
         return (lambda sig, n, emax: press_uint_batch(sig, n, sub),
                 lambda buf, n, L, emax: depress_uint_batch(buf, n, L, sub))
-    if family == "flats":
-        return (lambda sig, n, emax: press_flats_batch(sig, n),
-                lambda buf, n, L, emax: depress_flats_batch(buf, n, L))
+    if family in _BLOCK_ENGINES:
+        press, depress = _BLOCK_ENGINES[family]
+        return (lambda sig, n, emax: press(sig, n),
+                lambda buf, n, L, emax: depress(buf, n, L))
     zd = kind == "svb16_zd"
     return (lambda sig, n, emax: svb16_encode_batch(sig, n, zd),
             lambda buf, n, L, emax: svb16_decode_batch(buf, n, L, zd))
+
+
+#: uncapped kind -> (batched press(sig, n), batched depress(buf, n, L))
+_BLOCK_ENGINES = {
+    "flats": (press_flats_batch, depress_flats_batch),
+    "pfor": (press_pfor_batch, depress_pfor_batch),
+    "flac": (press_flac_batch, depress_flac_batch),
+    "none": (layers.press_none_batch, layers.depress_none_batch),
+}
+
+
+def _inner(kind: str):
+    """The inner codec of a layer kind, else None."""
+    family, _, sub = kind.partition(":")
+    return sub.partition(":")[2] if family == "layer" else None
 
 
 def _emax(L: int) -> int:
@@ -526,7 +575,10 @@ def press_read(signal, codec_name: str = "drans_vbbe21_zd",
     """Compress one read alone: a one-row batch at its bucket's width
     with emax = L, the one-row path of press_signals, whose bytes are
     the host codec's press of that read (for n >= 1)."""
-    engine_kind(codec_name)
+    inner = _inner(engine_kind(codec_name))
+    if inner:
+        return layers.wrap(codec_name, [press_read(signal, inner, device)],
+                           [np.asarray(signal).size])[0]
     dev = resolve_device(device)
     press, _ = batch_engine(codec_name, dev)
     sig = np.asarray(signal, np.int16)
@@ -540,6 +592,10 @@ def press_bucket(sig: np.ndarray, n: np.ndarray, codec_name: str,
     row's stream.  The bucket is coded in slices of `rows` rows
     (slice_rows by default); the streams do not depend on it."""
     kind = engine_kind(codec_name)
+    inner = _inner(kind)
+    if inner:  # the inner codec on the device, the layer on the host
+        return layers.wrap(codec_name, press_bucket(sig, n, inner, device,
+                                                    rows), n)
     dev = resolve_device(device)
     press, _ = batch_engine(codec_name, dev)
     B, L = sig.shape
@@ -572,6 +628,10 @@ def depress_bucket(streams, n: np.ndarray, L: int, codec_name: str,
     `rows` rows (slice_rows by default); the output does not depend on
     it."""
     kind = engine_kind(codec_name)
+    inner = _inner(kind)
+    if inner:
+        return depress_bucket(layers.unwrap(codec_name, streams, n), n, L,
+                              inner, device, rows)
     dev = resolve_device(device)
     _, depress = batch_engine(codec_name, dev)
     B = len(streams)

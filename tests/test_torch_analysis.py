@@ -147,7 +147,8 @@ def test_method_size_table(fixture_reads):
 
 def test_method_size_table_rejects_host_only_codecs():
     with pytest.raises(NotImplementedError):
-        T.method_size_table([np.arange(10, dtype=np.int16)], ["zstd"],
+        T.method_size_table([np.arange(10, dtype=np.int16)],
+                            ["no_such_codec"],
                             device=CPU)
 
 

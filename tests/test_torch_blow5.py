@@ -44,6 +44,17 @@ ENTROPY = ([f"{c}_{k}_zd" for c in ("rccdf", "huffman")
 RAW = ["vb1e2", "vbe21", "vbbe21", "vbsbe21", "vbsse21", "svb", "svb0124",
        "svb12_nosimd", "svb12_zd_nosimd", "uintx_16", "uint11", "uint",
        "uint_submin", "uint_zd", "uint_zsm", "flat_uint_submin"]
+#: the last 33: turbopfor, flac, none and the byte layers over none and
+#: their compositions (codecs/pfor.py, flac.py, raw.py, generic.py,
+#: exzd.py)
+LAST = (["turbopfor", "flac", "none", "zlib", "zstd", "bzip2",
+         "fast_lzma2", "zlib_uint_submin", "zstd_uint_submin",
+         "bzip2_uint_zd", "fast_lzma2_uint_zd", "bzip2_svb12_zd",
+         "fast_lzma2_svb12_zd", "zstd_vb1e2_zd", "zlib_hasgam_vbsse21_zdq",
+         "zstd_hasgam_vbsse21_zdq", "zstd_flac"]
+        + [f"{c}_{k}" for c in ("zlib", "zstd")
+           for k in ("uint_zd", "svb_zd", "svb0124_zd", "svb12_zd",
+                     "vbe21_zd", "vbbe21_zd", "vbsbe21_zd", "vbsse21_zd")])
 
 FIELDS = ("read_id", "read_group", "digitisation", "offset", "range",
           "sampling_rate", "aux")
@@ -139,10 +150,11 @@ def test_cli_files_match_reference_and_cross_decode(tmp_path, src_file,
 
 def test_cli_rules(tmp_path, src_file, capsys):
     """Default device is the card (RuntimeError here without one);
-    codecs the port does not run raise NotImplementedError; `codecs`
-    lists the 73 it runs (the 21 engine codecs, the 25 range-coder
-    codecs, the 11 per-read entropy codecs and the 16 raw-sample
-    codecs), with no mark."""
+    a name outside the registry raises NotImplementedError; `codecs`
+    lists the 106 the port runs (the 21 engine codecs, the 25 range-coder
+    codecs, the 11 per-read entropy codecs, the 16 raw-sample codecs and
+    the last 33: turbopfor, flac, none and the byte layers), with no
+    mark."""
     out = str(tmp_path / "out.blow5")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -150,13 +162,13 @@ def test_cli_rules(tmp_path, src_file, capsys):
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(["depress", str(src_file), out])
     with pytest.raises(NotImplementedError,
-                       match="not one of the 73 codecs this port runs"):
+                       match="not one of the 106 codecs this port runs"):
         cli.main(["press", str(src_file), out, "--codec",
-                  "turbopfor", "--device", "cpu"])
+                  "no_such_codec", "--device", "cpu"])
     f5 = tb.read_blow5(str(src_file))
     with pytest.raises(NotImplementedError,
-                       match="not one of the 73 codecs this port runs"):
-        tb.write_blow5(out, f5, signal_codec="turbopfor",
+                       match="not one of the 106 codecs this port runs"):
+        tb.write_blow5(out, f5, signal_codec="no_such_codec",
                        signal_streams=[b""] * len(f5.reads))
     assert cli.main(["codecs"]) == 0
     lines = capsys.readouterr().out.splitlines()
@@ -165,7 +177,7 @@ def test_cli_rules(tmp_path, src_file, capsys):
         "srans3_vbbe21_zd", "shuffman_vbbe21_zd", "svb12_zd", "svb12",
         "vb1e2_zd", "vbe21_zd", "vbbe21_zd", "vbsbe21_zd", "vbsse21_zd",
         "svb_zd", "svb0124_zd", "hasgam_vbsse21_zdq", *RICE,
-        "dstall_srans2", "dstall_drans", *RC, *ENTROPY, *RAW])
+        "dstall_srans2", "dstall_drans", *RC, *ENTROPY, *RAW, *LAST])
 
 
 @pytest.mark.parametrize("codec", RICE)

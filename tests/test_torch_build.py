@@ -12,7 +12,9 @@ from honours_tpu_torch import _build
 # import every wrapper module so the registry is complete
 from honours_tpu_torch.engine import (  # noqa: F401
     bitpack_cuda,
+    flac_cuda,
     flats_cuda,
+    hdrwalk_cuda,
     huffdec_cuda,
     huffman,
     permute_cuda,
@@ -43,7 +45,8 @@ def test_registry_holds_every_kernel():
         "n4_decode", "find_stall", "rice_decode", "huffman_decode",
         "rc_encode", "rc_decode", "rccdf_encode", "rccdf_decode",
         "huffman_build", "huffman_decode_rows", "bitpack_msb",
-        "bitunpack_msb", "flats_partition", "zsm_mean"])
+        "bitunpack_msb", "flats_partition", "zsm_mean", "hdrwalk",
+        "flac_decode"])
     for k in _build.KERNELS.values():
         assert k.source in _build.SOURCES
 
@@ -143,3 +146,15 @@ def test_encode_partition_matches_source():
     wt = T // 8 + 2 * T
     assert ranges == [[(0, wt, "zero")], [(wt, 2 * wt, "zero")],
                       [(2 * wt, svb16_cuda.stream_width(L), "zero")]]
+
+
+def test_flac_constants_match_source():
+    """flac_cuda's block length, verbatim mode and limits on order and k
+    (which its plain version and engine/flac.py's press use) are
+    flac.cu's."""
+    text = (_build.CSRC / "flac.cu").read_text()
+    consts = dict(re.findall(
+        r"constexpr (?:long long|unsigned) (\w+) = (\d+);", text))
+    assert {k: int(v) for k, v in consts.items()} == {
+        "BLOCK": flac_cuda.BLOCK, "VERBATIM": flac_cuda.VERBATIM,
+        "MAX_ORDER": flac_cuda.MAX_ORDER, "MAX_K": flac_cuda.MAX_K}

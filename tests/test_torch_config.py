@@ -1,6 +1,8 @@
-"""The port's utils/config.py vs honours_tpu/utils/config.py (its four
+"""The port's utils/config.py vs honours_tpu/utils/config.py (its eight
 fields; HTPU_FLATS_STEP reaching flat_uint_submin is held in
-tests/test_torch_flats.py), and the HTPU_STALL_THRESHOLD /
+tests/test_torch_flats.py), the HTPU_ZLIB_LEVEL / HTPU_ZSTD_LEVEL /
+HTPU_BZIP2_LEVEL / HTPU_LZMA2_PRESET overrides reaching the port's byte
+layers (engine/layers.py), and the HTPU_STALL_THRESHOLD /
 HTPU_STALL_MARGIN / HTPU_DSTALL_THRESHOLD overrides reaching the port's
 stall splits: under each setting the
 port's _split_batch and its dstall_srans2 and dstall_drans streams equal
@@ -13,6 +15,7 @@ Both packages' cached configs are reset for each case.  No JAX engine is
 compiled.  Splits and streams must be equal (tolerance 0)."""
 
 import dataclasses
+import struct
 
 import numpy as np
 import pytest
@@ -104,6 +107,8 @@ def test_defaults_equal_the_reference(monkeypatch):
     assert tconfig.get_config() is cfg
     assert (cfg.stall_threshold, cfg.dstall_threshold,
             cfg.stall_margin, cfg.flats_step) == (140, 1500, 20, 64)
+    assert (cfg.zlib_level, cfg.zstd_level, cfg.bzip2_level,
+            cfg.lzma2_preset) == (-1, 1, 9, 6)
 
 
 def test_every_field_parses_like_the_reference(monkeypatch):
@@ -113,14 +118,68 @@ def test_every_field_parses_like_the_reference(monkeypatch):
     _use(monkeypatch, env)
     ours = dataclasses.asdict(tconfig.Config.default())
     theirs = dataclasses.asdict(jconfig.Config.default())
-    assert list(ours) == ["stall_threshold", "dstall_threshold",
-                          "stall_margin", "flats_step"]
+    assert list(ours) == ["zlib_level", "zstd_level", "bzip2_level",
+                          "lzma2_preset", "stall_threshold",
+                          "dstall_threshold", "stall_margin", "flats_step"]
     assert ours == {k: theirs[k] for k in ours}
     assert ours == {k: int(env[f"HTPU_{k.upper()}"]) for k in ours}
     monkeypatch.setenv("HTPU_STALL_MARGIN", "twenty")
     for mod in (tconfig, jconfig):
         with pytest.raises(ValueError):
             mod.Config.default()
+
+
+#: a setting of each layer level: the layer's bytes move under it
+LAYER_SETTINGS = {
+    "zlib_level": ("zlib_uint_zd", {"HTPU_ZLIB_LEVEL": "9"}),
+    "zstd_level": ("zstd_vbbe21_zd", {"HTPU_ZSTD_LEVEL": "19"}),
+    "bzip2_level": ("bzip2_svb12_zd", {"HTPU_BZIP2_LEVEL": "1"}),
+    "lzma2_preset": ("fast_lzma2_uint_zd", {"HTPU_LZMA2_PRESET": "0"}),
+}
+
+
+@pytest.mark.parametrize("field", sorted(LAYER_SETTINGS))
+def test_layer_levels_reach_the_layers(monkeypatch, reads, field):
+    """Under HTPU_ZLIB_LEVEL, HTPU_ZSTD_LEVEL, HTPU_BZIP2_LEVEL and
+    HTPU_LZMA2_PRESET the port's layer compresses its inner stream at that
+    level: its streams differ from the defaults' and equal the library's
+    at the setting (zlib's and bzip2's equal the host codecs', which read
+    the level at each press; the JAX zstd and LZMA2 layers take theirs at
+    import) and decode back."""
+    import bz2
+    import lzma
+    import zlib
+
+    from honours_tpu_torch.engine import layers
+
+    codec, env = LAYER_SETTINGS[field]
+    if "zstd" in codec:
+        zstandard = pytest.importorskip("zstandard")
+    layer, inner, with_nin = layers.COMPOSED[codec]
+    cut = [r[:3000] for r in reads[:3]]
+    _use(monkeypatch, {})
+    default = runner.press_signals(cut, codec, device="cpu")
+    _use(monkeypatch, env)
+    level = int(next(iter(env.values())))
+    assert getattr(tconfig.get_config(), field) == level
+    ours = runner.press_signals(cut, codec, device="cpu")
+    assert ours != default
+    press = {
+        "zlib": lambda b: zlib.compress(b, level),
+        "zstd": lambda b: zstandard.ZstdCompressor(level=level).compress(b),
+        "bzip2": lambda b: bz2.compress(b, level),
+        "fast_lzma2": lambda b: lzma.compress(
+            b, format=lzma.FORMAT_RAW,
+            filters=[{"id": lzma.FILTER_LZMA2, "preset": level}]),
+    }[layer]
+    inner_streams = runner.press_signals(cut, inner, device="cpu")
+    assert ours == [press(struct.pack("<I", r.size) + s if with_nin else s)
+                    for r, s in zip(cut, inner_streams)]
+    if layer in ("zlib", "bzip2"):
+        assert ours == [get_codec(codec).press(r) for r in cut]
+    back = runner.depress_signals(ours, [r.size for r in cut], codec,
+                                  device="cpu")
+    assert all(np.array_equal(a, b) for a, b in zip(back, cut))
 
 
 @pytest.mark.parametrize("setting", SETTINGS)

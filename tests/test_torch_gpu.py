@@ -1255,7 +1255,7 @@ def test_decode_kernel_and_runner_round_trip(cuda, codec):
     out = depress_signals(streams, [r.size for r in reads], codec,
                           device=cuda)
     assert all(np.array_equal(a, b) for a, b in zip(reads, out))
-    grown = {k for k, v in KERNELS.items() if v.launches > before[k]}
+    grown = {k for k, v in KERNELS.items() if v.launches > before.get(k, 0)}
     assert grown == KERNELS_OF[codec]
 
 
@@ -1696,7 +1696,7 @@ def test_rc_codecs_on_card_equal_cpu(cuda, codec):
     out = depress_signals(streams, [r.size for r in reads], codec,
                           device=cuda)
     assert all(np.array_equal(a, b) for a, b in zip(reads, out))
-    grown = {k for k, v in KERNELS.items() if v.launches > before[k]}
+    grown = {k for k, v in KERNELS.items() if v.launches > before.get(k, 0)}
     assert {"rc_encode", "rc_decode"} <= grown
 
 
@@ -1962,7 +1962,7 @@ def test_entropy_codecs_on_card_equal_cpu(cuda, codec):
     out = depress_signals(streams, [r.size for r in reads], codec,
                           device=cuda)
     assert all(np.array_equal(a, b) for a, b in zip(reads, out))
-    grown = {k for k, v in KERNELS.items() if v.launches > before[k]}
+    grown = {k for k, v in KERNELS.items() if v.launches > before.get(k, 0)}
     want = ENTROPY_KERNELS[codec.split("_")[0]] | {"monotone_compact_u8"}
     if "vbsse21" in codec:
         want |= {"svb16_encode", "svb16_decode"}
@@ -2172,8 +2172,201 @@ def test_raw_codecs_on_card_equal_cpu(cuda, codec):
     assert all(np.array_equal(a, b) for a, b in zip(cpu, out))
     if codec != "uint11":
         assert all(np.array_equal(a, b) for a, b in zip(reads, out))
-    grown = {k for k, v in KERNELS.items() if v.launches > before[k]}
+    grown = {k for k, v in KERNELS.items() if v.launches > before.get(k, 0)}
     want = RAW_KERNELS[RAW_CODECS[codec].partition(":")[0]]
     if codec == "uint_zsm":
         want = want | {"zsm_mean"}
+    assert want <= grown
+
+
+def _walk_both(stream, first, nseg, counts, fmt, cuda):
+    """Kernel M and its plain version on the card."""
+    from honours_tpu_torch.engine import hdrwalk_cuda as M
+
+    args = [a.to(cuda) for a in _t(stream, first, nseg, counts)]
+    got = M.hdrwalk(*args, fmt)
+    _same(got, M.hdrwalk_plain(*args, fmt))
+    return got
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_hdrwalk_kernel_matches_plain(cuda, seed):
+    """M against its plain version: turbopfor's host streams of the block
+    reads (offsets equal the host walk's), random bytes in both formats
+    with random and negative counts, segment counts from -1 to past S,
+    first offsets past the row and negative, rows cut to every length."""
+    import block_rows
+    from honours_tpu.codecs.base import get as get_codec
+    from honours_tpu_torch.engine.hdrwalk_cuda import FLATS, TURBOPFOR
+
+    reads = block_rows.block_reads(seed)
+    streams = [get_codec("turbopfor").press(r) for r in reads]
+    S = max(-(-r.size // 128) for r in reads)
+    counts = np.zeros((len(reads), S), np.int64)
+    for i, r in enumerate(reads):
+        m = -(-r.size // 128)
+        counts[i, :m] = np.minimum(128, r.size - 128 * np.arange(m))
+    nseg = np.array([-(-r.size // 128) for r in reads], np.int64)
+    buf = block_rows.stream_rows(streams)
+    got = _walk_both(buf, np.zeros(len(reads), np.int64), nseg, counts,
+                     TURBOPFOR, cuda).cpu().numpy()
+    for i in range(len(reads)):
+        assert got[i].tolist() == block_rows.hdrwalk_np(
+            buf[i], 0, int(nseg[i]), counts[i], TURBOPFOR)
+    rng = np.random.default_rng(seed)
+    B, M, S = 64, 300, 40
+    stream = rng.integers(0, 256, (B, M)).astype(np.uint8)
+    stream[: B // 2] &= 0x1F
+    counts = rng.integers(-3, 200, (B, S)).astype(np.int64)
+    nseg = rng.integers(-1, S + 5, B).astype(np.int64)
+    first = rng.integers(0, M // 4, B).astype(np.int64)
+    first[:4] = [M, M - 1, -2, 10 * M]
+    for fmt in (TURBOPFOR, FLATS):
+        _walk_both(stream, first, nseg, counts, fmt, cuda)
+    s = streams[-1]
+    cut = block_rows.stream_rows([s[:m] for m in range(0, 80)])
+    _walk_both(cut, np.zeros(80, np.int64), np.full(80, 20, np.int64),
+               np.full((80, 20), 128, np.int64), TURBOPFOR, cuda)
+
+
+@pytest.mark.parametrize("fmt", ["turbopfor", "flats"])
+def test_hdrwalk_kernel_one_row_of_2_22(cuda, fmt):
+    """M on the press's streams of one read of 2^22 samples (32,768
+    turbopfor blocks; 65,536 flats segments of the partition) and of two
+    of 2^21 + 3, against its plain version on the card: the walk ends at
+    each stream's length."""
+    from honours_tpu_torch.engine import flats, pfor
+    from honours_tpu_torch.engine.hdrwalk_cuda import FLATS, TURBOPFOR
+    from honours_tpu_torch.synth import synthesize_corpus
+
+    flat = synthesize_corpus((1 << 22) + 9, seed=29)
+    for lens in ([1 << 22], [(1 << 21) + 3, (1 << 21) + 3]):
+        L = max(lens)
+        sig = torch.zeros((len(lens), L), dtype=torch.int16)
+        a = 0
+        for i, m in enumerate(lens):
+            sig[i, :m] = torch.from_numpy(flat[a: a + m])
+            a += m
+        n = torch.tensor(lens, dtype=torch.int32)
+        sig, n = sig.to(cuda), n.to(cuda)
+        if fmt == "turbopfor":
+            st, sl = pfor.press_pfor_batch(sig, n)
+            nseg = (n.to(torch.int64) + 127) // 128
+            blen = pfor.block_lengths(n, L)[1]
+            args = (st, torch.zeros_like(nseg), nseg, blen)
+        else:
+            st, sl = flats.press_flats_batch(sig, n)
+            first, nseg, lens = flats.walk_args(st, n)
+            args = (st, first, nseg, lens)
+        # a column past the last segment: every row's walk ends in it
+        stream, first, nseg, counts = args
+        counts = torch.nn.functional.pad(counts, (0, 1))
+        got = _walk_both(*[a.cpu() for a in (stream, first, nseg, counts)],
+                         TURBOPFOR if fmt == "turbopfor" else FLATS, cuda)
+        _same(got[:, -1], sl.to(torch.int64))
+
+
+def _flac_both(rows, n, L, cuda):
+    """Kernel N and its plain version on the card."""
+    from honours_tpu_torch.engine import flac_cuda as N
+
+    s, m = _t(rows, n)
+    s, m = s.to(cuda), m.to(torch.int32).to(cuda)
+    got = N.flac_decode(s, m, L)
+    _same(got, N.flac_decode_plain(s, m, L))
+    return got
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_flac_kernel_matches_plain(cuda, seed):
+    """N against its plain version and the host decode: the host's streams
+    of the block reads (every edge length, verbatim blocks, the spike's
+    unary runs of thousands of ones), at L = their longest and wider;
+    streams cut at their first bytes, in a warm-up and in the Rice bits;
+    headers the press never writes, runs past the plain version's window
+    and off the row, random rows."""
+    import block_rows
+    from honours_tpu.codecs.base import get as get_codec
+
+    reads = block_rows.block_reads(seed)
+    host = get_codec("flac")
+    streams = [host.press(r) for r in reads]
+    rows = block_rows.stream_rows(streams, 3)
+    n = np.array([r.size for r in reads], np.int32)
+    for L in (int(n.max()), int(n.max()) + 4099):
+        got = _flac_both(rows, n, L, cuda).cpu().numpy()
+        for i, r in enumerate(reads):
+            assert np.array_equal(got[i, : r.size], r)
+            assert not got[i, r.size:].any()
+    s = streams[-1]
+    first = 2 + 2 * s[0]
+    cuts = [s[:m] for m in (0, 1, 2, 3, first - 1, first + 5, first + 700)]
+    _flac_both(block_rows.stream_rows(cuts), np.full(len(cuts), 9000), 9000,
+               cuda)
+    rng = np.random.default_rng(seed + 6)
+    M = 12000
+    odd = np.zeros((8, M), np.uint8)
+    odd[0, :4] = [7, 3, 1, 2]
+    odd[1, :2] = [1, 31]
+    odd[2, :12] = [4, 2, 5, 0, 6, 0, 7, 0, 8, 0, 255, 0]
+    odd[3] = 0xFF
+    odd[5, 2: 2 + 9000] = 0xFF
+    odd[6, :6] = [2, 3, 1, 0, 2, 0]
+    odd[6, 6:] = 0xFF
+    odd[7] = rng.integers(0, 256, M).astype(np.uint8)
+    odd[7, :2] = [1, 4]
+    _flac_both(odd, np.array([100, 100, 3, 50, 0, 5000, 200, 4200]), 6000,
+               cuda)
+    rand = rng.integers(0, 256, (64, 3000)).astype(np.uint8)
+    rand[:, 0] = rng.integers(0, 5, 64)
+    rand[:, 1] = rng.integers(0, 31, 64)
+    rand[:32, 2:] &= 0x0F
+    _flac_both(rand, rng.integers(0, 400, 64), 400, cuda)
+
+
+def test_flac_kernel_one_row_of_2_22(cuda):
+    """N on the press's streams of one read of 2^22 samples (1,024 blocks)
+    and of two of 2^21 + 3, against its plain version on the card; the
+    reads come back."""
+    from honours_tpu_torch.engine import flac
+    from honours_tpu_torch.synth import synthesize_corpus
+
+    flat = synthesize_corpus((1 << 22) + 9, seed=31)
+    for lens in ([1 << 22], [(1 << 21) + 3, (1 << 21) + 3]):
+        L = max(lens)
+        sig = torch.zeros((len(lens), L), dtype=torch.int16)
+        a = 0
+        for i, m in enumerate(lens):
+            sig[i, :m] = torch.from_numpy(flat[a: a + m])
+            a += m
+        n = torch.tensor(lens, dtype=torch.int32)
+        st, sl = flac.press_flac_batch(sig.to(cuda), n.to(cuda))
+        got = _flac_both(st.cpu().numpy(), n.numpy(), L, cuda)
+        _same(got, sig.to(cuda))
+
+
+@pytest.mark.parametrize("codec", [
+    "turbopfor", "flac", "none", "zlib", "bzip2_uint_zd",
+    "fast_lzma2_svb12_zd", "zlib_vbbe21_zd", "zlib_hasgam_vbsse21_zdq"])
+def test_last_codecs_on_card_equal_cpu(cuda, codec):
+    """turbopfor, flac, none and layer codecs through the runner on the
+    card: the streams equal the CPU route's and the reads come back; M,
+    I and J launched for turbopfor, N for flac."""
+    import block_rows
+    from honours_tpu_torch._build import KERNELS
+    from honours_tpu_torch.engine.runner import (
+        depress_signals,
+        press_signals,
+    )
+
+    reads = _entropy_reads() + block_rows.block_reads(2)[:16]
+    lens = [r.size for r in reads]
+    before = {k: v.launches for k, v in KERNELS.items()}
+    streams = press_signals(reads, codec, device=cuda)
+    assert streams == press_signals(reads, codec, device="cpu")
+    out = depress_signals(streams, lens, codec, device=cuda)
+    assert all(np.array_equal(a, b) for a, b in zip(reads, out))
+    grown = {k for k, v in KERNELS.items() if v.launches > before.get(k, 0)}
+    want = {"turbopfor": {"hdrwalk", "bitpack_msb", "bitunpack_msb"},
+            "flac": {"flac_decode"}}.get(codec, set())
     assert want <= grown

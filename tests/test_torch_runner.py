@@ -78,23 +78,38 @@ def test_fixture_ratio_equals_jax(fixture_reads):
 
 
 def test_unported_codec_raises():
-    """A registry codec the port does not run (outside the 21 engine
-    codecs, honours_tpu's ENGINE_CODECS, the 25 range-coder codecs, the
-    11 per-read entropy codecs and the 16 raw-sample codecs) raises; a
-    range-coder codec, ported since, runs on the CPU route with the host
-    codec's bytes.  ENGINE_CODECS stays the JAX package's 21."""
+    """A name outside the registry raises, naming the 106 codecs the port
+    runs (every registry codec: the 21 engine codecs, honours_tpu's
+    ENGINE_CODECS, the 25 range-coder codecs, the 11 per-read entropy
+    codecs, the 16 raw-sample codecs, turbopfor, flac, none and the 30
+    byte layers); a range-coder codec, ported since, runs on the CPU
+    route with the host codec's bytes.  ENGINE_CODECS stays the JAX
+    package's 21."""
     assert sorted(runner.ENGINE_CODECS) == jrunner.engine_codec_names()
     with pytest.raises(NotImplementedError,
-                       match="not one of the 73 codecs this port runs"):
-        runner.press_signals([np.zeros(3, np.int16)], "turbopfor",
+                       match="not one of the 106 codecs this port runs"):
+        runner.press_signals([np.zeros(3, np.int16)], "no_such_codec",
                              device="cpu")
     with pytest.raises(NotImplementedError,
-                       match="not one of the 73 codecs this port runs"):
-        runner.depress_signals([b""], [3], "turbopfor",
+                       match="not one of the 106 codecs this port runs"):
+        runner.depress_signals([b""], [3], "no_such_codec",
                                device="cpu")
     read = np.array([5, 300, -7], np.int16)
     (stream,) = runner.press_signals([read], "rc_vbbe21_zd", device="cpu")
     assert stream == registry.get("rc_vbbe21_zd").press(read)
+
+
+def test_codec_names_are_the_registry():
+    """The port runs every codec of honours_tpu's registry, 106 of them,
+    and engine_kind, batch_engine and bound cover each one."""
+    from honours_tpu_torch.engine.bounds import bound
+
+    assert runner.codec_names() == registry.names()
+    assert len(runner.codec_names()) == 106
+    for name in runner.codec_names():
+        runner.engine_kind(name)
+        assert len(runner.batch_engine(name, torch.device("cpu"))) == 2
+        assert bound(name, 4097) == registry.get(name).bound(4097), name
 
 
 def test_default_device_needs_cuda():

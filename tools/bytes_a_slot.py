@@ -1,11 +1,13 @@
 """Device memory a bucket slot takes, for each codec, on the card.
 
     python tools/bytes_a_slot.py [--B 16] [--L 1048576] [--rc] [--entropy]
-        [--raw] [codec ...]
+        [--raw] [--block] [codec ...]
 
 For each codec (the 21 engine codecs by default, the 25 range-coder
 codecs with --rc, the 11 per-read entropy codecs with --entropy, the 16
-raw-sample and bit-packing codecs with --raw)
+raw-sample and bit-packing codecs with --raw, turbopfor, flac and none
+with --block; a byte-layer codec takes its inner codec's bytes, as its
+layer runs on the host)
 presses and depresses one unsliced bucket of B synthetic reads (lengths
 uniform in (L/2, L], synth.py, seed 0) through
 engine.runner.press_bucket / depress_bucket with rows = B, and prints
@@ -87,11 +89,14 @@ def main(argv=None) -> int:
     ap.add_argument("--raw", action="store_true",
                     help="the 16 raw-sample and bit-packing codecs "
                     "(runner.RAW_CODECS)")
+    ap.add_argument("--block", action="store_true",
+                    help="turbopfor, flac and none (runner.BLOCK_CODECS)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bytes_a_slot: CUDA is not available", file=sys.stderr)
         return 2
     from honours_tpu_torch.engine.runner import (
+        BLOCK_CODECS,
         ENGINE_CODECS,
         ENTROPY_CODECS,
         RAW_CODECS,
@@ -104,10 +109,11 @@ def main(argv=None) -> int:
     codecs = args.codecs or (sorted(RC_CODECS) if args.rc
                              else sorted(ENTROPY_CODECS) if args.entropy
                              else sorted(RAW_CODECS) if args.raw
+                             else sorted(BLOCK_CODECS) if args.block
                              else engine_codec_names())
     for codec in codecs:
         line = measure(codec, sig, n)
-        if codec not in ENGINE_CODECS and codec not in RAW_CODECS:
+        if codec not in {**ENGINE_CODECS, **RAW_CODECS, **BLOCK_CODECS}:
             line = fit(codec, args.B, args.L, line)
         print(json.dumps(line), flush=True)
     smi = subprocess.run(
