@@ -143,15 +143,20 @@
    (rc_encode) and E (rc_decode), which replace the host's C coder.
    Before phase 3, for each byte model (o0, o1, cm): D and E timed at
    the main path's [256, 65536] (rccm_vbbe21_zd's residual bytes of the
-   bucket) beside their bound and chain floor (RC_STEP_CYCLES), every
-   row decoded back; the bucket's 4 longest rows (about 65,000 bytes
-   each) coded alone and timed, their streams equal to the bucket
+   bucket) beside their bound and chain floor (RC_STEP_CYCLES) and the
+   cycles a coded bit of the longest row, every row decoded back; the
+   share of the bucket's bytes whose model rows the kernels'
+   shared-memory slots held rather than fetched, counted on the host
+   from the data (rc_reuse); the bucket's 4 longest rows (about 65,000
+   bytes each) coded alone and timed, their streams equal to the bucket
    call's rows and held to the plain encode (cm: the plain decode too,
    for its time); D and E held against their plain versions at
    [16, 4096] on edge rows (empty, one byte, 255s, zeros, a ramp,
-   random and residual-like bytes, rc_rows), also after timed graph
-   replays and in one-row calls.  The plain versions run on the host in
-   3 worker processes beside phases 3-9.  After phase 9:
+   random bytes, and rows whose model-row keys repeat: a run, ABAB,
+   ABCABC, cycles of 5, 9, 17 and 33 bytes, residual-like runs;
+   rc_rows), also after timed graph replays and in one-row calls.  The
+   plain versions run on the host in 3 worker processes beside phases
+   3-9.  After phase 9:
    rccm_vbbe21_zd and dstall_fz over all ~1,028 reads, the other 23
    codecs over the four edge reads and the 60 shortest reads, and
    rccm_svbbe21_zd and dstall_fz over the stall set, each with every
@@ -2223,11 +2228,15 @@ RC_REPLACES = {"rc_encode": "honours_tpu/native/rangecoder.c:488",
 #: the two codecs phase 10 runs over every main-path read (the
 #: reference's best general-purpose method and its best ratio)
 RC_HEADLINE = ("rccm_vbbe21_zd", "dstall_fz")
-#: a step's dependent cycles in the chain-floor model of kernels D and E:
+#: a step's dependent cycles in the chain-floor model of kernels D and E,
+#: made for a thread that walks a read alone and kept as the yardstick:
 #: o0 / o1 an L1 read of the probability, the bound's multiply and the
-#: compare; cm three levels of table reads in device memory at L1 latency
-#: (the counters, order-2 cell and weights together, then apm1, then
-#: apm2), four shared-memory lookups and the mixer's integer chain
+#: compare; cm three levels of table reads in device memory at L1
+#: latency (the counters, order-2 cell and weights together, then apm1,
+#: then apm2), four shared-memory lookups and the mixer's integer chain.
+#: The kernels compute a cm byte's nodes side by side and keep only its
+#: apm2 stage and the coder serial, so the model does not bound them from
+#: below
 RC_STEP_CYCLES = {"o0": 40, "o1": 40, "cm": 3 * 33 + 4 * 30 + 60}
 #: integer operations a coded bit, for the operations bound
 RC_STEP_OPS = {"o0": 12, "o1": 12, "cm": 120}
@@ -2236,14 +2245,18 @@ RC_STEP_OPS = {"o0": 12, "o1": 12, "cm": 120}
 def rc_rows(seed: int, B: int = 16, N: int = 4096):
     """[B, N] bytes and counts of phase 10's small kernel check: an empty
     row, one byte 0 and one 255, full rows of 255, of 0, a ramp, random
-    bytes, short random rows, residual-like (geometric) rows of every
-    length."""
+    bytes, short random rows, then tests/rc_rows.py's rows whose
+    model-row keys repeat (a run, ABAB, ABCABC, a cycle of 5,
+    residual-like runs, cycles of 17, 33 and 9 bytes) at lengths from N
+    down, then residual-like (geometric) rows of every length."""
     rng = np.random.default_rng(seed + 10)
     rows = [np.zeros(0, np.uint8), np.array([0], np.uint8),
             np.array([255], np.uint8), np.full(N, 255, np.uint8),
             np.zeros(N, np.uint8), (np.arange(N) % 256).astype(np.uint8),
             rng.integers(0, 256, N).astype(np.uint8),
             rng.integers(0, 256, 777).astype(np.uint8)]
+    alias = load_tests_module("rc_rows").aliasing_rows(seed + 22, N)
+    rows += [r[: N - 97 * i] for i, r in enumerate(alias)]
     rows = rows[:B]
     while len(rows) < B:
         m = int(rng.integers(1, N + 1))
@@ -2286,6 +2299,19 @@ def rc_floor_ms(longest: int, model: str) -> float:
     return 8 * longest * RC_STEP_CYCLES[model] / SM_HZ * 1e3
 
 
+def rc_reuse(data, n) -> dict:
+    """For each model with row slots (rangecoder_cuda.SLOTS: cm's o1 /
+    o1s rows, then its o2 rows), the share of the bytes of
+    data [B, N] u8 (counts n [B]) whose model rows a slot held, reused
+    rather than fetched: counted on the host from the data
+    (tests/rc_rows.py row_reuse, the kernels' least-recently-used slots),
+    in a worker process."""
+    from honours_tpu_torch.engine.rangecoder_cuda import SLOTS
+
+    rows = load_tests_module("rc_rows")
+    return {m: rows.row_reuse(data, n, s) for m, s in SLOTS.items()}
+
+
 #: rows of the main path's bucket whose D and E outputs phase 10 holds to
 #: the plain versions (its longest rows: the plain cm coder takes ~0.35
 #: ms a coded bit on one host thread, ~3 minutes for a 65,000-byte row)
@@ -2318,6 +2344,7 @@ def rc_kernels_start(seed: int, pool, smi: str):
     top = torch.argsort(blen, descending=True, stable=True)[:RC_LONG_ROWS]
     ldata, ln = bdata[top].contiguous(), blen[top].contiguous()
     lzero = torch.zeros_like(ln)
+    reuse = pool.submit(rc_reuse, bdata.cpu().numpy(), blen.cpu().numpy())
     long_pending = {}
     for model in ("cm", "o1", "o0"):  # the longest plain job first
         out, length = RC.rc_encode(bdata, blen, model)
@@ -2348,10 +2375,10 @@ def rc_kernels_start(seed: int, pool, smi: str):
                 f"residual bytes of the bucket, {nsum} bytes, longest row "
                 f"{longest}, {slen} stream bytes; {smi}): {ms:.3f} ms on the "
                 f"card, bound {bound:.4f} ms ({by}), chain floor "
-                f"{floor:.3f} ms ({RC_STEP_CYCLES[model]} cycles a step), "
+                f"{floor:.3f} ms ({RC_STEP_CYCLES[model]} cycles a coded bit), "
                 f"{ms / floor:.2f}x the floor, "
                 f"{ms * 1e6 / (8 * longest) * SM_HZ / 1e9:.0f} cycles a "
-                "step")
+                "coded bit of the longest row")
         long_pending[model] = dict(
             data=ldata.cpu(), n=ln.cpu(), got_e=to_cpu((lout, llen)),
             got_d=lback.cpu(), e_ms=le_ms, d_ms=ld_ms,
@@ -2384,7 +2411,7 @@ def rc_kernels_start(seed: int, pool, smi: str):
                         d_ms, futures))
     if not all(torch.equal(p[3], torch.from_numpy(data)) for p in pending):
         raise AssertionError("rc_decode: [16, 4096] rows not given back")
-    return pending, long_pending
+    return pending, long_pending, (reuse, f"[{Bb}, {Nb}]")
 
 
 def rc_kernels_held(pending, smi: str) -> dict:
@@ -2394,8 +2421,15 @@ def rc_kernels_held(pending, smi: str) -> dict:
     D's streams (E gave those rows back from them).  Logs each; returns
     the kernels line's entries of rc_encode and rc_decode: cm on the
     longest rows, the bucket's times beside them."""
-    small, long_rows = pending
+    small, long_rows, (reuse, shape) = pending
     err = {"rc_encode": 0, "rc_decode": 0}
+    shares = reuse.result()
+    log(f"kernels rc_encode / rc_decode {shape} (rccm_vbbe21_zd's "
+        "residual bytes of the bucket): share of bytes whose model rows a "
+        "shared-memory slot held rather than fetched (cm), counted on the "
+        f"host from the data: {shares['cm'][0]:.4f} (o1 and o1s rows, by the "
+        f"previous byte) and {shares['cm'][1]:.4f} (o2 rows, by the previous "
+        "two bytes)")
     for (model, got_e, rep_e, got_d, rep_d, alone, e_ms, d_ms,
          futures) in small:
         (want_e, plain_e), (want_d, plain_d) = (f.result() for f in futures)

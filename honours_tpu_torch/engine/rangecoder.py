@@ -47,9 +47,8 @@ APM_N = 33
 #: count-adaptive rates (CRATE) and each input's cap (MAXR: o0, o1 5; the
 #: slow o1 stays at 8; the order-2 counter 5)
 CRATE = (1, 2, 2, 3, 3, 3, 4, 4, 4, 4, 5, 5, 5, 5, 5, 5)
-#: per-row cells of the cm model's 16-bit tables: o0 [256], o1 and the
-#: slow o1s [256][256], then the two APMs [256][33]; csrc/rangecoder.cu
-#: lays a row out alike
+#: per-row cells of the plain cm model's 16-bit tables: o0 [256], o1 and
+#: the slow o1s [256][256], then the two APMs [256][33]
 CM_O0, CM_O1, CM_O1S = 0, 256, 256 + 65536
 CM_APM1 = CM_O1S + 65536
 CM_APM2 = CM_APM1 + 256 * APM_N
@@ -57,9 +56,16 @@ CM_SMALL = CM_APM2 + 256 * APM_N
 O2_CELLS = 1 << 24
 W_CELLS = 2048 * 4
 W_INIT = (1 << 16) // 4
+#: the kernels' device state, uint16 cells a row (csrc/rangecoder.cu lays
+#: it out alike): o1's [256][256]; cm's o1 and o1s [256][256] and o2
+#: [2^16][256].  The rest of a model's state (o0, the APMs, the weights)
+#: lives in the kernels' shared memory and is set there.
+O1_CELLS = 65536
+DEV_O1S = 65536
+DEV_O2 = 2 * 65536
+DEV_CM_CELLS = DEV_O2 + O2_CELLS
 #: device bytes of one row's model state, by model (the kernels' scratch)
-STATE_BYTES = {"o0": 2 * 256, "o1": 2 * 65536,
-               "cm": 2 * CM_SMALL + 2 * O2_CELLS + 4 * W_CELLS}
+STATE_BYTES = {"o0": 0, "o1": 2 * O1_CELLS, "cm": 2 * DEV_CM_CELLS}
 
 
 def squash_table() -> np.ndarray:

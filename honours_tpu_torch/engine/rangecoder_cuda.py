@@ -4,8 +4,10 @@
 No TPU kernel stands behind them: honours_tpu runs this coder on the
 host only (honours_tpu/native/rangecoder.c).  The wrappers route by
 device: CPU tensors take the plain versions, CUDA tensors launch the
-kernels, one thread a row, over model state that the wrapper allocates
-and fills on the card (rangecoder.STATE_BYTES a row: 32.3 MiB for cm).
+kernels, a warp a row, with the model state that fits in shared memory
+(set by the kernels) and the rest in device memory that the wrapper
+allocates and fills (rangecoder.STATE_BYTES a row: 32.25 MiB for cm, its
+order-2 table; 128 KiB for o1, its order-1 table; none for o0).
 """
 
 from __future__ import annotations
@@ -14,55 +16,54 @@ import torch
 
 from honours_tpu_torch._build import check, is_cpu, kernel, stream_ptr
 from honours_tpu_torch.engine.rangecoder import (
+    DEV_CM_CELLS,
     MODELS,
-    O2_CELLS,
+    O1_CELLS,
     PROB_INIT,
     SLACK,
     SQUASH,
     STRETCH,
-    W_CELLS,
-    W_INIT,
-    cm_small_row,
     out_width,
     rc_decode_plain,
     rc_encode_plain,
 )
 
 _ENCODE = kernel("rc_encode", "rangecoder.cu", "htt_rc_encode",
-                 "lpllpplplppppp")
+                 "lpllpplplppp")
 _DECODE = kernel("rc_decode", "rangecoder.cu", "htt_rc_decode",
-                 "lpllpplpppppp")
+                 "lpllpplpppp")
+
+#: cm's shared-memory row slots a read (csrc/rangecoder.cu CM_O1_SLOTS,
+#: CM_O2_SLOTS): its o1 and o1s rows by the previous byte, its o2 rows by
+#: the previous two
+SLOTS = {"cm": (16, 8)}
 
 _DEVICE_TABLES: dict = {}
 
 
-def _on(dev, key: str, make):
-    """A constant tensor made once a device."""
-    k = (str(dev), key)
+def _tables(dev):
+    """SQUASH then STRETCH (int16), made once a device."""
+    k = str(dev)
     if k not in _DEVICE_TABLES:
-        _DEVICE_TABLES[k] = make().to(dev)
+        _DEVICE_TABLES[k] = torch.cat([torch.from_numpy(SQUASH),
+                                       torch.from_numpy(STRETCH)]).to(dev)
     return _DEVICE_TABLES[k]
 
 
-def _scratch(model: str, B: int, dev):
-    """(probs, o2, w): a row's model state each, as the kernels start it
-    (new tensors: the kernels write them); o0 and o1 pass their table
-    for the unused two."""
+def _state(model: str, B: int, dev):
+    """A row's device model state each, as the kernels start it (a new
+    tensor: the kernels write it), or None for o0."""
     if model == "cm":
-        row = _on(dev, "cm_row", lambda: torch.from_numpy(cm_small_row()))
-        return (row.repeat(B, 1),
-                torch.full((B, O2_CELLS), 2048, dtype=torch.int16,
-                           device=dev),
-                torch.full((B, W_CELLS), W_INIT, dtype=torch.int32,
-                           device=dev))
-    probs = torch.full((B, 65536 if model == "o1" else 256), PROB_INIT,
-                       dtype=torch.int16, device=dev)
-    return probs, probs, probs
+        return torch.full((B, DEV_CM_CELLS), 2048, dtype=torch.int16,
+                          device=dev)
+    if model == "o1":
+        return torch.full((B, O1_CELLS), PROB_INIT, dtype=torch.int16,
+                          device=dev)
+    return None
 
 
-def _tables(dev):
-    return _on(dev, "squash_stretch", lambda: torch.cat([
-        torch.from_numpy(SQUASH), torch.from_numpy(STRETCH)]))
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
 def _model_index(model: str) -> int:
@@ -87,10 +88,10 @@ def rc_encode_launch(data, n, model: str, slack: int = SLACK):
     dev = data.device
     out = torch.zeros((B, W), dtype=torch.uint8, device=dev)
     length = torch.empty(B, dtype=torch.int64, device=dev)
-    probs, o2, w = _scratch(model, B, dev)
+    state = _state(model, B, dev)
     _ENCODE(m, data.data_ptr(), B, N, n.data_ptr(), out.data_ptr(), W,
-            length.data_ptr(), slack, probs.data_ptr(), o2.data_ptr(),
-            w.data_ptr(), _tables(dev).data_ptr(), stream_ptr(dev))
+            length.data_ptr(), slack, _ptr(state), _tables(dev).data_ptr(),
+            stream_ptr(dev))
     return out, length
 
 
@@ -126,8 +127,8 @@ def rc_decode(stream, off, count, N: int, model: str):
         raise ValueError(f"N {N} is negative")
     dev = stream.device
     out = torch.zeros((B, N), dtype=torch.uint8, device=dev)
-    probs, o2, w = _scratch(model, B, dev)
+    state = _state(model, B, dev)
     _DECODE(m, stream.data_ptr(), B, M, off.data_ptr(), count.data_ptr(), N,
-            out.data_ptr(), probs.data_ptr(), o2.data_ptr(), w.data_ptr(),
-            _tables(dev).data_ptr(), stream_ptr(dev))
+            out.data_ptr(), _ptr(state), _tables(dev).data_ptr(),
+            stream_ptr(dev))
     return out

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import chunked_rows as rows
+import rc_rows
 import stall_rows
 from chunked_rows import place as chunked_place
 from entropy_rows import fib_hist, long_code_read
@@ -1580,9 +1581,10 @@ def test_full_bucket_in_slices(smoke, long_set, codec):
 @pytest.mark.parametrize("model", ["o0", "o1", "cm"])
 def test_rc_kernels_match_plain(smoke, model):
     """D and E at [16, 4096] on chip_smoke.rc_rows (empty, one-byte, 255,
-    0, ramp, random and residual-like rows) equal their plain versions
-    (run on the host); one-row calls give the same rows, twice (each
-    call starts its model afresh)."""
+    0, ramp and random rows, and tests/rc_rows.py's rows whose model-row
+    keys repeat) equal their plain versions (run on the host); one-row
+    calls give the same rows, twice (each call starts its model
+    afresh)."""
     from honours_tpu_torch.engine import rangecoder_cuda as RC
 
     data, n = smoke.rc_rows(0)
@@ -1659,6 +1661,104 @@ def test_rc_kernels_match_c_coder_at_main_path_rows(smoke, model):
         stream[i, :len(w)] = np.frombuffer(w, np.uint8)
     back = RC.rc_decode(torch.from_numpy(stream).cuda(), torch.zeros_like(n),
                         n, data.shape[1], model)
+    _same(back, data)
+
+
+def _rc_matrix(rows, width=None):
+    width = width or max(max(r.size for r in rows), 1)
+    out = np.zeros((len(rows), width), np.uint8)
+    for i, r in enumerate(rows):
+        out[i, : r.size] = r
+    return (torch.from_numpy(out),
+            torch.tensor([r.size for r in rows], dtype=torch.int32))
+
+
+@pytest.mark.parametrize("model", ["o0", "o1", "cm"])
+def test_rc_kernels_on_aliasing_rows(cuda, model):
+    """D and E on rows whose model-row keys repeat (rc_rows.aliasing_rows:
+    a run, ABAB, ABCABC, a cycle of 5, residual-like runs, and cycles of
+    17, 33 and 9 bytes, which miss cm's row slots every byte, so each row
+    is fetched right after its write-back) equal their plain versions,
+    tolerance 0, in one call and a row alone."""
+    from honours_tpu_torch.engine import rangecoder_cuda as RC
+
+    data, n = _rc_matrix(rc_rows.aliasing_rows(22))
+    want = RC.rc_encode_plain(data, n, model)
+    got = RC.rc_encode(data.cuda(), n.cuda(), model)
+    _same(got, want)
+    for i in (2, 6):
+        _same(RC.rc_encode(data[i:i + 1].cuda(), n[i:i + 1].cuda(), model),
+              (want[0][i:i + 1], want[1][i:i + 1]))
+    zero = torch.zeros_like(n)
+    N = data.shape[1]
+    back = RC.rc_decode(want[0].cuda(), zero.cuda(), n.cuda(), N, model)
+    _same(back, RC.rc_decode_plain(want[0], zero, n, N, model))
+    _same(back, data)
+
+
+@pytest.mark.parametrize("model", ["o0", "o1", "cm"])
+def test_rc_decode_streams_across_window_segments(cuda, model):
+    """E reads its coder stream through a warp's window of 512-byte
+    segments (htt_walk::Window, 2,048 bytes resident or in flight):
+    streams of 900-3,000 bytes that start at offsets around a segment
+    edge and the window's end (0, 1, 15, 16, 496, 511, 512, 513, 2047,
+    2048, 2049) in rows 7 bytes past a segment's start, some cut at a
+    segment edge, decode as the plain version decodes them."""
+    from honours_tpu_torch.engine import rangecoder_cuda as RC
+
+    rng = np.random.default_rng(22)
+    src = [rng.integers(0, 256, 3000).astype(np.uint8),
+           np.minimum(rng.geometric(0.1, 3000), 255).astype(np.uint8),
+           rc_rows.cycle_row(33, 7, 2500)]
+    data, n = _rc_matrix(src)
+    full, length = RC.rc_encode_plain(data, n, model)
+    offs = [0, 1, 15, 16, 496, 511, 512, 513, 2047, 2048, 2049]
+    M = 2049 + int(length.max())
+    M += (512 + 7 - M % 512) % 512  # 7 bytes into a segment
+    stream = torch.zeros((len(offs), M), dtype=torch.uint8)
+    cnt = torch.zeros(len(offs), dtype=torch.int32)
+    for i, o in enumerate(offs):
+        k = i % 3
+        keep = int(length[k])
+        if i % 4 == 3:  # cut where the row's next segment starts
+            keep = min(keep, 512 - o % 512 + 512)
+        stream[i, o: o + keep] = full[k, :keep]
+        cnt[i] = int(n[k]) + (5 if i == 5 else 0)
+    offs_t = torch.tensor(offs, dtype=torch.int32)
+    want = RC.rc_decode_plain(stream, offs_t, cnt, 3000, model)
+    got = RC.rc_decode(stream.cuda(), offs_t.cuda(), cnt.cuda(), 3000, model)
+    _same(got, want)
+    for i in (0, 4, 8):  # whole streams give their rows back
+        assert torch.equal(want[i, : n[i % 3]], data[i % 3, : n[i % 3]])
+
+
+@pytest.mark.parametrize("model", ["o0", "o1", "cm"])
+def test_rc_kernels_past_one_wave(cuda, model):
+    """A bucket of 300 rows, more than the 264 reads one wave holds (2 a
+    block on each of 132 SMs): D's streams equal the C coder's
+    (honours_tpu.native) and E gives every row back from them."""
+    from honours_tpu import native
+    from honours_tpu_torch.engine import rangecoder_cuda as RC
+
+    rng = np.random.default_rng(300)
+    src = []
+    for i in range(300):
+        m = int(rng.integers(0, 1500))
+        src.append(np.minimum(rng.geometric(0.15, m), 255).astype(np.uint8)
+                   if i % 3 else rc_rows.aliasing_row(
+                       rc_rows.PATTERNS[i % 5], i, m))
+    data, n = _rc_matrix(src)
+    c_encode = {"o0": native.rc0_encode, "o1": native.rc1_encode,
+                "cm": native.rccm_encode}[model]
+    want = [c_encode(r) for r in src]
+    out, length = RC.rc_encode(data.cuda(), n.cuda(), model)
+    got, got_len = out.cpu().numpy(), length.tolist()
+    bad = [i for i, w in enumerate(want)
+           if got[i, :got_len[i]].tobytes() != w]
+    assert not bad, f"rows {bad[:8]} differ from the C coder's streams"
+    stream, _ = _rc_matrix([np.frombuffer(w, np.uint8) for w in want])
+    back = RC.rc_decode(stream.cuda(), torch.zeros_like(n).cuda(), n.cuda(),
+                        data.shape[1], model)
     _same(back, data)
 
 
@@ -1742,7 +1842,8 @@ def _rccdf_same(data, dlen):
 
 def _edge_rows(smoke):
     """chip_smoke.py's [16, 4096] edge rows (rc_rows: empty, one byte,
-    255s, zeros, a ramp, random and residual-like bytes), as tensors."""
+    255s, zeros, a ramp, random bytes and rows of repeating bytes), as
+    tensors."""
     data, n = smoke.rc_rows(19)
     return torch.from_numpy(data), torch.from_numpy(n)
 

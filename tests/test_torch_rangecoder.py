@@ -3,15 +3,18 @@ kernels D and E, reached through rangecoder_cuda.py's wrappers on CPU
 tensors) vs honours_tpu/native/rangecoder.c, byte for byte in both
 directions: the port's streams equal ht_rc0/rc1/rccm_encode's, the port
 decodes the C's streams and the C decodes the port's, for rows of 0, 1,
-7, 300 and 1,500 bytes, all-255, a ramp and random bytes (numpy, seeded).
-Also SQUASH / STRETCH against init_tables' formula, the stream cap, cut
-streams, offsets and the layout the CUDA source shares.  No JAX; the
-plain cm coder takes a few ms a byte, so rows stay short."""
+7, 300 and 1,500 bytes, all-255, a ramp and random bytes (numpy, seeded),
+and rows whose model-row keys repeat (tests/rc_rows.py: a run, ABAB,
+ABCABC, a cycle of 5, residual-like runs).  Also SQUASH / STRETCH against
+init_tables' formula, the stream cap, cut streams, offsets, the layout and
+slot counts the CUDA source shares and the host's count of reused rows.
+No JAX; the plain cm coder takes a few ms a byte, so rows stay short."""
 
 import re
 
 import numpy as np
 import pytest
+import rc_rows
 import torch
 
 from honours_tpu import native
@@ -151,19 +154,68 @@ def test_a_stream_past_its_cap_raises(model):
         RC.rc_encode(data, n, "o2")
 
 
-def test_layout_matches_the_cuda_source():
-    """The per-row cells the wrapper fills are the ones the kernels
-    index: rangecoder.cu's layout constants are rangecoder.py's."""
+def _cuda_constants() -> dict:
     text = (_build.CSRC / "rangecoder.cu").read_text()
-    consts = dict(re.findall(r"constexpr (?:long long|int) (\w+) = ([^;]+);",
-                             text))
+    return dict(re.findall(r"constexpr (?:long long|int) (\w+) = ([^;]+);",
+                           text))
+
+
+def test_layout_matches_the_cuda_source():
+    """The device state the wrapper fills is the one the kernels index:
+    rangecoder.cu's layout constants are rangecoder.py's, and the state a
+    row (STATE_BYTES) is those cells; the plain cm model's own row starts
+    as the C's cm_new."""
+    consts = _cuda_constants()
     env = {}
-    for name in ("APM_N", "CM_O1", "CM_O1S", "CM_APM1", "CM_APM2",
-                 "CM_SMALL", "O2_CELLS", "W_CELLS"):
-        env[name] = eval(consts[name].replace("LL", ""), {}, env)
+    for name in ("APM_N", "W_CELLS", "W_INIT", "O1_CELLS", "DEV_O1S",
+                 "DEV_O2", "O2_CELLS", "DEV_CM_CELLS"):
+        env[name] = eval(re.sub(r"(\d)LL\b", r"\1", consts[name]), {}, env)
         assert env[name] == getattr(R, name), name
-    assert R.STATE_BYTES["cm"] == 2 * R.CM_SMALL + 2 * R.O2_CELLS + \
-        4 * R.W_CELLS
+    assert R.STATE_BYTES == {"o0": 0, "o1": 2 * 65536,
+                             "cm": 2 * (2 * 65536 + (1 << 24))}
     row = R.cm_small_row()
     assert (row[: R.CM_APM1] == 2048).all()
     assert (row[R.CM_APM2: R.CM_APM2 + 33] == R.apm_row()).all()
+
+
+def test_slot_counts_match_the_cuda_source():
+    """rangecoder_cuda.SLOTS (the host's model of the kernels' row slots,
+    chip_smoke.py's reuse count) are rangecoder.cu's."""
+    consts = _cuda_constants()
+    assert RC.SLOTS == {"cm": (int(consts["CM_O1_SLOTS"]),
+                               int(consts["CM_O2_SLOTS"]))}
+    assert all(2 <= s <= 32 for v in RC.SLOTS.values() for s in v)
+
+
+def test_row_reuse_counts_the_slots_hits():
+    """rc_rows.row_reuse: a run of b reuses every row but those of its
+    first bytes (o1 keys 0, b; o2 keys (0, 0), (b, 0), (b, b)); a cycle
+    one past a slot set misses always, one within it hits from its
+    second lap on."""
+    run = rc_rows.aliasing_row("run", 3, 100)[None, :]
+    n = np.array([100])
+    assert rc_rows.row_reuse(run, n, (16, 8)) == [98 / 100, 97 / 100]
+    c17 = rc_rows.cycle_row(17, 4, 170)[None, :]
+    # o1 keys: 0, then the 17 bytes in turn (a miss each lap past 16);
+    # o2 pairs: period 17 as well, 8 slots
+    assert rc_rows.row_reuse(c17, np.array([170]), (16, 8)) == [0.0, 0.0]
+    assert rc_rows.row_reuse(c17, np.array([170]), (32,)) == [(170 - 18) / 170]
+    assert rc_rows.lru_hits([1, 2, 1, 3, 2, 1], 2) == 1
+
+
+@pytest.mark.parametrize("model", R.MODELS)
+@pytest.mark.parametrize("pattern", rc_rows.PATTERNS)
+def test_aliasing_rows_match_the_c_coder(pattern, model):
+    """A row whose model-row keys repeat (rc_rows.PATTERNS, 600 bytes):
+    the plain encode gives the C's stream, the plain decode gives the row
+    back from the C's stream, and the C decodes the plain stream."""
+    r = rc_rows.aliasing_row(pattern, 22)
+    want = ENCODE[model](r)
+    n = torch.tensor([r.size], dtype=torch.int32)
+    out, length = RC.rc_encode(_matrix([r]), n, model)
+    assert out[0, : length[0]].numpy().tobytes() == want
+    assert not out[0, length[0]:].any()
+    got = RC.rc_decode(_matrix([np.frombuffer(want, np.uint8)]),
+                       torch.zeros_like(n), n, r.size, model)
+    assert np.array_equal(got[0].numpy(), r)
+    assert np.array_equal(DECODE[model](want, r.size), r)

@@ -246,7 +246,7 @@ def test_blow5_file_across_the_two_clis(tmp_path, edge_reads):
 def test_slice_rule_counts_the_coder_state(codec, monkeypatch):
     """Rows a slice of a range-coder codec: a third of the device's
     memory over its bytes a slot times L plus its rows' coder state
-    (runner.ROW_BYTES: 33.9 MB a coder row for rccm, its order-2 table,
+    (runner.ROW_BYTES: 33.8 MB a coder row for rccm, its order-2 table,
     two or three coder rows a bucket row for the stall-fz codecs)."""
     gb80 = 85_017_493_504  # an H100 80GB HBM3's total_memory
     monkeypatch.setattr(runner, "device_memory", lambda dev: gb80)
