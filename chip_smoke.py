@@ -143,26 +143,29 @@
    (rc_encode) and E (rc_decode), which replace the host's C coder.
    Before phase 3, for each byte model (o0, o1, cm): D and E timed at
    the main path's [256, 65536] (rccm_vbbe21_zd's residual bytes of the
-   bucket) beside their bound and chain floor (RC_STEP_CYCLES) and the
-   cycles a coded bit of the longest row, every row decoded back; the
+   bucket) beside their bound and chain floor (RC_CHAIN_CYCLES) and the
+   cycles a coded bit of the longest row, every row decoded back
+   (rc_bucket); the
    share of the bucket's bytes whose model rows the kernels'
    shared-memory slots held rather than fetched, counted on the host
    from the data (rc_reuse); the bucket's 4 longest rows (about 65,000
    bytes each) coded alone and timed, their streams equal to the bucket
    call's rows and held to the plain encode (cm: the plain decode too,
    for its time); D and E held against their plain versions at
-   [16, 4096] on edge rows (empty, one byte, 255s, zeros, a ramp,
-   random bytes, and rows whose model-row keys repeat: a run, ABAB,
-   ABCABC, cycles of 5, 9, 17 and 33 bytes, residual-like runs;
-   rc_rows), also after timed graph replays and in one-row calls.  The
-   plain versions run on the host in 3 worker processes beside phases
-   3-9.  After phase 9:
-   rccm_vbbe21_zd and dstall_fz over all ~1,028 reads, the other 23
-   codecs over the four edge reads and the 60 shortest reads, and
-   rccm_svbbe21_zd and dstall_fz over the stall set, each with every
-   launch count at 0 just before (every read back, D and E launched,
-   kernel A for the stall codecs; ratio, split rows, and rates for the
-   1,028-read runs only); a BLOW5 through the CLI with the two headline
+   [24, 4096] on edge rows (empty, one byte, 255s, zeros, a ramp,
+   random bytes, residual-like rows, and rows whose model-row keys
+   repeat: a run, ABAB, ABCABC, cycles of 5, 9, 17 and 33 bytes,
+   residual-like runs; rc_rows), also after timed graph replays and in
+   one-row calls.  The plain versions run on the host in 3 worker
+   processes beside phases 3-9.  After phase 9:
+   rccm_vbbe21_zd, dstall_fz and the 16 other codecs that press a
+   bucket a container (rc_bucketed) over all ~1,028 reads, the 7 that
+   press a read at a time over the four edge reads and the 60 shortest
+   reads, and rccm_svbbe21_zd and dstall_fz over the stall set, each
+   with every launch count at 0 just before (every read back, D and E
+   launched, kernel A for the stall codecs; ratio, split rows, and
+   rates for the 1,028-read runs only); a BLOW5 through the CLI with
+   the two headline
    codecs; the card's streams of four reads (rc_check_reads, a stall
    read among them) equal to the CPU route's for all 25.
 11. The per-read entropy codecs (engine.runner.ENTROPY_CODECS: rccdf,
@@ -200,8 +203,9 @@
    4 longest rows, the [256, 65536] times beside them; F, G, K, L, M and
    N with their chain floors), then {"ok": true, "device": ...}.
 
-`--kernels-only` stops after step 2 and prints no result line: it times
-the kernels of whichever honours_tpu_torch is imported, e.g. an older
+`--kernels-only` stops after step 2 and phase 10's timing of D and E
+at the bucket (rc_bucket), and prints no result line: it times the
+kernels of whichever honours_tpu_torch is imported, e.g. an older
 tree's, with
 
     cd OLD_TREE && python3 -c "import runpy, sys; sys.argv = ['x',
@@ -2228,40 +2232,44 @@ RC_REPLACES = {"rc_encode": "honours_tpu/native/rangecoder.c:488",
 #: the two codecs phase 10 runs over every main-path read (the
 #: reference's best general-purpose method and its best ratio)
 RC_HEADLINE = ("rccm_vbbe21_zd", "dstall_fz")
-#: a step's dependent cycles in the chain-floor model of kernels D and E,
-#: made for a thread that walks a read alone and kept as the yardstick:
-#: o0 / o1 an L1 read of the probability, the bound's multiply and the
-#: compare; cm three levels of table reads in device memory at L1
-#: latency (the counters, order-2 cell and weights together, then apm1,
-#: then apm2), four shared-memory lookups and the mixer's integer chain.
-#: The kernels compute a cm byte's nodes side by side and keep only its
-#: apm2 stage and the coder serial, so the model does not bound them from
-#: below
-RC_STEP_CYCLES = {"o0": 40, "o1": 40, "cm": 3 * 33 + 4 * 30 + 60}
+#: dependent cycles a coded bit in the chain-floor model of kernels D
+#: and E, (encode, decode): what stays serial in their design, at ~30
+#: cycles a shared-memory or L1 load and ~4 an integer step.  o0 / o1:
+#: encode the coder's range update alone (shift, multiply, two selects:
+#: the bits are known, so the probability loads are off the chain);
+#: decode the probability's load, the bound, the compare and the next
+#: context.  cm, a byte's 8 bits: a nodes' phase is five dependent
+#: shared-memory lookups (counters and weights, their stretch, squash,
+#: apm1, the stretch of its output) and the mixer's and apm1's 16
+#: integer steps between, 5 * 30 + 16 * 4 = 214; encode one phase, then
+#: 8 range updates; decode two phases (bits 0-4, then 5-7 below where
+#: they led) and, a bit, apm2's lookup, its 8 integer steps and the
+#: decoder's 5, 30 + 13 * 4 = 82
+RC_CHAIN_CYCLES = {"o0": (16, 40), "o1": (16, 40),
+                   "cm": ((214 + 8 * 16) / 8, (2 * 214 + 8 * 82) / 8)}
 #: integer operations a coded bit, for the operations bound
 RC_STEP_OPS = {"o0": 12, "o1": 12, "cm": 120}
 
 
-def rc_rows(seed: int, B: int = 16, N: int = 4096):
+def rc_rows(seed: int, B: int = 24, N: int = 4096):
     """[B, N] bytes and counts of phase 10's small kernel check: an empty
     row, one byte 0 and one 255, full rows of 255, of 0, a ramp, random
-    bytes, short random rows, then tests/rc_rows.py's rows whose
-    model-row keys repeat (a run, ABAB, ABCABC, a cycle of 5,
-    residual-like runs, cycles of 17, 33 and 9 bytes) at lengths from N
-    down, then residual-like (geometric) rows of every length."""
+    bytes, short random rows, 8 residual-like (geometric) rows of random
+    lengths, then tests/rc_rows.py's rows whose model-row keys repeat (a
+    run, ABAB, ABCABC, a cycle of 5, residual-like runs, cycles of 17, 33
+    and 9 bytes) at lengths from N down; the first B of them."""
     rng = np.random.default_rng(seed + 10)
     rows = [np.zeros(0, np.uint8), np.array([0], np.uint8),
             np.array([255], np.uint8), np.full(N, 255, np.uint8),
             np.zeros(N, np.uint8), (np.arange(N) % 256).astype(np.uint8),
             rng.integers(0, 256, N).astype(np.uint8),
             rng.integers(0, 256, 777).astype(np.uint8)]
-    alias = load_tests_module("rc_rows").aliasing_rows(seed + 22, N)
-    rows += [r[: N - 97 * i] for i, r in enumerate(alias)]
-    rows = rows[:B]
-    while len(rows) < B:
+    for _ in range(8):
         m = int(rng.integers(1, N + 1))
         p = float(rng.uniform(0.05, 0.6))
         rows.append(np.minimum(rng.geometric(p, m), 255).astype(np.uint8))
+    alias = load_tests_module("rc_rows").aliasing_rows(seed + 22, N)
+    rows = (rows + [r[: N - 97 * i] for i, r in enumerate(alias)])[:B]
     data = np.zeros((B, N), np.uint8)
     for i, r in enumerate(rows):
         data[i, : r.size] = r
@@ -2293,10 +2301,11 @@ def rc_bound(nsum: int, slen: int, rows: int, model: str):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def rc_floor_ms(longest: int, model: str) -> float:
-    """The chain-floor model: the longest row's 8 steps a byte at
-    RC_STEP_CYCLES."""
-    return 8 * longest * RC_STEP_CYCLES[model] / SM_HZ * 1e3
+def rc_floor_ms(longest: int, model: str, name: str) -> float:
+    """The chain-floor model of `name` (rc_encode or rc_decode): the
+    longest row's 8 coded bits a byte at RC_CHAIN_CYCLES."""
+    cycles = RC_CHAIN_CYCLES[model][name == "rc_decode"]
+    return 8 * longest * cycles / SM_HZ * 1e3
 
 
 def rc_reuse(data, n) -> dict:
@@ -2318,6 +2327,50 @@ def rc_reuse(data, n) -> dict:
 RC_LONG_ROWS = 4
 
 
+def rc_bucket(seed: int, smi: str):
+    """D and E at the main path's [256, 65536] (rccm_vbbe21_zd's residual
+    bytes of the bucket), for each model: timed (CUDA events around 2
+    calls) beside the bound and the chain floor, and the cycles a coded
+    bit of the longest row logged; every row decoded back.  Returns the
+    rows, their counts and, by model, (streams, lengths, encode ms,
+    decode ms, bound ms, bound by, (encode floor, decode floor))."""
+    from honours_tpu_torch.engine import rangecoder_cuda as RC
+    from honours_tpu_torch.engine.rc import vb_zd_parts
+
+    sig, sn = make_bucket(seed)
+    _, _, bdata, blen = vb_zd_parts(sig, sn, "vbbe21", sig.shape[1])
+    bdata, blen = bdata.contiguous(), blen.to(torch.int32).contiguous()
+    Bb, Nb = bdata.shape
+    nsum, longest = int(blen.sum()), int(blen.max())
+    bzero = torch.zeros_like(blen)
+    bucket = {}
+    for model in ("cm", "o1", "o0"):
+        out, length = RC.rc_encode(bdata, blen, model)
+        e_ms = cuda_ms(lambda: RC.rc_encode_launch(bdata, blen, model), 2)
+        back = RC.rc_decode(out, bzero, blen, Nb, model)
+        d_ms = cuda_ms(lambda: RC.rc_decode(out, bzero, blen, Nb, model), 2)
+        if not torch.equal(back, bdata):
+            raise AssertionError(f"rc_decode {model} [{Bb}, {Nb}]: rows not "
+                                 "given back")
+        slen = int(length.sum())
+        bound, by = rc_bound(nsum, slen, Bb, model)
+        floors = tuple(rc_floor_ms(longest, model, name)
+                       for name in ("rc_encode", "rc_decode"))
+        for name, ms, floor in (("rc_encode", e_ms, floors[0]),
+                                ("rc_decode", d_ms, floors[1])):
+            cycles = RC_CHAIN_CYCLES[model][name == "rc_decode"]
+            log(f"kernel {name} {model} [{Bb}, {Nb}] (rccm_vbbe21_zd's "
+                f"residual bytes of the bucket, {nsum} bytes, longest row "
+                f"{longest}, {slen} stream bytes; {smi}): {ms:.3f} ms on the "
+                f"card, bound {bound:.4f} ms ({by}), chain floor "
+                f"{floor:.3f} ms ({cycles:g} cycles a coded bit), "
+                f"{ms / floor:.2f}x the floor, "
+                f"{ms * 1e6 / (8 * longest) * SM_HZ / 1e9:.0f} cycles a "
+                "coded bit of the longest row")
+        bucket[model] = (out, length, e_ms, d_ms, bound, by, floors)
+    return bdata, blen, bucket
+
+
 def rc_kernels_start(seed: int, pool, smi: str):
     """Phase 10's kernel half, started before phase 3 so that the plain
     versions run in `pool` on the host beside the other phases.  At the
@@ -2327,33 +2380,22 @@ def rc_kernels_start(seed: int, pool, smi: str):
     the bucket's RC_LONG_ROWS longest rows, [4, 65536], coded alone and
     timed, their streams equal to the bucket call's rows, decoded back,
     and submitted to the plain encode (cm: and the plain decode of D's
-    streams).  At [16, 4096] (rc_rows) for each model: D and E, their
+    streams).  At [24, 4096] (rc_rows) for each model: D and E, their
     outputs after timed graph replays, one-row calls (a row alone,
     twice: each call starts its model afresh), submitted to the plain
     versions.  Returns the pending checks for rc_kernels_held."""
     from honours_tpu_torch.engine import rangecoder_cuda as RC
     from honours_tpu_torch.engine.rangecoder import MODELS
-    from honours_tpu_torch.engine.rc import vb_zd_parts
 
-    sig, sn = make_bucket(seed)
-    _, _, bdata, blen = vb_zd_parts(sig, sn, "vbbe21", sig.shape[1])
-    bdata, blen = bdata.contiguous(), blen.to(torch.int32).contiguous()
+    bdata, blen, bucket = rc_bucket(seed, smi)
     Bb, Nb = bdata.shape
-    nsum, longest = int(blen.sum()), int(blen.max())
-    bzero = torch.zeros_like(blen)
     top = torch.argsort(blen, descending=True, stable=True)[:RC_LONG_ROWS]
     ldata, ln = bdata[top].contiguous(), blen[top].contiguous()
     lzero = torch.zeros_like(ln)
     reuse = pool.submit(rc_reuse, bdata.cpu().numpy(), blen.cpu().numpy())
     long_pending = {}
     for model in ("cm", "o1", "o0"):  # the longest plain job first
-        out, length = RC.rc_encode(bdata, blen, model)
-        e_ms = cuda_ms(lambda: RC.rc_encode_launch(bdata, blen, model), 2)
-        back = RC.rc_decode(out, bzero, blen, Nb, model)
-        d_ms = cuda_ms(lambda: RC.rc_decode(out, bzero, blen, Nb, model), 2)
-        if not torch.equal(back, bdata):
-            raise AssertionError(f"rc_decode {model} [{Bb}, {Nb}]: rows not "
-                                 "given back")
+        out, length, e_ms, d_ms, bound, by, floors = bucket[model]
         lout, llen = RC.rc_encode(ldata, ln, model)
         le_ms = cuda_ms(lambda: RC.rc_encode_launch(ldata, ln, model), 2)
         lback = RC.rc_decode(lout, lzero, ln, Nb, model)
@@ -2367,22 +2409,10 @@ def rc_kernels_start(seed: int, pool, smi: str):
         if model == "cm":
             futures.append(pool.submit(rc_plain, model, ldata.cpu(),
                                        ln.cpu(), lout.cpu()))
-        slen = int(length.sum())
-        bound, by = rc_bound(nsum, slen, Bb, model)
-        floor = rc_floor_ms(longest, model)
-        for name, ms in (("rc_encode", e_ms), ("rc_decode", d_ms)):
-            log(f"kernel {name} {model} [{Bb}, {Nb}] (rccm_vbbe21_zd's "
-                f"residual bytes of the bucket, {nsum} bytes, longest row "
-                f"{longest}, {slen} stream bytes; {smi}): {ms:.3f} ms on the "
-                f"card, bound {bound:.4f} ms ({by}), chain floor "
-                f"{floor:.3f} ms ({RC_STEP_CYCLES[model]} cycles a coded bit), "
-                f"{ms / floor:.2f}x the floor, "
-                f"{ms * 1e6 / (8 * longest) * SM_HZ / 1e9:.0f} cycles a "
-                "coded bit of the longest row")
         long_pending[model] = dict(
             data=ldata.cpu(), n=ln.cpu(), got_e=to_cpu((lout, llen)),
             got_d=lback.cpu(), e_ms=le_ms, d_ms=ld_ms,
-            bucket=(e_ms, d_ms, bound, by, floor), futures=futures)
+            bucket=(e_ms, d_ms, bound, by, floors), futures=futures)
 
     data, n = rc_rows(seed)
     d, nc = torch.from_numpy(data).cuda(), torch.from_numpy(n).cuda()
@@ -2410,13 +2440,13 @@ def rc_kernels_start(seed: int, pool, smi: str):
                         to_cpu(back), to_cpu(d_rep), to_cpu(alone), e_ms,
                         d_ms, futures))
     if not all(torch.equal(p[3], torch.from_numpy(data)) for p in pending):
-        raise AssertionError("rc_decode: [16, 4096] rows not given back")
+        raise AssertionError("rc_decode: [24, 4096] rows not given back")
     return pending, long_pending, (reuse, f"[{Bb}, {Nb}]")
 
 
 def rc_kernels_held(pending, smi: str) -> dict:
     """D's and E's outputs against their plain versions from the host
-    (tolerance 0): at [16, 4096], also after the timed graph's replays
+    (tolerance 0): at [24, 4096], also after the timed graph's replays
     and for the one-row calls; on the main path bucket's longest rows,
     D's streams (E gave those rows back from them).  Logs each; returns
     the kernels line's entries of rc_encode and rc_decode: cm on the
@@ -2439,12 +2469,12 @@ def rc_kernels_held(pending, smi: str) -> dict:
                                            (want_e[0][6], want_e[1][6])))
         err_d = max(max_abs_err(got_d, want_d), max_abs_err(rep_d, want_d))
         if err_e or err_d:
-            raise AssertionError(f"rc {model} [16, 4096]: kernel differs "
+            raise AssertionError(f"rc {model} [24, 4096]: kernel differs "
                                  f"from its plain version (encode err "
                                  f"{err_e}, decode err {err_d})")
         for name, ms, plain, e in (("rc_encode", e_ms, plain_e, err_e),
                                    ("rc_decode", d_ms, plain_d, err_d)):
-            log(f"kernel {name} {model} [16, 4096] ({smi}): equal to plain "
+            log(f"kernel {name} {model} [24, 4096] ({smi}): equal to plain "
                 f"(max abs err {e}, also after the replays and alone in a "
                 f"one-row call, twice); {ms:.4f} ms on the card vs plain "
                 f"{plain:.1f} ms on the host (one thread of a worker "
@@ -2489,10 +2519,10 @@ def rc_kernels_held(pending, smi: str) -> dict:
                 "library_ms": None,
                 "shape": f"[{RC_LONG_ROWS}, 65536] cm, the main path "
                          "bucket's longest rows",
-                "chain_floor_ms": rc_floor_ms(max(rows), "cm"),
+                "chain_floor_ms": rc_floor_ms(max(rows), "cm", name),
                 "bucket_ms": bucket_ms, "bucket_shape": "[256, 65536] cm",
                 "bucket_bound_ms": b_bound, "bucket_bound_by": b_by,
-                "bucket_chain_floor_ms": b_floor}
+                "bucket_chain_floor_ms": b_floor[name == "rc_decode"]}
     return records
 
 
@@ -2610,9 +2640,20 @@ def rc_cli(reads, smi: str) -> dict:
     return total
 
 
+def rc_bucketed() -> tuple:
+    """The range-coder codecs but RC_HEADLINE that press a bucket a
+    container (those over the zigzag deltas and the dstall split); the
+    other 7 press a read at a time."""
+    from honours_tpu_torch.engine.runner import RC_CODECS
+
+    return tuple(sorted(c for c in set(RC_CODECS) - set(RC_HEADLINE)
+                        if c.endswith("_zd") or c.startswith("dstall")))
+
+
 def rc_phase(seed: int, reads, cpu, smi: str) -> dict:
-    """Phase 10: the two headline codecs (RC_HEADLINE) over every
-    main-path read, the other 23 range-coder codecs over the four edge
+    """Phase 10: the two headline codecs (RC_HEADLINE) and the 16 other
+    codecs that press a bucket a container (rc_bucketed) over every
+    main-path read, the 7 that press a read at a time over the four edge
     reads and the 60 shortest reads, rccm_svbbe21_zd and dstall_fz over
     the stall set, each with every launch count at 0 just before
     (rc_path); the card's streams of rc_check_reads equal to the CPU
@@ -2625,11 +2666,12 @@ def rc_phase(seed: int, reads, cpu, smi: str) -> dict:
 
     total = collections.Counter()
     t = time.perf_counter()
-    for codec in RC_HEADLINE:
+    for codec in RC_HEADLINE + rc_bucketed():
         total.update(rc_path(codec, reads, smi))
     order = np.argsort([r.size for r in reads[:-4]], kind="stable")
     few = [reads[i] for i in order[:60]] + reads[-4:]
-    for codec in sorted(set(RC_CODECS) - set(RC_HEADLINE)):
+    for codec in sorted(set(RC_CODECS) - set(RC_HEADLINE)
+                        - set(rc_bucketed())):
         total.update(rc_path(codec, few, smi, rates=False))
     stalls = stall_set(seed)
     for codec in ("rccm_svbbe21_zd", "dstall_fz"):
@@ -2891,6 +2933,7 @@ def main(argv=None) -> int:
 
     results = check_kernels(args.seed)
     if args.kernels_only:
+        rc_bucket(args.seed, smi)
         return 0
     import multiprocessing
 

@@ -31,12 +31,12 @@
 // stretch of its output, apm2) with the mixer's integer chain between.
 // The bytes moved (a read in, its stream out) are small beside that.
 //
-// Design: a warp a read, READS reads a block (cm: 2 reads an SM, so a
-// bucket of 256 reads runs in one wave on 132 SMs).  The encoder's bit
-// takes no branch, nor does its renormalisation but where it emits
-// bytes, nor cm's decoder's (it reads the next two stream bytes before
-// the bit is known); cm's decoder loads both children's nodes before a
-// bit is known.
+// Design: a warp a read; cm READS reads a block (2 reads an SM, so a
+// bucket of 256 reads runs in one wave on 132 SMs), o0 / o1 as below.
+// The encoder's bit takes no branch, nor does its renormalisation but
+// where it emits bytes, nor cm's decoder's (it reads the next two stream
+// bytes before the bit is known); cm's decoder loads both children's
+// nodes before a bit is known.
 //   - o0 / o1: lane 0 codes the read alone.  A bit is one probability
 //     load and a few integer steps, so warp syncs at every byte boundary
 //     would cost as much as the byte.  o0's table [256] lives in shared
@@ -129,13 +129,8 @@ constexpr int SM_SLOTS1 = SM_NODES + 4 * ROW;
 constexpr int SM_SLOTS2 = SM_SLOTS1 + CM_O1_SLOTS * 2 * 2 * ROW;
 constexpr int SM_CM_READ = SM_SLOTS2 + CM_O2_SLOTS * 2 * ROW;
 
-template <int MODEL>
-constexpr int smem_bytes() {
-  return MODEL == 2 ? SM_CM_READS + READS * SM_CM_READ
-         : MODEL == 1 ? 0
-                      : READS * 2 * ROW;
-}
-static_assert(smem_bytes<2>() <= 232448, "cm: over a block's shared memory");
+constexpr int smem_cm() { return SM_CM_READS + READS * SM_CM_READ; }
+static_assert(smem_cm() <= 232448, "cm: over a block's shared memory");
 static_assert(SM_CM_READ % 16 == 0 && SM_SLOTS1 % 16 == 0 &&
                   SM_SLOTS2 % 16 == 0 && SM_CM_READS % 16 == 0,
               "16-byte chunks of rows and weight sets");
@@ -367,11 +362,34 @@ __device__ __forceinline__ unsigned ctx_of(unsigned byte, int k) {
 // probability load and the coder's few integer steps, so warp syncs at
 // every byte would cost as much as the byte.  o0's [256] table lives in
 // shared memory; o1's [256][256] is the read's row of the device state,
-// read and written in place (a byte's 512-byte row stays in L1).
+// read and written in place (a byte's 512-byte row stays in L1).  Reads
+// a block: 2 for o1's encode, 1 for the others, each the faster of the
+// two on an H100 at the main path's bucket (2 reads an SM either way;
+// PERF.md section 6).
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint16_t adapt(unsigned p, int bit) {
   return static_cast<uint16_t>(bit ? p - (p >> 5) : p + ((2048u - p) >> 5));
+}
+
+template <bool ORDER1, bool ENCODE>
+__host__ __device__ constexpr int probs_reads() {
+  return ORDER1 && ENCODE ? 2 : 1;
+}
+
+// this thread's read b, its warp w in the block and its lane, R reads a
+// block
+template <int R>
+__device__ __forceinline__ void read_of(long long& b, int& w, int& lane) {
+  if constexpr (R == 1) {
+    b = blockIdx.x;
+    w = 0;
+    lane = threadIdx.x;
+  } else {
+    w = threadIdx.x >> 5;
+    lane = threadIdx.x & 31;
+    b = static_cast<long long>(blockIdx.x) * R + w;
+  }
 }
 
 // read b's table of probabilities: o0's in shared memory (set by the
@@ -390,15 +408,17 @@ __device__ uint16_t* probs_of(uint8_t* sm, uint16_t* state, long long b,
 }
 
 template <bool ORDER1>
-__global__ void __launch_bounds__(32 * READS)
+__global__ void __launch_bounds__(32 * probs_reads<ORDER1, true>())
     rc_encode_probs(const uint8_t* __restrict__ data, long long N,
                     const int* __restrict__ n, uint8_t* __restrict__ out,
                     long long W, long long* __restrict__ len,
                     long long slack, uint16_t* state, long long B) {
   extern __shared__ __align__(16) uint8_t sm[];
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long b = static_cast<long long>(blockIdx.x) * READS + w;
-  if (b >= B) return;
+  constexpr int R = probs_reads<ORDER1, true>();
+  long long b;
+  int w, lane;
+  read_of<R>(b, w, lane);
+  if (R > 1 && b >= B) return;
   uint16_t* probs = probs_of<ORDER1>(sm, state, b, w, lane);
   if (lane != 0) return;
   const long long cnt = min(max(static_cast<long long>(n[b]), 0LL), N);
@@ -424,15 +444,17 @@ __global__ void __launch_bounds__(32 * READS)
 }
 
 template <bool ORDER1>
-__global__ void __launch_bounds__(32 * READS)
+__global__ void __launch_bounds__(32 * probs_reads<ORDER1, false>())
     rc_decode_probs(const uint8_t* __restrict__ stream, long long M,
                     const int* __restrict__ off,
                     const int* __restrict__ count, long long N,
                     uint8_t* __restrict__ out, uint16_t* state, long long B) {
   extern __shared__ __align__(16) uint8_t sm[];
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long b = static_cast<long long>(blockIdx.x) * READS + w;
-  if (b >= B) return;
+  constexpr int R = probs_reads<ORDER1, false>();
+  long long b;
+  int w, lane;
+  read_of<R>(b, w, lane);
+  if (R > 1 && b >= B) return;
   uint16_t* probs = probs_of<ORDER1>(sm, state, b, w, lane);
   if (lane != 0) return;
   const long long cnt = min(max(static_cast<long long>(count[b]), 0LL), N);
@@ -798,6 +820,15 @@ int smem_for(F* kernel, bool (&done)[64], int bytes) {
   return bytes;
 }
 
+// an o0 / o1 kernel over B reads, probs_reads a block (o0: a table each
+// in shared memory)
+template <bool ORDER1, bool ENCODE, typename F, typename... A>
+void launch_probs(F* kernel, long long B, cudaStream_t st, A... args) {
+  constexpr int r = probs_reads<ORDER1, ENCODE>();
+  kernel<<<static_cast<unsigned>((B + r - 1) / r), 32 * r,
+           ORDER1 ? 0 : r * 2 * ROW, st>>>(args...);
+}
+
 }  // namespace
 
 HTT_EXPORT int htt_rc_encode(long long model, const void* data, long long B,
@@ -816,14 +847,14 @@ HTT_EXPORT int htt_rc_encode(long long model, const void* data, long long B,
     auto st = static_cast<cudaStream_t>(cuda_stream);
     const unsigned g = static_cast<unsigned>((B + READS - 1) / READS);
     if (model == 0)
-      rc_encode_probs<false><<<g, 32 * READS, smem_bytes<0>(), st>>>(
-          d, N, nn, o, W, l, slack, s, B);
+      launch_probs<false, true>(rc_encode_probs<false>, B, st, d, N, nn, o,
+                                W, l, slack, s, B);
     else if (model == 1)
-      rc_encode_probs<true><<<g, 32 * READS, smem_bytes<1>(), st>>>(
-          d, N, nn, o, W, l, slack, s, B);
+      launch_probs<true, true>(rc_encode_probs<true>, B, st, d, N, nn, o, W,
+                               l, slack, s, B);
     else
       rc_encode_cm<<<g, 32 * READS,
-                     smem_for(rc_encode_cm, done, smem_bytes<2>()), st>>>(
+                     smem_for(rc_encode_cm, done, smem_cm()), st>>>(
           d, N, nn, o, W, l, slack, s, B, t);
   }
   return static_cast<int>(cudaGetLastError());
@@ -844,14 +875,14 @@ HTT_EXPORT int htt_rc_decode(long long model, const void* stream, long long B,
     auto st = static_cast<cudaStream_t>(cuda_stream);
     const unsigned g = static_cast<unsigned>((B + READS - 1) / READS);
     if (model == 0)
-      rc_decode_probs<false><<<g, 32 * READS, smem_bytes<0>(), st>>>(
-          in, M, of, c, N, o, s, B);
+      launch_probs<false, false>(rc_decode_probs<false>, B, st, in, M, of, c,
+                                 N, o, s, B);
     else if (model == 1)
-      rc_decode_probs<true><<<g, 32 * READS, smem_bytes<1>(), st>>>(
-          in, M, of, c, N, o, s, B);
+      launch_probs<true, false>(rc_decode_probs<true>, B, st, in, M, of, c, N,
+                                o, s, B);
     else
       rc_decode_cm<<<g, 32 * READS,
-                     smem_for(rc_decode_cm, done, smem_bytes<2>()), st>>>(
+                     smem_for(rc_decode_cm, done, smem_cm()), st>>>(
           in, M, of, c, N, o, s, B, t);
   }
   return static_cast<int>(cudaGetLastError());

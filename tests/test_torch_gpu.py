@@ -1580,9 +1580,9 @@ def test_full_bucket_in_slices(smoke, long_set, codec):
 
 @pytest.mark.parametrize("model", ["o0", "o1", "cm"])
 def test_rc_kernels_match_plain(smoke, model):
-    """D and E at [16, 4096] on chip_smoke.rc_rows (empty, one-byte, 255,
-    0, ramp and random rows, and tests/rc_rows.py's rows whose model-row
-    keys repeat) equal their plain versions (run on the host); one-row
+    """D and E at [24, 4096] on chip_smoke.rc_rows (empty, one-byte, 255,
+    0, ramp, random and residual-like rows, and tests/rc_rows.py's rows
+    whose model-row keys repeat) equal their plain versions (run on the host); one-row
     calls give the same rows, twice (each call starts its model
     afresh)."""
     from honours_tpu_torch.engine import rangecoder_cuda as RC
@@ -1841,15 +1841,15 @@ def _rccdf_same(data, dlen):
 
 
 def _edge_rows(smoke):
-    """chip_smoke.py's [16, 4096] edge rows (rc_rows: empty, one byte,
-    255s, zeros, a ramp, random bytes and rows of repeating bytes), as
-    tensors."""
+    """chip_smoke.py's [24, 4096] edge rows (rc_rows: empty, one byte,
+    255s, zeros, a ramp, random bytes, residual-like rows and rows of
+    repeating bytes), as tensors."""
     data, n = smoke.rc_rows(19)
     return torch.from_numpy(data), torch.from_numpy(n)
 
 
 def test_rccdf_kernels_match_plain(smoke):
-    """F and G at [16, 4096] on edge rows; G at odd offsets into rows of
+    """F and G at [24, 4096] on edge rows; G at odd offsets into rows of
     garbage, with counts cut short and past the row, on a stream cut
     mid-lane, and on a wrong table."""
     from honours_tpu_torch.engine import rccdf as R
@@ -1949,7 +1949,7 @@ def _c2_same(st, off, cnt, N, lengths, codes):
 
 
 def test_huffman_decode_rows_kernel_matches_plain(cuda, smoke):
-    """C2 at [16, 4096] on edge rows with their own tables (a lone
+    """C2 at [24, 4096] on edge rows with their own tables (a lone
     symbol's length-0 table and an empty one among them): every row
     back; at odd offsets into garbage on a view at an odd address; with
     counts cut short and past the codes; on cut streams; on tables of

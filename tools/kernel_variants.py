@@ -3,15 +3,20 @@
     python3 tools/kernel_variants.py NAME VARIANT.cu [VARIANT.cu ...]
 
 NAME is n4_decode, svb16_decode, svb16_decode_raw (zd off),
-svb16_encode or svb16_encode_raw (zd off).  Each VARIANT.cu is an edited copy of the kernel's source
-(honours_tpu_torch/csrc/*.cu) whose C entries keep their signatures.
-Each is built with the package's nvcc flags (all in parallel), and its
-entry stands in for the kernel's while it is timed.  At chip_smoke.py's
-shapes, a bucket of [256, 65536] and one read of [1, 262144], every
-variant is held against the plain version (max abs err printed) and
-timed from a CUDA-graph replay, twice: in the order given, then in
-reverse.  A svb16 variant may change DTILE or ETILE; the wrapper's tile
-count then follows it.  Needs CUDA.
+svb16_encode, svb16_encode_raw (zd off), or rc_encode_MODEL /
+rc_decode_MODEL (MODEL o0, o1 or cm).  Each VARIANT.cu is an edited copy
+of the kernel's source (honours_tpu_torch/csrc/*.cu) whose C entries
+keep their signatures.  Each is built with the package's nvcc flags (all
+in parallel), and its entry stands in for the kernel's while it is
+timed.  At chip_smoke.py's shapes, a bucket of [256, 65536] and one read
+of [1, 262144], every variant is held against the plain version (max
+abs err printed) and timed from a CUDA-graph replay, twice: in the order
+given, then in reverse.  The range coder runs at the bucket only
+(chip_smoke.rc_bucket's rows), held against the tree's own kernel: its
+streams for rc_encode, the rows for rc_decode (the plain cm coder takes
+minutes a row there; chip_smoke.py holds the kernel to it).  A svb16
+variant may change DTILE or ETILE; the wrapper's tile count then
+follows it.  Needs CUDA.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from honours_tpu_torch import _build  # noqa: E402
+from honours_tpu_torch.engine import rangecoder_cuda  # noqa: E402,F401
 from honours_tpu_torch.engine import rans_n4_cuda  # noqa: E402,F401
 from honours_tpu_torch.engine import svb16_cuda as SV  # noqa: E402
 
@@ -73,26 +79,51 @@ def cases(B: int, L: int) -> dict:
             for c in main + options}
 
 
+def rc_cases() -> dict:
+    """{rc_encode_MODEL / rc_decode_MODEL: (kernel call, the tree's
+    kernel's output)} on chip_smoke.rc_bucket's rows, computed before any
+    variant stands in."""
+    from honours_tpu_torch.engine import rangecoder_cuda as RC
+    from honours_tpu_torch.engine.rc import vb_zd_parts
+
+    sig, n = cs.make_bucket(0)
+    _, _, data, dlen = vb_zd_parts(sig, n, "vbbe21", sig.shape[1])
+    data, dlen = data.contiguous(), dlen.to(torch.int32).contiguous()
+    zero = torch.zeros_like(dlen)
+    out = {}
+    for m in ("o0", "o1", "cm"):
+        enc = RC.rc_encode(data, dlen, m)
+        out[f"rc_encode_{m}"] = (
+            lambda m=m: RC.rc_encode_launch(data, dlen, m), lambda e=enc: e)
+        out[f"rc_decode_{m}"] = (
+            lambda m=m, s=enc[0]: RC.rc_decode(s, zero, dlen, data.shape[1],
+                                               m),
+            lambda: data)
+    return out
+
+
 def main(argv) -> int:
     if len(argv) < 2 or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 2
     name, sources = argv[0], argv[1:]
-    kernel = _build.KERNELS[name.removesuffix("_raw")]
+    rc = name.startswith("rc_")
+    kernel = _build.KERNELS[name[:9] if rc else name.removesuffix("_raw")]
     _build.build()
     print(cs.nvidia_smi(), flush=True)
     tiles = SV.DECODE_TILE, SV.ENCODE_TILE
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         libs = build(sources, Path(tmp))
-        for B, L in ((256, 1 << 16), (1, 1 << 18)):
-            kern, plain = cases(B, L)[name]
+        for B, L in ((256, 1 << 16),) if rc else ((256, 1 << 16),
+                                                    (1, 1 << 18)):
+            kern, plain = (rc_cases() if rc else cases(B, L))[name]
             want = cs.flatten(plain())
             times = {s: [] for s in sources}
             for order in (sources, sources[::-1]):
                 for src in order:
                     use(kernel, libs[src], src)
                     err = cs.max_abs_err(cs.flatten(kern()), want)
-                    reps = 3 if name == "n4_decode" else 20
+                    reps = 2 if rc else 3 if name == "n4_decode" else 20
                     times[src].append(f"{cs.graph_ms(kern, reps)[0]:.4f} ms "
                                       f"(max abs err {err})")
                     SV.DECODE_TILE, SV.ENCODE_TILE = tiles
