@@ -26,8 +26,9 @@
    (rccdf_encode) and G (rccdf_decode) on rccdf_vbbe21_zd's residual
    bytes of the bucket, each beside its chain floor (the longest row's
    lane steps at RCCDF_STEP_CYCLES), H (huffman_build) on their
-   histograms and C2 (huffman_decode_rows) on huffman_vbbe21_zd's bodies
-   of them, and phase 12's kernels I (bitpack_msb) on uint_zd's fields of
+   histograms beside its chain floor (HUFFBUILD_CYCLES) and C2
+   (huffman_decode_rows) on huffman_vbbe21_zd's bodies of them, and
+   phase 12's kernels I (bitpack_msb) on uint_zd's fields of
    the bucket, J (bitunpack_msb) on I's packed rows, K (flats_partition)
    on the samples at step 64 and L (zsm_mean) on the samples, K and L
    each beside its chain floor (FLATS_STEP_CYCLES, ZSM_STEP_CYCLES),
@@ -35,7 +36,7 @@
    turbopfor's streams of the bucket and, on a log line of its own, on
    flat_uint_submin's, and N (flac_decode) on flac's streams of the
    bucket, each beside its chain floor (HDRWALK_STEP_CYCLES,
-   FLAC_STEP_CYCLES), their plain versions on the card.  Then does the
+   FLAC_BLOCK_CYCLES), their plain versions on the card.  Then does the
    same for
    kernel 1's five entries, o1_fc, rans_encode, o1_decode (both drans phases),
    o0_decode, svb16_encode and svb16_decode (zd on and off), n4_decode,
@@ -200,8 +201,8 @@
    equal the CPU route's for every codec run, computed in phase 10's
    worker processes.
 14. Prints one {"kernels": [...]} line (D and E with cm on the bucket's
-   4 longest rows, the [256, 65536] times beside them; F, G, K, L, M and
-   N with their chain floors), then {"ok": true, "device": ...}.
+   4 longest rows, the [256, 65536] times beside them; F, G, H, K, L, M
+   and N with their chain floors), then {"ok": true, "device": ...}.
 
 `--kernels-only` stops after step 2 and phase 10's timing of D and E
 at the bucket (rc_bucket), and prints no result line: it times the
@@ -490,18 +491,42 @@ def huffman_case(sig, n):
 RCCDF_STEP_CYCLES = {"rccdf_encode": 40, "rccdf_decode": 100}
 
 
+#: the chain-floor model of kernel H (csrc/huffbuild.cu, a block a row):
+#: what stays serial in a row is the sort (a warp's 256 iterations of a
+#: broadcast shared load, two compares and an add, about 4 cycles
+#: each), the merge chain on thread 0 (a merge's two takes, each a shared
+#: load of the next leaf and of the next internal node and a compare,
+#: then the node's stores: about 60 dependent cycles) and the codes'
+#: pointer-jumping rounds (shared loads, a 64-bit shift and two barriers:
+#: about 200 cycles a round, ceil(log2(P - 1)) rounds)
+HUFFBUILD_CYCLES = {"sort": 1024, "merge": 60, "round": 200}
+
+
+def huffbuild_floor_ms(hist):
+    """Kernel H's chain floor on the rows of hist [B, 256]: the row with
+    the most present symbols P, HUFFBUILD_CYCLES' sort, P - 1 merges and
+    ceil(log2(P - 1)) rounds; None where no row has two symbols."""
+    P = int((hist > 0).sum(dim=1).max()) if hist.shape[0] else 0
+    if P <= 1:
+        return None
+    rounds = max(P - 2, 0).bit_length()
+    c = HUFFBUILD_CYCLES
+    return ((c["sort"] + (P - 1) * c["merge"] + rounds * c["round"])
+            / SM_HZ * 1e3)
+
+
 def entropy_cases(sig, n):
     """(name, kernel call, plain call, bytes, ops, library call[, chain
     floor ms]) of kernels F, G, H and C2 on the bucket [B, L]: F and G on
     rccdf_vbbe21_zd's residual bytes (the data read and the body written,
     or the body read and [B, L] bytes written, and the tables), H on
     their histograms (counts read, the table written; a heap's 2 P log2
-    P comparisons a row), C2 on huffman_vbbe21_zd's bodies of those
-    bytes, in rows as wide as the longest (the bits read, [B, L] bytes
-    written, the tables; 10 operations a symbol, as C).  F: 12
-    operations a coded byte, G: 10; their chain floors, the longest
-    row's ceil(n / 16) lane steps at RCCDF_STEP_CYCLES.  Each plain
-    version runs on the card."""
+    P comparisons a row; chain floor huffbuild_floor_ms), C2 on
+    huffman_vbbe21_zd's bodies of those bytes, in rows as wide as the
+    longest (the bits read, [B, L] bytes written, the tables; 10
+    operations a symbol, as C).  F: 12 operations a coded byte, G: 10;
+    their chain floors, the longest row's ceil(n / 16) lane steps at
+    RCCDF_STEP_CYCLES.  Each plain version runs on the card."""
     from honours_tpu_torch.engine import huffdec_cuda as H
     from honours_tpu_torch.engine import huffman as Hf
     from honours_tpu_torch.engine import rccdf as R
@@ -546,7 +571,7 @@ def entropy_cases(sig, n):
          floor["rccdf_decode"]),
         ("huffman_build", lambda: Hf.huffman_build(hist),
          lambda: Hf.huffman_build_plain(hist), (8 + 12) * 256 * B,
-         heap_ops, None),
+         heap_ops, None, huffbuild_floor_ms(hist)),
         ("huffman_decode_rows",
          lambda: H.huffman_decode_rows(st, end, cnt, L, t["lengths"],
                                        t["codes"]),
@@ -632,13 +657,31 @@ def raw_cases(sig, n):
     ]
 
 
-#: phase 13's kernels' dependent cycles a step on the H100: M
-#: (csrc/hdrwalk.cu) a header byte's load from device memory (each header
-#: lies on a line the thread has not read) and a multiply-add; N
-#: (csrc/flac.cu) a code's bit-buffer shifts, __ffs, masks and
-#: prediction, about ten dependent integer operations
+#: phase 13's kernel M's dependent cycles a step on the H100
+#: (csrc/hdrwalk.cu): a header byte's load from device memory (each header
+#: lies on a line the thread has not read) and a multiply-add
 HDRWALK_STEP_CYCLES = 600
-FLAC_STEP_CYCLES = 40
+#: the chain-floor model of kernel N (csrc/flac.cu, a block of threads a
+#: read): what stays serial is the read's flac blocks, and in a block its
+#: header (a dependent load from device memory, about 600 cycles), the
+#: tile's staging (one round trip, about 600), two walks of a chunk (the
+#: speculation and the emit: FLAC_CHUNK_BITS / the bucket's mean code
+#: bits codes, a step about 40 dependent cycles: a shared load, __ffs,
+#: shifts and masks), one fix-point round (a barrier and a short walk,
+#: about 300) and up to five block scans (the counts' and four
+#: integrations', about 200 each)
+FLAC_BLOCK_CYCLES = {"header": 600, "stage": 600, "step": 40, "round": 300,
+                     "scan": 200}
+FLAC_CHUNK_BITS = 64  # csrc/flac.cu CHUNK
+
+
+def flac_floor_ms(blocks: int, code_bits: float) -> float:
+    """Kernel N's chain floor: `blocks` flac blocks of the longest read,
+    each at FLAC_BLOCK_CYCLES with codes of code_bits bits on average."""
+    c = FLAC_BLOCK_CYCLES
+    walk = 2 * FLAC_CHUNK_BITS / max(code_bits, 1.0) * c["step"]
+    block = c["header"] + c["stage"] + walk + c["round"] + 5 * c["scan"]
+    return blocks * block / SM_HZ * 1e3
 
 
 def block_cases(sig, n):
@@ -650,8 +693,9 @@ def block_cases(sig, n):
     HDRWALK_STEP_CYCLES) and, as an option, on flat_uint_submin's at
     FLATS_STEP (1 header byte a segment); N on flac's streams of the
     bucket (the streams' bytes read, 2 B a sample written, 4 B a row; 20
-    operations a sample; chain floor the longest read's samples at
-    FLAC_STEP_CYCLES).  Each plain version runs on the card."""
+    operations a sample; chain floor flac_floor_ms over the longest read's
+    blocks, at the bucket's mean bits a sample).  Each plain version runs
+    on the card."""
     from honours_tpu_torch.engine import flac, flats, pfor
     from honours_tpu_torch.engine import flac_cuda as N
     from honours_tpu_torch.engine import hdrwalk_cuda as M
@@ -682,7 +726,8 @@ def block_cases(sig, n):
         ("flac_decode", lambda: N.flac_decode(cst, n32, L),
          lambda: N.flac_decode_plain(cst, n32, L),
          int(csl.sum()) + 2 * B * L + 4 * B, 20 * nsum, None,
-         int(n64.max()) * FLAC_STEP_CYCLES / SM_HZ * 1e3),
+         flac_floor_ms(-(-int(n64.max()) // flac.BLOCK),
+                       8 * int(csl.sum()) / max(nsum, 1))),
     ]
     options = [
         ("hdrwalk flats", lambda: M.hdrwalk(fst, first, nseg, lens, M.FLATS),

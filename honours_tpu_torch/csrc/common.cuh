@@ -317,44 +317,64 @@ __device__ __forceinline__ void fill_tail(uint8_t* g, int i, int T,
 // THREADS) and its unaligned bytes at either end by thread 0.  Symbol
 // ranges of one tile are disjoint (the scan), tiles follow each other,
 // and every range lies below the next.
+//
+// Shared by kernels B, C and N.  decode_tiles is steps 1-4 over a
+// stream's tiles, generic over the chunk size (Geometry: B and C take
+// CHUNK_BITS, N 64), the code (its step), the sink that takes symbols
+// [0, cnt) (a chunk's symbols through a writer of its own, and the end of
+// symbol cnt - 1) and a span: a tile reaches at most `span` bits past its
+// entry, rounded up to a chunk, so a stream that the caller knows to be
+// short walks only the chunks it needs.  decode_row is B's and C's row:
+// the last nonzero byte, decode_tiles over whole tiles into the row's
+// bytes (RowSink), then the tail and the zeros.
+// Kernel N (csrc/flac.cu) calls decode_tiles on each flac block's Rice
+// codes with a sink of residuals in shared memory and its own tail.
 // ---------------------------------------------------------------------------
 
 namespace htt_chunked {
 
 constexpr int THREADS = 512;
-constexpr int CHUNK_BITS = 256;
-constexpr int CHUNK_WORDS = CHUNK_BITS / 32;
-constexpr unsigned TILE_BITS = THREADS * CHUNK_BITS;
+constexpr int CHUNK_BITS = 256;  // kernels B and C
 constexpr int WARPS = THREADS / 32;
-// A tile's stream words in shared memory: its bits, a word of alignment
-// and a spill of 128 bytes for the codes that cross its end (longer
-// ones, only in garbage, read device memory).  Word r of the stage lies
-// at (r % CHUNK_WORDS) * STAGE_COLS + r / CHUNK_WORDS: a thread's chunk
-// is column j, so the lanes of a warp, each walking its own chunk, read
-// distinct banks; STAGE_COLS = 32 / CHUNK_WORDS mod 32 keeps the staging
-// stores (CHUNK_WORDS words a row of consecutive lanes) on distinct banks
-// too.
-constexpr int STAGE_WORDS = TILE_BITS / 32 + 4 + 32;
-constexpr int STAGE_COLS = (STAGE_WORDS / CHUNK_WORDS + 32) / 32 * 32 +
-                           32 / CHUNK_WORDS;
-constexpr int STAGE_SIZE = CHUNK_WORDS * STAGE_COLS;
 constexpr unsigned STOP = 0xffffffffu;  // the exit of a walk that stopped
 
-// dynamic shared memory of the decode, in 32-bit words: bitmap, stage,
-// two exit buffers, warp sums
-constexpr int SMEM_WORDS = CHUNK_WORDS * THREADS + STAGE_SIZE + 2 * THREADS
-                           + WARPS;
-static_assert(CHUNK_BITS % 32 == 0 && THREADS % 32 == 0, "word chunks");
-static_assert((STAGE_WORDS - 1) / CHUNK_WORDS < STAGE_COLS &&
-              STAGE_COLS % 32 == 32 / CHUNK_WORDS, "stage columns");
+// The decode's layout at CB bits a chunk (B and C: CHUNK_BITS; N: its
+// own).  A tile's stream words in shared memory: its bits, a word of
+// alignment and a spill of 128 bytes for the codes that cross its end
+// (longer ones, only in garbage, read device memory).  Word r of the
+// stage lies at (r % CHUNK_WORDS) * STAGE_COLS + r / CHUNK_WORDS: a
+// thread's chunk is column j, so the lanes of a warp, each walking its
+// own chunk, read distinct banks; STAGE_COLS = 32 / CHUNK_WORDS mod 32
+// keeps the staging stores (CHUNK_WORDS words a row of consecutive
+// lanes) on distinct banks too.  Dynamic shared memory of the decode, in
+// 32-bit words: bitmap, stage, two exit buffers, warp sums.
+template <int CB>
+struct Geometry {
+  static constexpr int CHUNK_BITS = CB;
+  static constexpr int CHUNK_WORDS = CB / 32;
+  static constexpr unsigned TILE_BITS = THREADS * CB;
+  static constexpr int STAGE_WORDS = TILE_BITS / 32 + 4 + 32;
+  static constexpr int STAGE_COLS =
+      (STAGE_WORDS / CHUNK_WORDS + 32) / 32 * 32 + 32 / CHUNK_WORDS;
+  static constexpr int STAGE_SIZE = CHUNK_WORDS * STAGE_COLS;
+  static constexpr int SUMS_AT = CHUNK_WORDS * THREADS + STAGE_SIZE +
+                                 2 * THREADS;
+  static constexpr int SMEM_WORDS = SUMS_AT + WARPS;
+  static_assert(CB % 64 == 0 && THREADS % 32 == 0, "word chunks");
+  static_assert((STAGE_WORDS - 1) / CHUNK_WORDS < STAGE_COLS &&
+                STAGE_COLS % 32 == 32 / CHUNK_WORDS, "stage columns");
+};
+using Wide = Geometry<CHUNK_BITS>;
+constexpr int SMEM_WORDS = Wide::SMEM_WORDS;
 
 // One row's stream: byte j is row[start + j] while start + j < M, else 0.
 // Words are read in aligned coordinates: aligned byte a is stream byte
 // a - lo, lo = (row + start) mod 16, so aligned word i lies at the 4-byte
 // aligned address base + 4i (base = row + start - lo).  A tile's words
-// [w0, w0 + nw) sit in shared memory; others are loaded, nothing outside
-// the stream's bytes is read.
-struct Source {
+// [w0, w0 + nw) sit in shared memory, laid out as G's stage; others are
+// loaded, nothing outside the stream's bytes is read.
+template <class G>
+struct SourceOf {
   const uint8_t* base;
   unsigned lo, hi;  // aligned bytes [lo, hi) hold the stream
   const unsigned* stage;
@@ -371,7 +391,7 @@ struct Source {
            byte_at(a + 3) << 24;
   }
   __device__ __forceinline__ unsigned staged(unsigned r) const {
-    return stage[(r % CHUNK_WORDS) * STAGE_COLS + r / CHUNK_WORDS];
+    return stage[(r % G::CHUNK_WORDS) * G::STAGE_COLS + r / G::CHUNK_WORDS];
   }
   // the stream bits from bit p on, bit p lowest: 64 of them, or 32
   __device__ __forceinline__ unsigned long long peek64(unsigned p) const {
@@ -403,10 +423,14 @@ struct Source {
   }
 };
 
+using Source = SourceOf<Wide>;  // kernels B and C
+
 // the stream of a row of M bytes from byte start (0 <= start <= M < 2^28)
-__device__ __forceinline__ Source make_source(const uint8_t* row, long long M,
-                                              long long start) {
-  Source s;
+template <class G = Wide>
+__device__ __forceinline__ SourceOf<G> make_source(const uint8_t* row,
+                                                   long long M,
+                                                   long long start) {
+  SourceOf<G> s;
   const unsigned lo = static_cast<unsigned>(
       reinterpret_cast<uintptr_t>(row + start) & 15);
   s.base = row + start - lo;
@@ -418,15 +442,16 @@ __device__ __forceinline__ Source make_source(const uint8_t* row, long long M,
   return s;
 }
 
-// The block copies the words of the tile from bit tb on into the stage
-// (coalesced loads, zeros outside the stream).
-__device__ __forceinline__ void stage_tile(Source& s, unsigned* stage,
-                                           unsigned tb) {
+// The block copies nw <= STAGE_WORDS words of the tile from bit tb on
+// into the stage (coalesced loads, zeros outside the stream).
+template <class G>
+__device__ __forceinline__ void stage_tile(SourceOf<G>& s, unsigned* stage,
+                                           unsigned tb, unsigned nw) {
   s.stage = stage;
   s.w0 = (s.lo + tb / 8) >> 2;
-  s.nw = STAGE_WORDS;
-  for (unsigned r = threadIdx.x; r < STAGE_WORDS; r += THREADS)
-    stage[(r % CHUNK_WORDS) * STAGE_COLS + r / CHUNK_WORDS] =
+  s.nw = nw;
+  for (unsigned r = threadIdx.x; r < nw; r += THREADS)
+    stage[(r % G::CHUNK_WORDS) * G::STAGE_COLS + r / G::CHUNK_WORDS] =
         s.global_word(s.w0 + r);
   __syncthreads();
 }
@@ -446,9 +471,10 @@ __device__ __forceinline__ unsigned* bm_word(unsigned* bm, unsigned w) {
 }
 
 // starts held from chunk bit r on
+template <class G>
 __device__ __forceinline__ unsigned popc_from(unsigned* bm, unsigned r) {
   unsigned n = __popc(*bm_word(bm, r >> 5) & (~0u << (r & 31)));
-  for (unsigned w = (r >> 5) + 1; w < CHUNK_WORDS; ++w)
+  for (unsigned w = (r >> 5) + 1; w < G::CHUNK_WORDS; ++w)
     n += __popc(*bm_word(bm, w));
   return n;
 }
@@ -461,14 +487,14 @@ __device__ __forceinline__ unsigned popc_from(unsigned* bm, unsigned r) {
 // and in the same bitmap word, and reads no bitmap word: it clears the
 // words after e's first and stores each word's starts as it leaves it.
 // The re-walks (SYNC) are short and take one code a step.
-template <bool SYNC, class Code>
-__device__ __forceinline__ void walk(const Code& code, const Source& src,
+template <bool SYNC, class G, class Code>
+__device__ __forceinline__ void walk(const Code& code, const SourceOf<G>& src,
                                      unsigned* bm, Chunk& ch, unsigned e,
                                      unsigned valid_from) {
   unsigned p = e, n = 0, cw = (e - ch.c) >> 5, acc = 0;
   unsigned old = SYNC ? *bm_word(bm, cw) : 0u;
   if (!SYNC)
-    for (unsigned x = cw + 1; x < CHUNK_WORDS; ++x) *bm_word(bm, x) = 0;
+    for (unsigned x = cw + 1; x < G::CHUNK_WORDS; ++x) *bm_word(bm, x) = 0;
   bool synced = false, stopped = false;
   while (p < ch.end) {
     const unsigned r = p - ch.c, w = r >> 5;
@@ -505,11 +531,11 @@ __device__ __forceinline__ void walk(const Code& code, const Source& src,
   }
   if (synced) {  // new starts below p, the old walk's from p on
     *bm_word(bm, cw) = (old & (~0u << ((p - ch.c) & 31))) | acc;
-    ch.count = n + popc_from(bm, p - ch.c);
+    ch.count = n + popc_from<G>(bm, p - ch.c);
   } else {  // no start after the walk's last
     *bm_word(bm, cw) = acc;
     if (SYNC)
-      for (unsigned x = cw + 1; x < CHUNK_WORDS; ++x) *bm_word(bm, x) = 0;
+      for (unsigned x = cw + 1; x < G::CHUNK_WORDS; ++x) *bm_word(bm, x) = 0;
     ch.count = n;
     ch.exit = stopped ? STOP : p;
   }
@@ -575,7 +601,8 @@ struct RowWriter {
 // has none: the block reads 16-byte groups from the stream's end down,
 // LAST_GROUPS a thread a pass, until a pass finds one.
 constexpr int LAST_GROUPS = 4;
-__device__ __forceinline__ unsigned last_nonzero(const Source& s,
+template <class G>
+__device__ __forceinline__ unsigned last_nonzero(const SourceOf<G>& s,
                                                  unsigned* top) {
   const int g_lo = static_cast<int>(s.lo / 16);
   int g_hi = static_cast<int>((s.hi + 15) / 16);
@@ -627,32 +654,56 @@ __device__ __forceinline__ void fill(uint8_t* row, unsigned a, unsigned b,
     *reinterpret_cast<unsigned*>(row + i) = v;
 }
 
-// Decode one row: the walk from bit `first` over the stream's E bits, at
-// most cnt symbols into row[0, got), then zeros to N.  Returns got.
-// Every thread of the block calls it.
-template <class Code>
-__device__ __forceinline__ unsigned decode_row(const Code& code, Source& src,
-                                               unsigned first, unsigned E,
-                                               unsigned cnt, uint8_t* row,
-                                               unsigned N, unsigned* smem) {
+// A row of bytes as decode_tiles' sink: a chunk's symbols through a
+// RowWriter; the end of the last symbol is not needed.
+struct RowSink {
+  uint8_t* row;
+  __device__ __forceinline__ RowWriter writer(unsigned i, unsigned m) const {
+    return RowWriter(row, i, m);
+  }
+  __device__ __forceinline__ void last(unsigned) const {}
+};
+
+// Steps 1-4 over the stream's tiles: the walk from bit `entry` over the
+// stream's E bits until it passes E (or stopped) or has walked cnt
+// symbols; symbol i < cnt goes to the sink, and the chunk that emits
+// symbol cnt - 1 hands the sink the bit after it (sink.last).  A tile
+// reaches at most span bits past its entry, rounded up to a chunk, and
+// stages only the words it reaches; span 0 takes whole tiles (B and C,
+// whose code then folds to that of whole tiles alone).
+// Returns the symbols walked (more than cnt where the last tile went on);
+// `entry` becomes the walk's exit (STOP where it stopped).  Every thread
+// of the block calls it.  On return the tiles' shared memory is still in
+// use: the caller's next write to it follows a barrier.
+template <class G, class Code, class Sink>
+__device__ __forceinline__ unsigned decode_tiles(const Code& code,
+                                                 SourceOf<G>& src,
+                                                 unsigned& entry,
+                                                 unsigned E, unsigned cnt,
+                                                 unsigned span,
+                                                 const Sink& sink,
+                                                 unsigned* smem) {
   unsigned* bm = smem;
-  unsigned* stage = bm + CHUNK_WORDS * THREADS;
-  unsigned* exits = stage + STAGE_SIZE;
-  unsigned* sums = exits + 2 * THREADS;
+  unsigned* stage = bm + G::CHUNK_WORDS * THREADS;
+  unsigned* exits = stage + G::STAGE_SIZE;
+  unsigned* sums = smem + G::SUMS_AT;
+  constexpr unsigned CB = G::CHUNK_BITS, TILE = G::TILE_BITS;
   const unsigned t = threadIdx.x;
-  // the bits past the stream's last nonzero byte are zeros
-  const unsigned top = cnt ? last_nonzero(src, sums) : 0u;
-  E = min(E, top ? 8 * (top - src.lo) : 0u);
-  unsigned S = 0, entry = first;  // symbols before the tile; its entry
+  unsigned S = 0;  // symbols before the tile
   while (entry < E && S < cnt) {  // STOP >= E
-    const unsigned tb = entry - entry % TILE_BITS;
+    const unsigned tb = entry - entry % TILE;
+    const unsigned reach =
+        span ? min(tb + TILE, (entry + span + CB - 1) / CB * CB) : tb + TILE;
+    const unsigned te = min(E, reach);  // the tile's chunks end here
     __syncthreads();  // the last tile is done with the stage and exits
-    stage_tile(src, stage, tb);
+    stage_tile(src, stage, tb,
+               span ? (reach - tb) / 32 + (G::STAGE_WORDS - TILE / 32)
+                    : static_cast<unsigned>(G::STAGE_WORDS));
 
     // 1. speculate
     Chunk ch;
-    ch.c = tb + t * CHUNK_BITS;
-    ch.end = min(ch.c + CHUNK_BITS, E);
+    ch.c = tb + t * CB;
+    ch.end = min(ch.c + CB, te);
     const unsigned e0 = max(ch.c, entry);
     if (e0 >= ch.end) {
       ch.entry = ch.exit = e0;
@@ -668,14 +719,14 @@ __device__ __forceinline__ unsigned decode_row(const Code& code, Source& src,
     for (;;) {
       const unsigned e = t ? exits[cur * THREADS + t - 1] : ch.entry;
       bool moved = false;
-      if (e != ch.entry && ch.c < E) {
+      if (e != ch.entry && ch.c < te) {
         const unsigned was = ch.exit;
         if (e >= ch.end) {
           ch.entry = ch.exit = e;
           ch.count = 0;
         } else if (e >= ch.entry &&
                    (*bm_word(bm, (e - ch.c) >> 5) >> ((e - ch.c) & 31) & 1)) {
-          ch.count = popc_from(bm, e - ch.c);
+          ch.count = popc_from<G>(bm, e - ch.c);
           ch.entry = e;
         } else {
           walk<true>(code, src, bm, ch, e, ch.entry);
@@ -694,7 +745,7 @@ __device__ __forceinline__ unsigned decode_row(const Code& code, Source& src,
     // 4. emit, cut at cnt
     if (ch.count && first_sym < cnt) {
       const unsigned m = min(ch.count, cnt - first_sym);
-      RowWriter out(row, first_sym, m);
+      auto out = sink.writer(first_sym, m);
       unsigned p = ch.entry;
       for (unsigned i = 0; i < m;) {
         unsigned len1, len, sym;
@@ -709,12 +760,32 @@ __device__ __forceinline__ unsigned decode_row(const Code& code, Source& src,
           p += len1;
         }
       }
+      if (first_sym + m == cnt) sink.last(p);
     }
     S += total;
-    // the exit of the tile's last chunk that starts below E
-    entry = exits[cur * THREADS + min((E - 1 - tb) / CHUNK_BITS,
+    // the exit of the tile's last chunk that starts below te
+    entry = exits[cur * THREADS + min((te - 1 - tb) / CB,
                                       static_cast<unsigned>(THREADS - 1))];
   }
+  return S;
+}
+
+// Decode one row: the walk from bit `first` over the stream's E bits, at
+// most cnt symbols into row[0, got), then zeros to N.  Returns got.
+// Every thread of the block calls it.
+template <class Code>
+__device__ __forceinline__ unsigned decode_row(const Code& code,
+                                               SourceOf<Wide>& src,
+                                               unsigned first, unsigned E,
+                                               unsigned cnt, uint8_t* row,
+                                               unsigned N, unsigned* smem) {
+  unsigned* sums = smem + Wide::SUMS_AT;
+  // the bits past the stream's last nonzero byte are zeros
+  const unsigned top = cnt ? last_nonzero(src, sums) : 0u;
+  E = min(E, top ? 8 * (top - src.lo) : 0u);
+  unsigned entry = first;
+  const unsigned S = decode_tiles(code, src, entry, E, cnt, 0u,
+                                  RowSink{row}, smem);
   unsigned got = min(S, cnt);
   if (entry != STOP && S < cnt) {  // the walk's rest over zero bits
     unsigned n, sym;

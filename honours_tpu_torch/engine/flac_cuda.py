@@ -4,10 +4,11 @@ flac_decode_plain.
 No TPU kernel stands behind it: honours_tpu decodes flac on the host
 only (honours_tpu/codecs/flac.py FlacCodec.depress).  A flac block's
 size does not follow from its header (its Rice codes end where the walk
-of its blen - order codes ends), so a read is one walk over its blocks.
-The wrapper routes by device: CPU tensors take the plain version, CUDA
-tensors launch the kernel, one thread a read, every block of a bucket's
-reads in one launch.
+of its blen - order codes ends), so a read's blocks are a walk; the
+kernel splits each block's Rice codes across a block of threads (the
+chunked decode of csrc/common.cuh).  The wrapper routes by device: CPU
+tensors take the plain version, CUDA tensors launch the kernel, a block
+of threads a read, every read of a bucket in one launch.
 """
 
 from __future__ import annotations

@@ -106,16 +106,16 @@ def huffman_build_plain(hist):
 
 
 def huffman_build(hist):
-    """Kernel H: huffman_build_plain's contract, one thread a row on the
-    card."""
+    """Kernel H: huffman_build_plain's contract, a block a row on the card
+    (the kernel writes every entry of every row)."""
     if is_cpu(hist):
         return huffman_build_plain(hist)
     check(hist, "hist", (torch.int64,))
     if hist.dim() != 2 or hist.shape[1] != 256:
         raise ValueError(f"hist: shape {tuple(hist.shape)} is not [B, 256]")
     B = hist.shape[0]
-    lengths = torch.zeros((B, 256), dtype=torch.int32, device=hist.device)
-    codes = torch.zeros((B, 256), dtype=torch.int64, device=hist.device)
+    lengths = torch.empty((B, 256), dtype=torch.int32, device=hist.device)
+    codes = torch.empty((B, 256), dtype=torch.int64, device=hist.device)
     _BUILD(hist.data_ptr(), B, lengths.data_ptr(), codes.data_ptr(),
            stream_ptr(hist.device))
     return lengths, codes

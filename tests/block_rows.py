@@ -143,3 +143,58 @@ def flac_decode_np(row: np.ndarray, n: int, L: int) -> np.ndarray:
         off = (p - start + 7) // 8 + start // 8
         pos += blen
     return out
+
+
+def rice_bytes(z, k: int) -> bytes:
+    """flac's Rice codes of z (q = z >> k ones, a zero, the k low bits,
+    all LSB-first), padded to a byte."""
+    z = np.asarray(z, np.uint64)
+    q = (z >> np.uint64(k)).astype(np.int64)
+    lens = q + 1 + k
+    starts = np.cumsum(lens) - lens
+    bits = np.zeros((int(lens.sum()) + 7) // 8 * 8, np.uint8)
+    run = np.arange(int(q.sum())) - np.repeat(np.cumsum(q) - q, q)
+    bits[np.repeat(starts, q) + run] = 1
+    for j in range(k):
+        bits[starts + q + 1 + j] = (z >> np.uint64(j)) & np.uint64(1)
+    return np.packbits(bits, bitorder="little").tobytes()
+
+
+def flac_block(order: int, k: int, warm, z) -> bytes:
+    """A predictor block: [order][k][warm-up i16 LE][Rice codes of z]."""
+    return (bytes([order, k]) + np.asarray(warm, "<i2").tobytes()
+            + rice_bytes(z, k))
+
+
+def flac_edge_rows(seed: int):
+    """(streams, n, valid) of hand-made flac streams at kernel N's edges:
+    k = 0 (unary codes only) and k = 30 (31-bit codes, nearly a tile);
+    order = blen - 1 on a short last block; a valid block followed by a
+    mode and by a k the press never writes; Rice regions that end on a
+    chunk edge (15,360 bits, a multiple of N's 64-bit chunks and of B's
+    and C's 256), on a tile edge of N (32,768 bits) and of B and C
+    (131,072), on the kernel's first tile's reach (k + 3 bits a code and
+    1,024 bits) and past it, each followed by a block.  valid: the host
+    codec decodes the stream."""
+    rng = np.random.default_rng(seed)
+    full = flac_block(2, 3, [10, -20], rng.integers(0, 40, 4094))
+    q = np.zeros(4096, np.int64)
+    q[rng.choice(4096, 3072, replace=False)] = 1  # 3,072 + 3 x 4,096 bits
+    chunk = flac_block(0, 2, [], (q << 2) | rng.integers(0, 4, 4096))
+    q = np.full(4096, 2)
+    q[:1024] += 1  # 9,216 ones + 4,096 zeros: 4,096 x 3 + 1,024 bits
+    rows = [
+        (flac_block(0, 0, [], rng.integers(0, 6, 4096)), 4096, True),
+        (flac_block(1, 30, [1234], rng.integers(0, 1 << 31, 4095)), 4096,
+         True),
+        (full + flac_block(4, 5, [1, 2, 3, -4], [77]), 4096 + 5, True),
+        (full + bytes([9, 2, 1, 2, 3]), 8192, False),
+        (full + bytes([2, 31, 1, 2, 3, 4]), 8192, False),
+        (chunk + full, 8192, True),
+        (flac_block(0, 0, [], np.full(4096, 7)) + full, 8192, True),
+        (flac_block(0, 0, [], np.full(4096, 31)) + full, 8192, True),
+        (flac_block(0, 0, [], q) + full, 8192, True),
+        (flac_block(0, 0, [], np.full(4096, 3)) + full, 8192, True),
+    ]
+    return ([r[0] for r in rows], np.array([r[1] for r in rows], np.int32),
+            [r[2] for r in rows])

@@ -11,7 +11,8 @@ ramps, walks of several steps, the main-path fixture reads.  The plain
 decode is also held to a row-by-row numpy model of the host's walk
 (tests/block_rows.py flac_decode_np) on cut streams (a byte past a row
 reads as 0), headers the press never writes and unary runs longer than
-the plain version's first window and than the row.  The press's k
+the plain version's first window and than the row, and on kernel N's
+edge streams (block_rows.flac_edge_rows).  The press's k
 choice equals the host's _best_k on random blocks (its integer mean is
 the host's float mean truncated).  Bytes and samples must be equal
 (tolerance 0)."""
@@ -187,6 +188,20 @@ def test_plain_decode_equals_the_model_on_random_rows():
     rows[: B // 2, 2:] &= 0x0F  # shorter runs
     n = rng.integers(0, 400, B).astype(np.int32)
     _plain_and_model(rows, n, 400)
+
+
+def test_plain_decode_equals_the_model_on_edge_blocks():
+    """Kernel N's edge streams (tests/block_rows.py flac_edge_rows): k = 0
+    and k = 30 blocks, order = blen - 1 on a short last block, a valid
+    block before a header the press never writes, and Rice regions ending
+    on a chunk edge, a tile edge and the first tile's reach; the host
+    codec decodes the valid ones to the same samples."""
+    streams, n, valid = block_rows.flac_edge_rows(8)
+    out = _plain_and_model(block_rows.stream_rows(streams, 5), n, 8200)
+    for i, s in enumerate(streams):
+        if valid[i]:
+            assert np.array_equal(out[i, : n[i]], HOST.depress(s, int(n[i])))
+    assert not out[3, 4096:].any() and not out[4, 4096:].any()
 
 
 def test_wrapper_routes_cpu_tensors_to_the_plain_version():

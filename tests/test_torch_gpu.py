@@ -14,7 +14,7 @@ import chunked_rows as rows
 import rc_rows
 import stall_rows
 from chunked_rows import place as chunked_place
-from entropy_rows import fib_hist, long_code_read
+from entropy_rows import fib_hist, long_code_read, tie_histograms
 
 pytestmark = pytest.mark.gpu
 
@@ -1880,11 +1880,33 @@ def test_rccdf_kernels_at_main_path_rows(cuda):
     _rccdf_same(*_bucket_residuals("rccdf_vbbe21_zd"))
 
 
+def _build_poisoned(hist):
+    """Kernel H into memory that held 0xA5 bytes: blocks of the outputs'
+    sizes are filled and freed just before the call, so the caching
+    allocator hands them to the wrapper's outputs."""
+    from honours_tpu_torch.engine import huffman as Hf
+
+    B = hist.shape[0]
+    bait = (torch.full((B, 256), -0x5A5A5A5B, dtype=torch.int32,
+                       device=hist.device),
+            torch.full((B, 256), -0x5A5A5A5A5A5A5A5B, dtype=torch.int64,
+                       device=hist.device))
+    ptrs = [x.data_ptr() for x in bait]
+    del bait
+    got = Hf.huffman_build(hist)
+    assert [x.data_ptr() for x in got] == ptrs
+    return got
+
+
 def test_huffman_build_kernel_matches_plain(cuda):
     """H against its plain version and build_table (tables/huffman.py) on
     ties (all equal, 1 1 1 2, pairs equal to merged sums), Fibonacci
     counts to depth 31 and 32, a lone symbol, an empty row and random
-    histograms; then on the bucket's residual histograms."""
+    histograms, and on the tie-heavy histograms that reach its run rule
+    (entropy_rows.tie_histograms: merged sums equal to a run of internal
+    nodes not yet taken, 256 symbols of count 1, counts 1-2 at random,
+    [1, 1, 2, 2, 4, 4, ...]); then on the bucket's residual histograms.
+    Every output lands in memory poisoned just before the call."""
     from honours_tpu_torch.engine import huffman as Hf
     from honours_tpu_torch.engine.rccdf import byte_histogram
     from honours_tpu_torch.tables.huffman import build_table
@@ -1907,8 +1929,9 @@ def test_huffman_build_kernel_matches_plain(cuda):
         h[rng.choice(256, k, replace=False)] = rng.integers(
             1, int(rng.integers(2, 40)), k)
         hs.append(h)
+    hs += tie_histograms()
     hist = torch.from_numpy(np.stack(hs))
-    got = Hf.huffman_build(hist.cuda())
+    got = _build_poisoned(hist.cuda())
     torch.cuda.synchronize()
     want = Hf.huffman_build_plain(hist)
     _same(got, want)
@@ -1919,7 +1942,7 @@ def test_huffman_build_kernel_matches_plain(cuda):
                               t.codes), i
     data, dlen = _bucket_residuals("huffman_vbbe21_zd")
     bh = byte_histogram(data, dlen)
-    _same(Hf.huffman_build(bh), Hf.huffman_build_plain(bh.cpu()))
+    _same(_build_poisoned(bh), Hf.huffman_build_plain(bh.cpu()))
 
 
 def _c2_case(data, dlen):
@@ -2368,12 +2391,19 @@ def test_hdrwalk_kernel_one_row_of_2_22(cuda, fmt):
 
 
 def _flac_both(rows, n, L, cuda):
-    """Kernel N and its plain version on the card."""
+    """Kernel N and its plain version on the card, N's output in memory
+    that held 0xA5 bytes (a block of its size filled and freed just before
+    the call, which the caching allocator hands to the wrapper)."""
     from honours_tpu_torch.engine import flac_cuda as N
 
     s, m = _t(rows, n)
     s, m = s.to(cuda), m.to(torch.int32).to(cuda)
+    bait = torch.full((s.shape[0], L), -0x5A5B, dtype=torch.int16,
+                      device=cuda)
+    ptr = bait.data_ptr()
+    del bait
     got = N.flac_decode(s, m, L)
+    assert got.numel() == 0 or got.data_ptr() == ptr
     _same(got, N.flac_decode_plain(s, m, L))
     return got
 
@@ -2385,7 +2415,12 @@ def test_flac_kernel_matches_plain(cuda, seed):
     unary runs of thousands of ones), at L = their longest and wider;
     streams cut at their first bytes, in a warm-up and in the Rice bits;
     headers the press never writes, runs past the plain version's window
-    and off the row, random rows."""
+    and off the row, random rows; the edge streams of
+    block_rows.flac_edge_rows (k = 0 and 30, order = blen - 1 on a short
+    last block, a valid block before a garbage header, Rice regions ending
+    on a chunk edge, a tile edge and the kernel's first tile's reach),
+    also held to the row model.  Every call's output lands in poisoned
+    memory."""
     import block_rows
     from honours_tpu.codecs.base import get as get_codec
 
@@ -2423,6 +2458,12 @@ def test_flac_kernel_matches_plain(cuda, seed):
     rand[:, 1] = rng.integers(0, 31, 64)
     rand[:32, 2:] &= 0x0F
     _flac_both(rand, rng.integers(0, 400, 64), 400, cuda)
+    streams, n, _ = block_rows.flac_edge_rows(seed + 8)
+    rows = block_rows.stream_rows(streams, 5)
+    got = _flac_both(rows, n, 8200, cuda).cpu().numpy()
+    for i in range(len(streams)):
+        assert np.array_equal(got[i],
+                              block_rows.flac_decode_np(rows[i], n[i], 8200))
 
 
 def test_flac_kernel_one_row_of_2_22(cuda):

@@ -3,15 +3,18 @@
     python3 tools/kernel_variants.py NAME VARIANT.cu [VARIANT.cu ...]
 
 NAME is n4_decode, svb16_decode, svb16_decode_raw (zd off),
-svb16_encode, svb16_encode_raw (zd off), or rc_encode_MODEL /
-rc_decode_MODEL (MODEL o0, o1 or cm).  Each VARIANT.cu is an edited copy
+svb16_encode, svb16_encode_raw (zd off), flac_decode, huffman_build, or
+rc_encode_MODEL / rc_decode_MODEL (MODEL o0, o1 or cm).  Each VARIANT.cu is an edited copy
 of the kernel's source (honours_tpu_torch/csrc/*.cu) whose C entries
 keep their signatures.  Each is built with the package's nvcc flags (all
 in parallel), and its entry stands in for the kernel's while it is
 timed.  At chip_smoke.py's shapes, a bucket of [256, 65536] and one read
 of [1, 262144], every variant is held against the plain version (max
 abs err printed) and timed from a CUDA-graph replay, twice: in the order
-given, then in reverse.  The range coder runs at the bucket only
+given, then in reverse.  flac_decode (on flac's streams of the bucket)
+and huffman_build (on the histograms of its residual bytes) run at the
+bucket only, chip_smoke.py's cases of them.  The range coder runs at
+the bucket only
 (chip_smoke.rc_bucket's rows), held against the tree's own kernel: its
 streams for rc_encode, the rows for rc_decode (the plain cm coder takes
 minutes a row there; chip_smoke.py holds the kernel to it).  A svb16
@@ -35,6 +38,8 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from honours_tpu_torch import _build  # noqa: E402
+from honours_tpu_torch.engine import flac_cuda  # noqa: E402,F401
+from honours_tpu_torch.engine import huffman  # noqa: E402,F401
 from honours_tpu_torch.engine import rangecoder_cuda  # noqa: E402,F401
 from honours_tpu_torch.engine import rans_n4_cuda  # noqa: E402,F401
 from honours_tpu_torch.engine import svb16_cuda as SV  # noqa: E402
@@ -79,6 +84,19 @@ def cases(B: int, L: int) -> dict:
             for c in main + options}
 
 
+#: kernels timed at the bucket only, on chip_smoke.py's cases
+BUCKET_ONLY = ("flac_decode", "huffman_build")
+
+
+def bucket_cases(name: str) -> dict:
+    """{flac_decode or huffman_build: (kernel call, plain call)} on the
+    bucket [256, 65536], as chip_smoke.py's phases 13 and 11 make them."""
+    sig, n = cs.make_bucket(0)
+    found = (cs.block_cases(sig, n)[0] if name == "flac_decode"
+             else cs.entropy_cases(sig, n))
+    return {c[0]: (c[1], c[2]) for c in found}
+
+
 def rc_cases() -> dict:
     """{rc_encode_MODEL / rc_decode_MODEL: (kernel call, the tree's
     kernel's output)} on chip_smoke.rc_bucket's rows, computed before any
@@ -114,16 +132,20 @@ def main(argv) -> int:
     tiles = SV.DECODE_TILE, SV.ENCODE_TILE
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         libs = build(sources, Path(tmp))
-        for B, L in ((256, 1 << 16),) if rc else ((256, 1 << 16),
-                                                    (1, 1 << 18)):
-            kern, plain = (rc_cases() if rc else cases(B, L))[name]
+        at_bucket = rc or name in BUCKET_ONLY
+        for B, L in ((256, 1 << 16),) if at_bucket else ((256, 1 << 16),
+                                                           (1, 1 << 18)):
+            kern, plain = (rc_cases() if rc else bucket_cases(name)
+                           if name in BUCKET_ONLY else cases(B, L))[name]
             want = cs.flatten(plain())
             times = {s: [] for s in sources}
             for order in (sources, sources[::-1]):
                 for src in order:
                     use(kernel, libs[src], src)
                     err = cs.max_abs_err(cs.flatten(kern()), want)
-                    reps = 2 if rc else 3 if name == "n4_decode" else 20
+                    reps = (2 if rc else 3 if name in ("n4_decode",
+                                                       "flac_decode")
+                            else 20)
                     times[src].append(f"{cs.graph_ms(kern, reps)[0]:.4f} ms "
                                       f"(max abs err {err})")
                     SV.DECODE_TILE, SV.ENCODE_TILE = tiles
