@@ -31,12 +31,16 @@
    phase 12's kernels I (bitpack_msb) on uint_zd's fields of
    the bucket, J (bitunpack_msb) on I's packed rows, K (flats_partition)
    on the samples at step 64 and L (zsm_mean) on the samples, K and L
-   each beside its chain floor (FLATS_STEP_CYCLES, ZSM_STEP_CYCLES),
-   and phase 13's kernels M (hdrwalk, the segment-header walk) on
-   turbopfor's streams of the bucket and, on a log line of its own, on
-   flat_uint_submin's, and N (flac_decode) on flac's streams of the
-   bucket, each beside its chain floor (HDRWALK_STEP_CYCLES,
-   FLAC_BLOCK_CYCLES), their plain versions on the card.  Then does the
+   each beside its chain floor (FLATS_STEP_CYCLES; ZSM_STEP_CYCLES over
+   the longest read L flags for its float64 chain, its flagged reads
+   counted), L also on its edge reads and reads with means k and k +-
+   j / n and on the bucket with every read's mean moved to an integer
+   (every read flagged), on log lines of their own, and phase 13's
+   kernels M (hdrwalk, the segment-header walk) on turbopfor's streams
+   of the bucket and, on a log line of its own, on flat_uint_submin's,
+   and N (flac_decode) on flac's streams of the bucket, each beside its
+   chain floor (HDRWALK_STEP_CYCLES, FLAC_BLOCK_CYCLES), their plain
+   versions on the card.  Then does the
    same for
    kernel 1's five entries, o1_fc, rans_encode, o1_decode (both drans phases),
    o0_decode, svb16_encode and svb16_decode (zd on and off), n4_decode,
@@ -483,11 +487,14 @@ def huffman_case(sig, n):
 
 
 #: a lane step's dependent cycles in the chain-floor model of kernels F
-#: and G (csrc/rccdf.cu): the encode's compare, shift, 32-bit division
-#: (about 25 cycles) and multiply-add on the state; the decode's table
-#: lookups in shared memory (slot -> symbol, then its frequency and low
-#: end, about 30 each), its multiply-add and compare, and a refill byte
-#: from L1 (about 33)
+#: and G (csrc/rccdf.cu): what stays serial in the encode is the state's
+#: path through a step, two compares, a select of the renormalised
+#: state, a multiply-high by the symbol's reciprocal, a shift, a mask
+#: and a multiply-add (the symbol and its table entry come from shared
+#: memory two steps ahead, the emitted bytes go to a ring in shared
+#: memory off the chain); the decode's table lookups in shared memory
+#: (slot -> symbol, then its frequency and low end, about 30 each), its
+#: multiply-add and compare, and a refill byte from L1 (about 33)
 RCCDF_STEP_CYCLES = {"rccdf_encode": 40, "rccdf_decode": 100}
 
 
@@ -587,8 +594,10 @@ def entropy_cases(sig, n):
 #: (shared loads, min, max, clz, a multiply-add: about 20 cycles a pair,
 #: a few pairs a thread at the bucket's m), two 5-level butterflies of
 #: 64-bit minima (about 30 cycles a level) and a barrier (about 40); L's
-#: (csrc/zsm.cu) an fp64 subtract and add (about 8 each) and a correctly
-#: rounded fp64 divide (about 50)
+#: (csrc/zsm.cu) a step of the float64 chain that only a flagged read
+#: walks (the others are settled from their exact sums): an fp64
+#: subtract and add (about 8 each) and a correctly rounded fp64 divide
+#: (about 50)
 FLATS_STEP_CYCLES = 400
 ZSM_STEP_CYCLES = 66
 #: flat_uint_submin's step in phase 12's kernel case (the default)
@@ -603,16 +612,15 @@ def raw_cases(sig, n):
     rows (the packed bytes read, 4 B a field written), K on the samples
     at FLATS_STEP (2 B a sample read, the cuts written; 12 operations an
     (i, j) pair; chain floor the longest read's chunks at
-    FLATS_STEP_CYCLES), L on the samples (2 B a sample read, 8 B a row
-    written; 3 float64 operations a sample; chain floor the longest
-    read's samples at ZSM_STEP_CYCLES).  Each plain version runs on the
-    card."""
+    FLATS_STEP_CYCLES), L on the samples (zsm_case: 2 B a sample read,
+    8 B a row written; 3 float64 operations a sample; chain floor the
+    longest flagged read's samples at ZSM_STEP_CYCLES, 0 where none is
+    flagged).  Each plain version runs on the card."""
     from honours_tpu_torch.engine import bitpack as BP
     from honours_tpu_torch.engine import bitpack_cuda as BC
     from honours_tpu_torch.engine import flats as Fl
     from honours_tpu_torch.engine import flats_cuda as FC
     from honours_tpu_torch.engine import uint as U
-    from honours_tpu_torch.engine import zsm_cuda as Z
 
     B, L = sig.shape
     dev = sig.device
@@ -638,7 +646,8 @@ def raw_cases(sig, n):
     log(f"phase 12 rows [{B}, {L}]: uint_zd {fields} fields of "
         f"{int(b.min())}-{int(b.max())} bits, {pbytes} packed bytes; flats "
         f"at step {FLATS_STEP}: up to {mmax} chunks a read, {pairs} (i, j) "
-        f"pairs; zsm: up to {nmax} samples a read")
+        f"pairs; zsm: up to {nmax} samples a read, "
+        + zsm_flag_log(sig, n32))
     return [
         ("bitpack_msb", lambda: BC.pack_msb(vals, voff, cnt, b, out8(), ooff),
          lambda: BP.pack_msb_plain(vals, voff, cnt, b, out8(), ooff),
@@ -651,10 +660,66 @@ def raw_cases(sig, n):
          lambda: Fl.flats_partition_plain(sig, n32, FLATS_STEP),
          2 * nsum + B * (-(-L // FLATS_STEP) + 1), 12 * pairs, None,
          mmax * FLATS_STEP_CYCLES / SM_HZ * 1e3),
-        ("zsm_mean", lambda: Z.zsm_mean(sig, n32),
-         lambda: U.zsm_mean_plain(sig, n32), 2 * nsum + 8 * B, 3 * nsum,
-         None, nmax * ZSM_STEP_CYCLES / SM_HZ * 1e3),
+        zsm_case("zsm_mean", sig, n32),
     ]
+
+
+def zsm_longest_flagged(sig, n) -> tuple[int, int]:
+    """(the reads of [B, L] int16 (first n valid) that kernel L walks, by
+    tests/raw_rows.py's model of its settled rule on their exact sums,
+    and the longest one's samples; 0 where none)."""
+    zsm_model = load_tests_module("raw_rows").zsm_model
+    L = sig.shape[1]
+    m = n.to(torch.int64).clamp(0, L)
+    col = torch.arange(L, device=sig.device)[None, :]
+    S = torch.where(col < m[:, None], sig.to(torch.int64), 0).sum(dim=1)
+    walked = [k for s, k in zip(S.tolist(), m.tolist())
+              if zsm_model(s, k) is None]
+    return len(walked), max(walked, default=0)
+
+
+def zsm_flag_log(sig, n) -> str:
+    count, longest = zsm_longest_flagged(sig, n)
+    return (f"{count} of {sig.shape[0]} flagged (the float64 chain), the "
+            f"longest of {longest} samples")
+
+
+def zsm_case(name: str, sig, n):
+    """Kernel L's case on [B, L] int16 (first n valid): 2 B a sample read,
+    8 B a row written, 3 float64 operations a sample; chain floor the
+    longest flagged read's samples at ZSM_STEP_CYCLES (0 where none)."""
+    from honours_tpu_torch.engine import uint as U
+    from honours_tpu_torch.engine import zsm_cuda as Z
+
+    nsum = int(n.to(torch.int64).sum())
+    floor = zsm_longest_flagged(sig, n)[1] * ZSM_STEP_CYCLES / SM_HZ * 1e3
+    return (name, lambda: Z.zsm_mean(sig, n), lambda: U.zsm_mean_plain(sig, n),
+            2 * nsum + 8 * sig.shape[0], 3 * nsum, None, floor)
+
+
+def zsm_cases(sig, n, seed: int = 0):
+    """(shape, case) of kernel L on its edge reads (tests/raw_rows.py
+    zsm_reads) with reads of 4,097 and 65,536 samples whose exact means
+    are k and k +- j / n (banded_reads), and the bucket [B, L] with every
+    read's exact mean moved to an integer (integer_mean_rows: every read
+    flagged, the chain's worst case), each held to the plain version on
+    the card; their flagged counts logged."""
+    rows = load_tests_module("raw_rows")
+    reads = (rows.zsm_reads() + rows.banded_reads(seed, 4097)
+             + rows.banded_reads(seed + 1, 1 << 16, ks=(-517, -1, 0, 450),
+                                 js=(0, 1)))
+    edge = tuple(torch.from_numpy(a).to(sig.device)
+                 for a in rows.pad_rows(reads))
+    worst = torch.from_numpy(rows.integer_mean_rows(
+        sig.cpu().numpy(), n.cpu().numpy())).to(sig.device)
+    out = []
+    for label, (s, k) in (("edge and banded reads", edge),
+                          ("every read flagged",
+                           (worst, n.to(torch.int32).contiguous()))):
+        shape = f"[{s.shape[0]}, {s.shape[1]}] ({label})"
+        log(f"zsm_mean {shape}: " + zsm_flag_log(s, k))
+        out.append((shape, zsm_case("zsm_mean", s, k)))
+    return out
 
 
 #: phase 13's kernel M's dependent cycles a step on the H100
@@ -1017,8 +1082,9 @@ def walk_cases(sig, n, g, tabs):
 def kernel_cases(seed: int):
     """(name, kernel call, plain call, bytes, ops, library call) at the
     main path's shapes, from one bucket run through the port's stages,
-    and the same of options those cases leave out (named "kernel
-    option")."""
+    the same of options those cases leave out (named "kernel option"),
+    and (shape, case) of kernel 1 and svb16 at svb_zd's and vbsse21's
+    shapes (vb_cases) and of kernel L on its own rows (zsm_cases)."""
     from honours_tpu_torch.engine import permute_cuda as P
     from honours_tpu_torch.engine.pipeline import canned_o1_device_tables
     from honours_tpu_torch.kernels.rans import K_SHARED as K
@@ -1055,7 +1121,8 @@ def kernel_cases(seed: int):
         huffman_case(sig, n),
     ] + entropy_cases(sig, n) + raw_cases(sig, n) + blocks
     shapes = (f"[{B}, {L}]", f"[{B * K}, {Smax}] (drans phase-grid merge)")
-    return cases, options, merge, shapes, vb_cases(sig, n)
+    return (cases, options, merge, shapes,
+            vb_cases(sig, n) + zsm_cases(sig, n, seed))
 
 
 def o1n_case(sym, ctx, nt):
@@ -1424,8 +1491,9 @@ def log_case(shape: str, r: dict) -> None:
         f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
         f"({r['bound_by']})"
         + (f", library {r['library_ms']:.4f} ms" if r["library_ms"] else "")
-        + (f", chain floor {r['chain_floor_ms']:.4f} ms, "
-           f"{r['ms'] / r['chain_floor_ms']:.2f}x the floor"
+        + (f", chain floor {r['chain_floor_ms']:.4f} ms"
+           + (f", {r['ms'] / r['chain_floor_ms']:.2f}x the floor"
+              if r["chain_floor_ms"] else "")
            if "chain_floor_ms" in r else ""))
 
 

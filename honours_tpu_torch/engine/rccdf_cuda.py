@@ -4,8 +4,8 @@
 No TPU kernel stands behind them: honours_tpu runs this coder on the
 host only (honours_tpu/kernels/rans.py rans_encode_static and
 rans_decode_static, numpy loops).  The wrappers route by device: CPU
-tensors take the plain versions, CUDA tensors launch the kernels, one
-warp a row.
+tensors take the plain versions, CUDA tensors launch the kernels: the
+encode a block of 160 threads a row, the decode a warp a row.
 """
 
 from __future__ import annotations
@@ -47,13 +47,16 @@ def rccdf_encode(data, dlen, freqs, cum):
     check(cum, "cum", (torch.int32,), (B, 256))
     dev = data.device
     W = body_width(N)
-    cap = 2 * -(-N // K)
-    out = torch.zeros((B, W), dtype=torch.uint8, device=dev)
+    # a lane's run of emitted bytes (2 a lane step at most) in 4-byte
+    # words: 16 cap bytes of scratch a row
+    cap = max(4, -(-2 * -(-N // K) // 4) * 4)
+    # the kernel writes every byte of out, zeros past len included
+    out = torch.empty((B, W), dtype=torch.uint8, device=dev)
     blen = torch.empty((B,), dtype=torch.int64, device=dev)
-    scratch = torch.empty((B, K, max(cap, 1)), dtype=torch.uint8, device=dev)
+    scratch = torch.empty((B, K, cap), dtype=torch.uint8, device=dev)
     _ENCODE(data.data_ptr(), B, N, dlen.data_ptr(), freqs.data_ptr(),
             cum.data_ptr(), out.data_ptr(), W, blen.data_ptr(),
-            scratch.data_ptr(), max(cap, 1), stream_ptr(dev))
+            scratch.data_ptr(), cap, stream_ptr(dev))
     return out, blen
 
 

@@ -4,7 +4,9 @@ version (engine/uint.py zsm_mean_plain).
 No TPU kernel stands behind it: honours_tpu takes the mean on the host
 only (honours_tpu/codecs/uintc.py UintZsmCodec._mean16).  The wrapper
 routes by device: CPU tensors take the plain version, CUDA tensors
-launch the kernel, one thread a read.
+launch the kernel, a block a read: the read's exact sum settles its mean
+unless the mean lies near a nonzero integer, and then the block's first
+thread walks the float64 chain.
 """
 
 from __future__ import annotations

@@ -1,6 +1,9 @@
 """Rows for kernels I and J (ragged bit packing), K (the flats partition)
-and L (uint_zsm's running mean), shared by the CPU tests and the GPU
-tests: numpy only, made from seeds."""
+and L (uint_zsm's running mean, and a model of its settled rule), shared
+by the CPU tests, the GPU tests and chip_smoke.py: numpy only, made from
+seeds."""
+
+from fractions import Fraction
 
 import numpy as np
 
@@ -62,6 +65,72 @@ def zsm_reads():
             rng.integers(-32768, 32768, 5000).astype(np.int16),
             np.arange(-2000, 2000, 3).astype(np.int16),
             (np.cumsum(rng.integers(-40, 41, 20000)) - 1000).astype(np.int16)]
+
+
+#: csrc/zsm.cu's settled rule covers reads of up to 2^22 samples
+ZSM_SETTLED_MAX = 1 << 22
+
+
+def zsm_eps(n: int) -> Fraction:
+    """eps(n) = (n + 64) 2^-37: csrc/zsm.cu's bound on |running mean -
+    S / n| over a read of n samples."""
+    return Fraction(n + 64, 1 << 37)
+
+
+def zsm_model(S: int, n: int):
+    """Kernel L without its chain, for a read of n samples whose exact
+    sum is S: C's truncating S / n where the settled rule holds (S = 0,
+    or 2^37 min(r, n - r) > n (n + 64) with r = |S| mod n, for n <=
+    2^22), 0 for an empty read, and None for a flagged read, which takes
+    the float64 chain."""
+    if n == 0:
+        return 0
+    r = abs(S) % n
+    if n > ZSM_SETTLED_MAX or (S != 0
+                               and (min(r, n - r) << 37) <= n * (n + 64)):
+        return None
+    q = abs(S) // n
+    return q if S >= 0 else -q
+
+
+def with_sum(x, S: int):
+    """x (int) moved by a constant and by 1 on its first samples so that
+    it sums to S, as int16."""
+    y = np.asarray(x, np.int64).copy()
+    q, r = divmod(S - int(y.sum()), y.size)
+    y += q
+    y[:r] += 1
+    assert y.min() >= -32768 and y.max() <= 32767 and int(y.sum()) == S
+    return y.astype(np.int16)
+
+
+def banded_reads(seed: int, n: int, ks=(-517, -3, -1, 0, 1, 2, 450),
+                 js=(0, 1, 2)):
+    """Reads of n samples, noise around k, whose exact means are k and k
+    +- j / n for each k in ks and j in js (one read for j = 0): the
+    means at and beside an integer, of both signs and around 0."""
+    rng = np.random.default_rng(seed)
+    reads = []
+    for k in ks:
+        for j in js:
+            for sign in (1,) if j == 0 else (1, -1):
+                noise = k + rng.integers(-60, 61, n)
+                reads.append(with_sum(noise, k * n + sign * j))
+    return reads
+
+
+def integer_mean_rows(sig, n):
+    """[B, L] int16 rows (first n valid) moved by 1 on their first (S mod
+    n) samples, so that every read's exact mean is an integer: each read
+    nonzero in the mean takes kernel L's chain."""
+    sig = np.array(sig, np.int64)
+    n = np.asarray(n, np.int64)
+    col = np.arange(sig.shape[1])[None, :]
+    S = np.where(col < n[:, None], sig, 0).sum(axis=1)
+    r = np.where(n > 0, S % np.maximum(n, 1), 0)
+    sig -= col < r[:, None]
+    assert sig.min() >= -32768
+    return sig.astype(np.int16)
 
 
 def tie_read():

@@ -1819,15 +1819,35 @@ def _bucket_residuals(codec: str):
     return data.contiguous(), dlen.to(torch.int32).contiguous()
 
 
+def _rccdf_encode_poisoned(data, dlen, freqs, cum):
+    """Kernel F into memory that held 0xA5 bytes: blocks of the outputs'
+    sizes are filled and freed just before the call, so the caching
+    allocator hands them to the wrapper's outputs (the kernel writes
+    every byte of its rows, the zeros past each length too)."""
+    from honours_tpu_torch.engine import rccdf_cuda as RC
+    from honours_tpu_torch.engine.rccdf import body_width
+
+    B, N = data.shape
+    bait = (torch.full((B, body_width(N)), 0xA5, dtype=torch.uint8,
+                       device=data.device),
+            torch.full((B,), -0x5A5A5A5A5A5A5A5B, dtype=torch.int64,
+                       device=data.device))
+    ptrs = [x.data_ptr() for x in bait]
+    del bait
+    got = RC.rccdf_encode(data, dlen, freqs, cum)
+    assert [x.data_ptr() for x in got] == ptrs
+    return got
+
+
 def _rccdf_same(data, dlen):
-    """F and G on the card equal their plain versions on (data, dlen), and
-    G gives the rows back."""
+    """F (its outputs in poisoned memory) and G on the card equal their
+    plain versions on (data, dlen), and G gives the rows back."""
     from honours_tpu_torch.engine import rccdf as R
     from honours_tpu_torch.engine import rccdf_cuda as RC
 
     freqs = R.fit_freqs_batch(R.byte_histogram(data, dlen)).to(torch.int32)
     cum = R.cum_of(freqs).to(torch.int32)
-    got = RC.rccdf_encode(data, dlen, freqs, cum)
+    got = _rccdf_encode_poisoned(data, dlen, freqs, cum)
     torch.cuda.synchronize()
     want = R.rccdf_encode_plain(data, dlen, freqs, cum)
     _same(got, want)
@@ -1878,6 +1898,53 @@ def test_rccdf_kernels_at_main_path_rows(cuda):
     """F and G on rccdf_vbbe21_zd's residual bytes of the main path's
     bucket [256, 65536]."""
     _rccdf_same(*_bucket_residuals("rccdf_vbbe21_zd"))
+
+
+def _byte_rows(rows, N: int, cuda):
+    """Byte rows padded to [B, N] u8 and their lengths int32, on the
+    card."""
+    data = np.zeros((len(rows), N), np.uint8)
+    for i, r in enumerate(rows):
+        data[i, : r.size] = r
+    return (torch.from_numpy(data).to(cuda),
+            torch.tensor([r.size for r in rows], dtype=torch.int32,
+                         device=cuda))
+
+
+def test_rccdf_encode_one_symbol_and_ragged_lanes(cuda):
+    """F (and G) on rows of one symbol (f = 4096: the state only grows
+    by x // 4096 << 12, no byte emitted until it passes 2^31) of 1 to
+    5,000 bytes, and on rows whose 16 lanes end at different steps: n = 0
+    .. 17, 31, 33, 1000 and 4095 random bytes."""
+    from honours_tpu_torch.engine import rccdf as R
+
+    rng = np.random.default_rng(41)
+    one = [np.full(k, 42, np.uint8) for k in (1, 2, 15, 16, 17, 4096, 4097,
+                                             5000)]
+    ragged = [rng.integers(0, 256, k).astype(np.uint8)
+              for k in [*range(18), 31, 33, 1000, 4095]]
+    data, dlen = _byte_rows(one + ragged, 5000, cuda)
+    freqs = R.fit_freqs_batch(R.byte_histogram(data, dlen))
+    assert (freqs[: len(one), 42] == 4096).all()
+    _rccdf_same(data, dlen)
+
+
+def test_rccdf_encode_many_chunks(cuda):
+    """F (and G) on rows that take many of its staged chunks (4,096
+    bytes, 256 lane steps): residual-like rows of 70,001 bytes (18
+    chunks), rows ending a byte either side of the fourth chunk's end, a
+    row of 16 whole chunks of random bytes, and a row of 70,000 bytes
+    that emits two bytes at many steps (rare symbols)."""
+    rng = np.random.default_rng(43)
+    geo = [np.minimum(rng.geometric(p, 70_001), 255).astype(np.uint8)
+           for p in (0.05, 0.3, 0.6)]
+    edge = [np.minimum(rng.geometric(0.2, 4 * 4096 + d), 255).astype(
+        np.uint8) for d in (-1, 0, 1)]
+    rare = np.where(rng.random(70_000) < 0.97, 7,
+                    rng.integers(0, 256, 70_000)).astype(np.uint8)
+    rows = geo + edge + [rng.integers(0, 256, 16 * 4096).astype(np.uint8),
+                         rare]
+    _rccdf_same(*_byte_rows(rows, 70_001, cuda))
 
 
 def _build_poisoned(hist):
@@ -2258,6 +2325,93 @@ def test_zsm_kernel_matches_plain(cuda):
     sig, n = _t(*synthesize_bucket(64, 1 << 16, 3))
     sig, n = sig.to(cuda), n.to(torch.int32).to(cuda)
     _same(zsm_cuda.zsm_mean(sig, n), uint.zsm_mean_plain(sig, n))
+
+
+def _zsm_same(reads, cuda, plain: bool = True):
+    """L on the card on `reads` equals get_mean_16 (raw_rows.mean16, on
+    the host) and, with `plain`, its plain version on the card."""
+    import raw_rows
+    from honours_tpu_torch.engine import uint, zsm_cuda
+
+    sig, n = (x.to(cuda) for x in _t(*raw_rows.pad_rows(reads)))
+    got = zsm_cuda.zsm_mean(sig, n)
+    if plain:
+        _same(got, uint.zsm_mean_plain(sig, n))
+    assert got.tolist() == [raw_rows.mean16(r) for r in reads]
+
+
+def test_zsm_kernel_on_flagged_reads(cuda):
+    """L on the reads of tests/test_torch_zsm_model.py: the drift read,
+    random reads and walks, and reads whose exact means are k and k +-
+    j / n for n of 1 to 65,536 (the integer means flagged), against its
+    plain version and get_mean_16; then the band-edge reads of 2^20
+    samples (k +- 8 / n flagged, k +- 9 / n settled) against get_mean_16
+    on the host."""
+    import raw_rows
+
+    rng = np.random.default_rng(5)
+    reads = [raw_rows.drift_read()]
+    reads += [rng.integers(-32768, 32768, 3001).astype(np.int16),
+              np.clip(np.cumsum(rng.integers(-200, 201, 4000)) + 9000,
+                      -32768, 32767).astype(np.int16)]
+    for k in (1, 2, 3, 64, 1000, 4097, 65536):
+        reads += raw_rows.banded_reads(k, k)
+    _zsm_same(reads, cuda)
+    _zsm_same(raw_rows.banded_reads(7, 1 << 20, ks=(-5, 3), js=(0, 8, 9)),
+              cuda, plain=False)
+
+
+def test_zsm_kernel_all_flagged_bucket(cuda):
+    """L on a bucket [64, 65536] whose every read's exact mean was moved
+    to an integer (raw_rows.integer_mean_rows: every read takes the
+    chain), against its plain version."""
+    import raw_rows
+    from honours_tpu_torch.engine import uint, zsm_cuda
+    from honours_tpu_torch.synth import synthesize_bucket
+
+    sig, n = synthesize_bucket(64, 1 << 16, 4)
+    sig = raw_rows.integer_mean_rows(sig, n)
+    S = np.where(np.arange(1 << 16)[None, :] < n[:, None], sig, 0).sum(1)
+    assert all(raw_rows.zsm_model(int(a), int(b)) is None
+               for a, b in zip(S, n))
+    sig, n = (x.to(cuda) for x in _t(sig, n.astype(np.int32)))
+    _same(zsm_cuda.zsm_mean(sig, n), uint.zsm_mean_plain(sig, n))
+
+
+def test_zsm_kernel_short_and_unaligned_rows(cuda):
+    """L on reads of n = 0, 1 and 2 and on rows whose starts are not
+    16-byte aligned: L = 1,003 (row b starts 6 b mod 16 bytes past an
+    aligned one), in a view one row into its storage, against its plain
+    version and get_mean_16."""
+    import raw_rows
+    from honours_tpu_torch.engine import uint, zsm_cuda
+
+    rng = np.random.default_rng(9)
+    L, B = 1003, 24
+    big = rng.integers(-32768, 32768, (B + 1, L)).astype(np.int16)
+    n = np.concatenate([[0, 1, 2, 2, 1], rng.integers(3, L, B - 7),
+                        [L - 1, L]]).astype(np.int32)
+    sig = torch.from_numpy(big).to(cuda)[1:]
+    assert sig.is_contiguous() and sig.data_ptr() % 16 == 6
+    cnt = torch.from_numpy(n).to(cuda)
+    got = zsm_cuda.zsm_mean(sig, cnt)
+    _same(got, uint.zsm_mean_plain(sig, cnt))
+    assert got.tolist() == [raw_rows.mean16(big[1 + b, : n[b]])
+                            for b in range(B)]
+
+
+@pytest.mark.parametrize("r", [0, 1, 128, 129])
+def test_zsm_kernel_one_row_of_2_22(cuda, r):
+    """L on one read of 2^22 samples whose exact sum is k n + r: the
+    band at 2^22 is 128 / n, so r <= 128 is flagged (the chain) and 129
+    settled; against get_mean_16 on the host."""
+    import raw_rows
+
+    n = 1 << 22
+    rng = np.random.default_rng(r)
+    read = raw_rows.with_sum(37 + rng.integers(-60, 61, n), 37 * n + r)
+    assert (raw_rows.zsm_model(37 * n + r, n) is None) == (r <= 128)
+    _zsm_same([read], cuda, plain=False)
 
 
 RAW_KERNELS = {

@@ -3,8 +3,9 @@
     python3 tools/kernel_variants.py NAME VARIANT.cu [VARIANT.cu ...]
 
 NAME is n4_decode, svb16_decode, svb16_decode_raw (zd off),
-svb16_encode, svb16_encode_raw (zd off), flac_decode, huffman_build, or
-rc_encode_MODEL / rc_decode_MODEL (MODEL o0, o1 or cm).  Each VARIANT.cu is an edited copy
+svb16_encode, svb16_encode_raw (zd off), flac_decode, huffman_build,
+rccdf_encode, zsm_mean, or rc_encode_MODEL / rc_decode_MODEL (MODEL o0,
+o1 or cm).  Each VARIANT.cu is an edited copy
 of the kernel's source (honours_tpu_torch/csrc/*.cu) whose C entries
 keep their signatures.  Each is built with the package's nvcc flags (all
 in parallel), and its entry stands in for the kernel's while it is
@@ -13,11 +14,14 @@ of [1, 262144], every variant is held against the plain version (max
 abs err printed) and timed from a CUDA-graph replay, twice: in the order
 given, then in reverse.  flac_decode (on flac's streams of the bucket)
 and huffman_build (on the histograms of its residual bytes) run at the
-bucket only, chip_smoke.py's cases of them.  The range coder runs at
-the bucket only
-(chip_smoke.rc_bucket's rows), held against the tree's own kernel: its
-streams for rc_encode, the rows for rc_decode (the plain cm coder takes
-minutes a row there; chip_smoke.py holds the kernel to it).  A svb16
+bucket only, chip_smoke.py's cases of them; rccdf_encode at the bucket
+(rccdf_vbbe21_zd's residual bytes) and on chip_smoke.rc_rows' [24, 4096]
+edge rows; zsm_mean at the bucket, on chip_smoke.zsm_cases' edge and
+banded reads and on the bucket with every read flagged.  The range
+coder runs at the bucket only (chip_smoke.rc_bucket's rows), held
+against the tree's own kernel: its streams for rc_encode, the rows for
+rc_decode (the plain cm coder takes minutes a row there; chip_smoke.py
+holds the kernel to it).  A svb16
 variant may change DTILE or ETILE; the wrapper's tile count then
 follows it.  Needs CUDA.
 """
@@ -42,7 +46,9 @@ from honours_tpu_torch.engine import flac_cuda  # noqa: E402,F401
 from honours_tpu_torch.engine import huffman  # noqa: E402,F401
 from honours_tpu_torch.engine import rangecoder_cuda  # noqa: E402,F401
 from honours_tpu_torch.engine import rans_n4_cuda  # noqa: E402,F401
+from honours_tpu_torch.engine import rccdf_cuda  # noqa: E402,F401
 from honours_tpu_torch.engine import svb16_cuda as SV  # noqa: E402
+from honours_tpu_torch.engine import zsm_cuda  # noqa: E402,F401
 
 
 def build(sources, out_dir: Path) -> dict:
@@ -84,17 +90,33 @@ def cases(B: int, L: int) -> dict:
             for c in main + options}
 
 
-#: kernels timed at the bucket only, on chip_smoke.py's cases
-BUCKET_ONLY = ("flac_decode", "huffman_build")
+#: kernels timed on chip_smoke.py's cases of them (phases 11-13)
+SMOKE_CASES = ("flac_decode", "huffman_build", "rccdf_encode", "zsm_mean")
 
 
-def bucket_cases(name: str) -> dict:
-    """{flac_decode or huffman_build: (kernel call, plain call)} on the
-    bucket [256, 65536], as chip_smoke.py's phases 13 and 11 make them."""
+def smoke_cases(name: str) -> list:
+    """[(shape, kernel call, plain call)] of a SMOKE_CASES kernel: on the
+    bucket [256, 65536] as chip_smoke.py's phases 13, 11 and 12 make
+    them, and for rccdf_encode and zsm_mean on chip_smoke.py's rows of
+    them."""
     sig, n = cs.make_bucket(0)
     found = (cs.block_cases(sig, n)[0] if name == "flac_decode"
+             else cs.raw_cases(sig, n) if name == "zsm_mean"
              else cs.entropy_cases(sig, n))
-    return {c[0]: (c[1], c[2]) for c in found}
+    found = [("[256, 65536]", c) for c in found] + (
+        cs.zsm_cases(sig, n) if name == "zsm_mean" else [])
+    out = [(shape, c[1], c[2]) for shape, c in found if c[0] == name]
+    if name == "rccdf_encode":
+        from honours_tpu_torch.engine import rccdf as R
+
+        data, dlen = (torch.from_numpy(a).cuda() for a in cs.rc_rows(19))
+        freqs = R.fit_freqs_batch(R.byte_histogram(data, dlen)).to(
+            torch.int32)
+        cum = R.cum_of(freqs).to(torch.int32)
+        out.append(("[24, 4096] (rc_rows)",
+                    lambda: rccdf_cuda.rccdf_encode(data, dlen, freqs, cum),
+                    lambda: R.rccdf_encode_plain(data, dlen, freqs, cum)))
+    return out
 
 
 def rc_cases() -> dict:
@@ -132,11 +154,11 @@ def main(argv) -> int:
     tiles = SV.DECODE_TILE, SV.ENCODE_TILE
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         libs = build(sources, Path(tmp))
-        at_bucket = rc or name in BUCKET_ONLY
-        for B, L in ((256, 1 << 16),) if at_bucket else ((256, 1 << 16),
-                                                           (1, 1 << 18)):
-            kern, plain = (rc_cases() if rc else bucket_cases(name)
-                           if name in BUCKET_ONLY else cases(B, L))[name]
+        shapes = ([("[256, 65536]", *rc_cases()[name])] if rc
+                  else smoke_cases(name) if name in SMOKE_CASES
+                  else [(f"[{B}, {L}]", *cases(B, L)[name])
+                        for B, L in ((256, 1 << 16), (1, 1 << 18))])
+        for shape, kern, plain in shapes:
             want = cs.flatten(plain())
             times = {s: [] for s in sources}
             for order in (sources, sources[::-1]):
@@ -150,7 +172,7 @@ def main(argv) -> int:
                                       f"(max abs err {err})")
                     SV.DECODE_TILE, SV.ENCODE_TILE = tiles
             for src in sources:
-                print(f"[{B}, {L}] {name} {Path(src).name}: "
+                print(f"{shape} {name} {Path(src).name}: "
                       + "; ".join(times[src]), flush=True)
     return 0
 
