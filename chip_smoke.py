@@ -25,11 +25,14 @@
    are held and timed the same way, and so are phase 11's kernels F
    (rccdf_encode) and G (rccdf_decode) on rccdf_vbbe21_zd's residual
    bytes of the bucket, each beside its chain floor (the longest row's
-   lane steps at RCCDF_STEP_CYCLES), H (huffman_build) on their
+   lane steps at RCCDF_STEP_CYCLES), and on rc_rows' [24, 4096] edge rows
+   on log lines of their own, H (huffman_build) on their
    histograms beside its chain floor (HUFFBUILD_CYCLES) and C2
    (huffman_decode_rows) on huffman_vbbe21_zd's bodies of them, and
    phase 12's kernels I (bitpack_msb) on uint_zd's fields of
-   the bucket, J (bitunpack_msb) on I's packed rows, K (flats_partition)
+   the bucket (and, on log lines of their own, on turbopfor's and
+   flat_uint_submin's rows of it; every output buffer made outside the
+   timed calls), J (bitunpack_msb) on I's packed rows, K (flats_partition)
    on the samples at step 64 and L (zsm_mean) on the samples, K and L
    each beside its chain floor (FLATS_STEP_CYCLES; ZSM_STEP_CYCLES over
    the longest read L flags for its float64 chain, its flagged reads
@@ -492,10 +495,16 @@ def huffman_case(sig, n):
 #: state, a multiply-high by the symbol's reciprocal, a shift, a mask
 #: and a multiply-add (the symbol and its table entry come from shared
 #: memory two steps ahead, the emitted bytes go to a ring in shared
-#: memory off the chain); the decode's table lookups in shared memory
-#: (slot -> symbol, then its frequency and low end, about 30 each), its
-#: multiply-add and compare, and a refill byte from L1 (about 33)
-RCCDF_STEP_CYCLES = {"rccdf_encode": 40, "rccdf_decode": 100}
+#: memory off the chain); in the decode (32-bit states) the
+#: slot's mask and its entry's address (about 4 each), the one shared
+#: load of the slot's (f, slot - lo) (about 30), the multiply-add (4),
+#: the two compares and the refill's byte count (about 9) and a funnel
+#: shift of the state and the register window (4), about 55, counted as
+#: 60 (the refill bytes' loads, the symbol's load and the tile's byte
+#: store are off the chain; the decode's earlier design, a warp a row,
+#: was modelled at 100: two dependent table loads, 64-bit arithmetic and
+#: a refill byte from L1)
+RCCDF_STEP_CYCLES = {"rccdf_encode": 40, "rccdf_decode": 60}
 
 
 #: the chain-floor model of kernel H (csrc/huffbuild.cu, a block a row):
@@ -589,6 +598,34 @@ def entropy_cases(sig, n):
     ] if longest else []
 
 
+def rccdf_row_cases(dev):
+    """(shape, case) of kernels F and G on rc_rows' [24, 4096] edge rows
+    (empty, one byte, 255s, zeros, a ramp, random bytes, residual-like
+    rows and rows of repeating bytes): F's input and body bytes or G's,
+    the tables and 8 B a row; 12 and 10 operations a coded byte."""
+    from honours_tpu_torch.engine import rccdf as R
+    from honours_tpu_torch.engine import rccdf_cuda as RC
+
+    data, dlen = (torch.from_numpy(a).to(dev) for a in rc_rows(19))
+    freqs = R.fit_freqs_batch(R.byte_histogram(data, dlen)).to(torch.int32)
+    cum = R.cum_of(freqs).to(torch.int32)
+    body, blen = RC.rccdf_encode(data, dlen, freqs, cum)
+    zero = torch.zeros_like(dlen)
+    B, N = data.shape
+    nsum, coded, table = int(dlen.sum()), int(blen.sum()), 256 * 8 * B
+    shape = f"[{B}, {N}] (rc_rows)"
+    return [
+        (shape, ("rccdf_encode", lambda: RC.rccdf_encode(data, dlen, freqs,
+                                                         cum),
+                 lambda: R.rccdf_encode_plain(data, dlen, freqs, cum),
+                 nsum + coded + table + 8 * B, 12 * nsum, None)),
+        (shape, ("rccdf_decode",
+                 lambda: RC.rccdf_decode(body, zero, dlen, freqs, N),
+                 lambda: R.rccdf_decode_plain(body, zero, dlen, freqs, N),
+                 coded + B * N + table // 2 + 8 * B, 10 * nsum, None)),
+    ]
+
+
 #: dependent cycles a step in the chain-floor models of kernels K and L:
 #: K's step (csrc/flats.cu) is its thread's share of the (i, j) pairs
 #: (shared loads, min, max, clz, a multiply-add: about 20 cycles a pair,
@@ -604,22 +641,65 @@ ZSM_STEP_CYCLES = 66
 FLATS_STEP = 64
 
 
+def pack_args(module, press, *args):
+    """The arguments press(*args) gives kernel I through module.pack_msb
+    (its values, val_off, count, width and out_off, and the size of its
+    out), captured on the call."""
+    seen = []
+    real = module.pack_msb
+
+    def record(values, val_off, count, width, out, out_off):
+        seen.append((values, val_off, count, width, out.numel(), out_off))
+        return real(values, val_off, count, width, out, out_off)
+
+    module.pack_msb = record
+    try:
+        press(*args)
+    finally:
+        module.pack_msb = real
+    return seen[0]
+
+
+def pack_case(name: str, values, val_off, count, width, O: int, out_off):
+    """(name, kernel call, plain call, bytes, ops, library call) of kernel
+    I on its rows: 4 B a field read, the packed bytes written, 32 B a row
+    of offsets, count and width; 8 operations a field.  The kernel and the
+    plain version each write into an output of O bytes made here, outside
+    the timed calls."""
+    from honours_tpu_torch.engine import bitpack as BP
+    from honours_tpu_torch.engine import bitpack_cuda as BC
+
+    c, b = count.to(torch.int64).clamp(min=0), width.to(torch.int64)
+    fields = int(torch.where(b > 0, c, 0).sum())
+    pbytes = int(((c * b.clamp(0, 16) + 7) // 8).sum())
+    mine, theirs = (torch.zeros(O, dtype=torch.uint8, device=values.device)
+                    for _ in range(2))
+    return (name,
+            lambda: BC.pack_msb(values, val_off, count, width, mine, out_off),
+            lambda: BP.pack_msb_plain(values, val_off, count, width, theirs,
+                                      out_off),
+            4 * fields + pbytes + 32 * val_off.numel(), 8 * fields, None)
+
+
 def raw_cases(sig, n):
-    """(name, kernel call, plain call, bytes, ops, library call[, chain
-    floor ms]) of kernels I, J, K and L on the bucket [B, L]: I on
-    uint_zd's fields (its zigzag deltas: 4 B a field read, the packed
-    bytes written, 32 B a row of offsets; 8 operations a field), J on I's
-    rows (the packed bytes read, 4 B a field written), K on the samples
-    at FLATS_STEP (2 B a sample read, the cuts written; 12 operations an
-    (i, j) pair; chain floor the longest read's chunks at
-    FLATS_STEP_CYCLES), L on the samples (zsm_case: 2 B a sample read,
-    8 B a row written; 3 float64 operations a sample; chain floor the
+    """(cases, options), each (name, kernel call, plain call, bytes, ops,
+    library call[, chain floor ms]), of kernels I, J, K and L on the
+    bucket [B, L]: I on uint_zd's fields (its zigzag deltas; pack_case),
+    J on I's rows (the packed bytes read, 4 B a field written), K on the
+    samples at FLATS_STEP (2 B a sample read, the cuts written; 12
+    operations an (i, j) pair; chain floor the longest read's chunks at
+    FLATS_STEP_CYCLES), L on the samples (zsm_case: 2 B a sample read, 8
+    B a row written; 3 float64 operations a sample; chain floor the
     longest flagged read's samples at ZSM_STEP_CYCLES, 0 where none is
-    flagged).  Each plain version runs on the card."""
+    flagged); the options I on the rows turbopfor's and flat_uint_submin's
+    presses of the bucket give it (named "bitpack_msb turbopfor" and
+    "bitpack_msb flats").  Each output buffer is made outside the timed
+    calls.  Each plain version runs on the card."""
     from honours_tpu_torch.engine import bitpack as BP
     from honours_tpu_torch.engine import bitpack_cuda as BC
     from honours_tpu_torch.engine import flats as Fl
     from honours_tpu_torch.engine import flats_cuda as FC
+    from honours_tpu_torch.engine import pfor
     from honours_tpu_torch.engine import uint as U
 
     B, L = sig.shape
@@ -630,31 +710,30 @@ def raw_cases(sig, n):
     rows = torch.arange(B, device=dev)
     voff, ooff = rows * L, rows * 2 * L
     nb = (cnt * b + 7) // 8
-
-    def out8():
-        return torch.zeros(2 * B * L, dtype=torch.uint8, device=dev)
-
-    def out32():
-        return torch.zeros(B * L, dtype=torch.int32, device=dev)
-
-    packed = BC.pack_msb(vals, voff, cnt, b, out8(), ooff)
+    packed = BC.pack_msb(vals, voff, cnt, b, torch.zeros(
+        2 * B * L, dtype=torch.uint8, device=dev), ooff)
     fields, pbytes = int(cnt.sum()), int(nb.sum())
     nsum = int(n32.to(torch.int64).sum())
     m = (n32.to(torch.int64) + FLATS_STEP - 1) // FLATS_STEP
     pairs, mmax, nmax = int((m * (m + 1) // 2).sum()), int(m.max()), int(
         n32.max())
+    callers = {"turbopfor": pack_args(pfor, pfor.press_pfor_batch, sig, n32),
+               "flats": pack_args(Fl, Fl.press_flats_batch, sig, n32,
+                                  FLATS_STEP)}
     log(f"phase 12 rows [{B}, {L}]: uint_zd {fields} fields of "
         f"{int(b.min())}-{int(b.max())} bits, {pbytes} packed bytes; flats "
         f"at step {FLATS_STEP}: up to {mmax} chunks a read, {pairs} (i, j) "
         f"pairs; zsm: up to {nmax} samples a read, "
-        + zsm_flag_log(sig, n32))
-    return [
-        ("bitpack_msb", lambda: BC.pack_msb(vals, voff, cnt, b, out8(), ooff),
-         lambda: BP.pack_msb_plain(vals, voff, cnt, b, out8(), ooff),
-         4 * fields + pbytes + 32 * B, 8 * fields, None),
+        + zsm_flag_log(sig, n32) + "; I's rows from turbopfor and flats: "
+        + ", ".join(f"{k} {a[2].numel()} rows, {int(a[2].sum())} fields"
+                    for k, a in callers.items()))
+    unpacked, theirs = (torch.zeros(B * L, dtype=torch.int32, device=dev)
+                        for _ in range(2))
+    cases = [
+        pack_case("bitpack_msb", vals, voff, cnt, b, 2 * B * L, ooff),
         ("bitunpack_msb",
-         lambda: BC.unpack_msb(packed, ooff, nb, cnt, b, out32(), voff),
-         lambda: BP.unpack_msb_plain(packed, ooff, nb, cnt, b, out32(), voff),
+         lambda: BC.unpack_msb(packed, ooff, nb, cnt, b, unpacked, voff),
+         lambda: BP.unpack_msb_plain(packed, ooff, nb, cnt, b, theirs, voff),
          pbytes + 4 * fields + 40 * B, 8 * fields, None),
         ("flats_partition", lambda: FC.flats_partition(sig, n32, FLATS_STEP),
          lambda: Fl.flats_partition_plain(sig, n32, FLATS_STEP),
@@ -662,6 +741,8 @@ def raw_cases(sig, n):
          mmax * FLATS_STEP_CYCLES / SM_HZ * 1e3),
         zsm_case("zsm_mean", sig, n32),
     ]
+    options = [pack_case(f"bitpack_msb {k}", *a) for k, a in callers.items()]
+    return cases, options
 
 
 def zsm_longest_flagged(sig, n) -> tuple[int, int]:
@@ -1113,16 +1194,18 @@ def kernel_cases(seed: int):
 
     svb_n4, options, nt = svb_n4_cases(sig, n)
     blocks, block_options = block_cases(sig, n)
-    options = options + block_options
+    raws, raw_options = raw_cases(sig, n)
+    options = options + raw_options + block_options
     cases = perm_cases + walks + svb_n4 + [
         o1n_case(sym, ctx, nt),
         stall_case(sig, n, f"[{B}, {L}]"),
         rice_case(sig, n),
         huffman_case(sig, n),
-    ] + entropy_cases(sig, n) + raw_cases(sig, n) + blocks
+    ] + entropy_cases(sig, n) + raws + blocks
     shapes = (f"[{B}, {L}]", f"[{B * K}, {Smax}] (drans phase-grid merge)")
     return (cases, options, merge, shapes,
-            vb_cases(sig, n) + zsm_cases(sig, n, seed))
+            vb_cases(sig, n) + zsm_cases(sig, n, seed)
+            + rccdf_row_cases(dev))
 
 
 def o1n_case(sym, ctx, nt):

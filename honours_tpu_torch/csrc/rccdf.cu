@@ -50,17 +50,45 @@
 // a lane after another), so every byte of out's row is written.
 //
 // Kernel G, the decode.  Bound on this card: each lane is a serial chain
-// of steps (a table lookup, a multiply and a refill from the lane's
-// bytes), ceil(n / 16) steps a row; the bytes (about 0.6 in, 1 out a
-// coded byte) are small beside it.  Design: one warp a row, its 16 lanes
-// on threads 0-15.  The decode builds the row's slot -> symbol table
-// (4,096 bytes, a binary search a slot over the cumulative frequencies)
-// and the lanes' starts (a shuffle scan of their lengths), then each lane
-// walks its bytes forward.  It holds its states as int64 with
-// two's-complement wrap and arithmetic right shifts, as PyTorch's int64
-// does, so a corrupt stream decodes to the same bytes on both routes.
-// Output ownership: the decode writes byte t * 16 + i of its row by lane
-// i; the wrapper zeroes the output first.
+// of ceil(n / 16) steps, x' = f (x >> 12) + (slot - lo) and a refill of
+// up to two bytes while x' < 2^23; the bytes (about 0.6 in, 1 out a coded
+// byte) are small beside it.  Design: a block of 256 threads a row; lanes
+// 0-15 of warp 0 walk the 16 rANS lanes, and everything else is kept off
+// their chains:
+// - The state is 32 bits.  It starts as 4 bytes (< 2^32); the slot's
+//   symbol is the first whose high end passes the slot, so lo <= slot;
+//   every f is in [0, 4096], so x' <= 4096 (2^20 - 1) + 4095 < 2^32; a
+//   refill happens only below 2^23 and stays below 2^31.  So the plain
+//   version's int64 walk never wraps, and uint32 gives its bytes exactly
+//   (tests/test_torch_rccdf_model.py holds a model of this step to it).
+// - One lookup a step, keyed by the slot alone: the block builds a table
+//   of 4,096 8-byte entries (f, slot - lo) and a parallel u8 table of the
+//   symbols, 16 slots a thread (a binary search for the first, then a walk
+//   over the high ends); a slot past the table's sum takes symbol 255 with
+//   its f (0 or not) and slot - lo, as the plain version's lookup does.
+//   (A 4-byte entry f | (slot - lo) << 13, unpacked on the chain, took
+//   0.246 ms at the bucket against the 8-byte entry's 0.234.)
+// - A lane's stream bytes wait in its ring in shared memory (1,024 bytes,
+//   the row's 16-byte blocks by cp.async, a block that is not wholly
+//   inside the row byte by byte, 0 outside it).  A step loads the two
+//   bytes at its read offset whatever the compare decides, so those loads
+//   overlap the table's, and a refill is a funnel shift of (x', b0 b1) by
+//   0, 8 or 16 bits (a select of the three took 0.235 ms at the bucket
+//   against the funnel shift's 0.216).  The lane refills its ring every RS =
+//   128 steps, up to 1,024 bytes past its read offset, and waits for that
+//   copy only RS steps later: the RS steps read at most 2 RS bytes, and a
+//   ring of at least 4 RS + 15 bytes never runs dry.  (A 64-bit register
+//   window of the next bytes, topped up a word at a time from the ring,
+//   took 0.33 ms at the bucket against the select's 0.235.)
+// - The decoded bytes go to a tile of 32 steps (512 bytes, two of them
+//   alternating) in shared memory, which the lanes store as 16-byte words
+//   when the output row is 16-byte aligned (byte stores, coalesced, when
+//   not).  Meanwhile warps 1-7 write zeros from the walk's last tile to
+//   the row's end.
+// Output ownership: each block writes only its own row: bytes [0, end) of
+// the tiles (end = the tiles' 512-byte steps, cut at N) by warp 0's lanes,
+// a tile after a __syncwarp, and [end, N) by warps 1-7, so every byte of
+// out's row is written once; the wrapper allocates out with torch.empty.
 
 #include "common.cuh"
 
@@ -270,85 +298,208 @@ __device__ __forceinline__ unsigned byte_at(const uint8_t* row, long long M,
   return pos >= 0 && pos < M ? row[pos] : 0u;
 }
 
-__global__ void __launch_bounds__(32)
+// kernel G's block and its dynamic shared memory: the slot table (f, slot
+// - lo), the slots' symbols, the lanes' rings, two output tiles, and the
+// table's high ends, low ends, frequencies and warp sums while it is built
+constexpr int DTHREADS = 256;
+constexpr int RS = 128;                // lane steps between ring refills
+constexpr int LRING = 1024;            // a lane's ring: >= 4 RS + 15
+constexpr int TT = 32;                 // lane steps a tile
+constexpr int TILE = TT * K;           // a tile's bytes of the row
+constexpr int OFF_SYM = 8 * SLOTS;
+constexpr int OFF_RING = OFF_SYM + SLOTS;
+constexpr int OFF_TILE = OFF_RING + K * LRING;
+constexpr int OFF_CUM = OFF_TILE + 2 * TILE;
+constexpr int DSMEM = OFF_CUM + 3 * 256 * 4 + 4 * (DTHREADS / 32);
+static_assert(LRING >= 4 * RS + 15 && RS % TT == 0, "ring too small");
+
+// The lane's stream blocks [from, to) (byte offsets from its 16-byte
+// aligned base a0, multiples of 16) into its ring: a block wholly inside
+// the row by cp.async, any other byte by byte, 0 outside the row.  One
+// commit group.
+__device__ __forceinline__ void fill_ring(uint8_t* ring, const uint8_t* row,
+                                          long long M, long long a0,
+                                          unsigned from, unsigned to) {
+  for (unsigned o = from; o < to; o += 16) {
+    const long long p = a0 + o;
+    uint8_t* dst = ring + (o & (LRING - 1));
+    if (p >= 0 && p + 16 <= M) {
+      htt_cp_async16(htt_shared_addr(dst), row + p);
+    } else {
+      for (int j = 0; j < 16; ++j) dst[j] = static_cast<uint8_t>(
+          byte_at(row, M, p + j));
+    }
+  }
+  htt_cp_commit();
+}
+
+// One lane step from state x: the slot's entry and symbol (one lookup),
+// x' = f (x >> 12) + (slot - lo), then k = 0, 1 or 2 refill bytes from
+// the ring at read offset rp (x' < 2^23, and x' < 2^15 for the second),
+// loaded before the compare and shifted in below x'.  An inactive step
+// changes nothing and gives byte 0.
+__device__ __forceinline__ unsigned decode_step(unsigned& x, unsigned& rp,
+                                                unsigned ring_a, unsigned ent_a,
+                                                unsigned sym_a, bool active) {
+  const unsigned slot = x & (SLOTS - 1);
+  const uint2 e = htt_lds_u32x2(ent_a + 8 * slot);
+  const unsigned s = htt_lds_u8(sym_a + slot);
+  const unsigned b0 = htt_lds_u8(ring_a + (rp & (LRING - 1)));
+  const unsigned b1 = htt_lds_u8(ring_a + ((rp + 1) & (LRING - 1)));
+  const unsigned y = e.x * (x >> PROB_BITS) + e.y;
+  const unsigned k = static_cast<unsigned>(y < RANS_L) +
+                     static_cast<unsigned>(y < (1u << 15));
+  if (active) {
+    x = __funnelshift_l((b0 << 24) | (b1 << 16), y, 8 * k);
+    rp += k;
+  }
+  return active ? s : 0u;
+}
+
+// Tile q of the row (bytes [q TILE, min(N, (q + 1) TILE))) from shared
+// memory to orow by lanes 0-15: 16-byte words when the row is aligned and
+// the tile whole, else bytes.
+__device__ __forceinline__ void flush_tile(uint8_t* orow, long long N,
+                                           long long q, const uint8_t* tl,
+                                           unsigned lane, bool aligned) {
+  const long long at = q * TILE;
+  const int n = static_cast<int>(min(static_cast<long long>(TILE), N - at));
+  if (aligned && n == TILE) {
+    const uint4* src = reinterpret_cast<const uint4*>(tl);
+    uint4* dst = reinterpret_cast<uint4*>(orow + at);
+#pragma unroll
+    for (int j = 0; j < TILE / 16; j += K) dst[j + lane] = src[j + lane];
+  } else {
+    for (int j = lane; j < n; j += K) orow[at + j] = tl[j];
+  }
+}
+
+__global__ void __launch_bounds__(DTHREADS)
     rccdf_decode_kernel(const uint8_t* __restrict__ stream, long long M,
                         const int* __restrict__ off,
                         const int* __restrict__ count, long long N,
                         const int* __restrict__ freqs,
                         uint8_t* __restrict__ out) {
-  __shared__ long long f_s[256], lo_s[256], hi_s[256];
-  __shared__ uint8_t lut[SLOTS];
+  extern __shared__ __align__(16) uint8_t sm[];
+  uint2* ent = reinterpret_cast<uint2*>(sm);
+  uint8_t* syms = sm + OFF_SYM;
+  int* hi_s = reinterpret_cast<int*>(sm + OFF_CUM);
+  int* lo_s = hi_s + 256;
+  int* f_s = lo_s + 256;
+  int* wsum = f_s + 256;
   const long long b = blockIdx.x;
   const unsigned t = threadIdx.x;
-  // cumulative frequencies: 8 symbols a thread, then a shuffle scan
-  long long part = 0;
-  for (int i = 0; i < 8; ++i) {
-    const long long f = freqs[b * 256 + 8 * t + i];
-    f_s[8 * t + i] = f;
-    part += f;
-  }
-  long long inc = part;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const long long y = __shfl_up_sync(0xffffffffu, inc, o);
-    if (t >= static_cast<unsigned>(o)) inc += y;
-  }
-  long long acc = inc - part;
-  for (int i = 0; i < 8; ++i) {
-    lo_s[8 * t + i] = acc;
-    acc += f_s[8 * t + i];
-    hi_s[8 * t + i] = acc;
-  }
-  __syncwarp();
-  // slot -> the first symbol whose high end passes it (255 past the sum)
-  for (unsigned slot = t; slot < SLOTS; slot += 32) {
-    int a = 0, z = 256;  // the answer lies in [a, z]
-    while (a < z) {
-      const int mid = (a + z) >> 1;
-      if (hi_s[mid] > static_cast<long long>(slot)) z = mid;
-      else a = mid + 1;
-    }
-    lut[slot] = static_cast<uint8_t>(min(a, 255));
-  }
-  __syncwarp();
-
+  const unsigned lane = t & 31;
   const uint8_t* row = stream + b * M;
-  const long long base = off[b];
-  const long long cnt = min(max(static_cast<long long>(count[b]), 0LL), N);
-  unsigned long long x = 0;
-  long long len = 0;
-  if (t < K) {
-    for (int i = 0; i < 4; ++i) {
-      x |= static_cast<unsigned long long>(byte_at(row, M, base + 4 * t + i))
-           << (8 * i);
-      len |= static_cast<long long>(
-                 byte_at(row, M, base + 4 * K + 4 * t + i)) << (8 * i);
-    }
-  }
-  long long start = len;
-#pragma unroll
-  for (int o = 1; o < K; o <<= 1) {
-    const long long y = __shfl_up_sync(0xffffffffu, start, o);
-    if (t >= static_cast<unsigned>(o)) start += y;
-  }
-  if (t >= K) return;
-  long long pos = base + HEAD + start - len;
   uint8_t* orow = out + b * N;
-  for (long long i = t; i < cnt; i += K) {
-    const unsigned slot = static_cast<unsigned>(x) & (SLOTS - 1);
-    const unsigned s = lut[slot];
-    const long long q = static_cast<long long>(x) >> PROB_BITS;
-    x = static_cast<unsigned long long>(f_s[s]) *
-            static_cast<unsigned long long>(q) +
-        slot - static_cast<unsigned long long>(lo_s[s]);
-    orow[i] = static_cast<uint8_t>(s);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (static_cast<long long>(x) < static_cast<long long>(RANS_L)) {
-        x = (x << 8) | byte_at(row, M, pos);
-        ++pos;
+  const long long cnt = min(max(static_cast<long long>(count[b]), 0LL), N);
+  const long long nst = (cnt + K - 1) / K;  // lane 0's steps
+  const long long tiles = (nst + TT - 1) / TT;
+
+  // the lanes' states and starts, and their rings' first fill
+  unsigned x = 0, mis = 0;
+  long long a0 = 0;
+  if (t < 32) {
+    const long long base = off[b];
+    long long len = 0;
+    if (t < K) {
+      for (int i = 0; i < 4; ++i) {
+        x |= byte_at(row, M, base + 4 * t + i) << (8 * i);
+        len |= static_cast<long long>(
+                   byte_at(row, M, base + 4 * K + 4 * t + i)) << (8 * i);
       }
     }
+    long long start = len;
+#pragma unroll
+    for (int o = 1; o < K; o <<= 1) {
+      const long long y = __shfl_up_sync(FULL, start, o);
+      if (t >= static_cast<unsigned>(o)) start += y;
+    }
+    const long long p0 = base + HEAD + start - len;
+    mis = static_cast<unsigned>(
+        (reinterpret_cast<uintptr_t>(row) + static_cast<uintptr_t>(p0)) & 15);
+    a0 = p0 - mis;
+    if (t < K && tiles > 0)
+      fill_ring(sm + OFF_RING + t * LRING, row, M, a0, 0, LRING);
+  }
+
+  // the slot table: cumulative frequencies by a block scan, then 16 slots
+  // a thread
+  const int f = freqs[b * 256 + t];
+  int inc = f;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL, inc, o);
+    if (lane >= static_cast<unsigned>(o)) inc += y;
+  }
+  if (lane == 31) wsum[t >> 5] = inc;
+  __syncthreads();
+  for (unsigned i = 0; i < (t >> 5); ++i) inc += wsum[i];
+  hi_s[t] = inc;
+  lo_s[t] = inc - f;
+  f_s[t] = f;
+  __syncthreads();
+  {
+    const int slot0 = static_cast<int>(16 * t);
+    int a = 0, z = 256;  // the first symbol whose high end passes slot0
+    while (a < z) {
+      const int mid = (a + z) >> 1;
+      if (hi_s[mid] > slot0) z = mid;
+      else a = mid + 1;
+    }
+    int s = min(a, 255);
+#pragma unroll 4
+    for (int slot = slot0; slot < slot0 + 16; ++slot) {
+      while (s < 255 && hi_s[s] <= slot) ++s;
+      ent[slot] = make_uint2(static_cast<unsigned>(f_s[s]),
+                             static_cast<unsigned>(slot - lo_s[s]));
+      syms[slot] = static_cast<uint8_t>(s);
+    }
+  }
+  __syncthreads();
+
+  const long long end = min(N, tiles * TILE);
+  if (t >= 32) {
+    zero_bytes(orow + end, N - end, t - 32, DTHREADS - 32);
+    return;
+  }
+  if (t >= K) return;
+
+  // lanes 0-15 walk
+  const unsigned ring_a = htt_shared_addr(sm + OFF_RING + t * LRING);
+  const unsigned ent_a = htt_shared_addr(ent);
+  const unsigned sym_a = htt_shared_addr(syms);
+  uint8_t* tile_s = sm + OFF_TILE;
+  const unsigned tile_a = htt_shared_addr(tile_s);
+  const bool aligned = (reinterpret_cast<uintptr_t>(orow) & 15) == 0;
+  const long long full = cnt / K;  // steps every lane takes
+  htt_cp_wait<0>();
+  unsigned rp = mis, fetched = LRING;  // the lane's read offset from a0
+  for (long long q = 0; q < tiles; ++q) {
+    if (q > 0 && q % (RS / TT) == 0) {
+      // the copy started RS steps ago has landed; fetch up to a ring past
+      // the read offset (the ring's bytes below it are spent)
+      htt_cp_wait<0>();
+      const unsigned to = (rp & ~15u) + LRING;
+      fill_ring(sm + OFF_RING + t * LRING, row, M, a0, fetched, to);
+      fetched = to;
+    }
+    const long long t0 = q * TT;
+    const unsigned tq = tile_a + static_cast<unsigned>(q & 1) * TILE + t;
+    if (t0 + TT <= full) {
+#pragma unroll 8
+      for (int j = 0; j < TT; ++j)
+        htt_sts_u8(tq + j * K,
+                   decode_step(x, rp, ring_a, ent_a, sym_a, true));
+    } else {
+      for (int j = 0; j < TT; ++j) {
+        const bool active = (t0 + j) * K + t < cnt;
+        htt_sts_u8(tq + j * K,
+                   decode_step(x, rp, ring_a, ent_a, sym_a, active));
+      }
+    }
+    __syncwarp(0xffffu);
+    flush_tile(orow, N, q, tile_s + (q & 1) * TILE, t, aligned);
   }
 }
 
@@ -375,11 +526,14 @@ HTT_EXPORT int htt_rccdf_decode(const void* stream, long long B, long long M,
                                 const void* off, const void* count,
                                 long long N, const void* freqs, void* out,
                                 void* cuda_stream) {
-  if (B > 0)
-    rccdf_decode_kernel<<<static_cast<unsigned>(B), 32, 0,
+  static bool smem_set[64];
+  if (B > 0) {
+    htt_smem_limit_once(rccdf_decode_kernel, DSMEM, smem_set);
+    rccdf_decode_kernel<<<static_cast<unsigned>(B), DTHREADS, DSMEM,
                           static_cast<cudaStream_t>(cuda_stream)>>>(
         static_cast<const uint8_t*>(stream), M, static_cast<const int*>(off),
         static_cast<const int*>(count), N, static_cast<const int*>(freqs),
         static_cast<uint8_t*>(out));
+  }
   return static_cast<int>(cudaGetLastError());
 }

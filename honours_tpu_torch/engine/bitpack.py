@@ -39,12 +39,6 @@ def exclusive(x: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(torch.cumsum(x.to(torch.int64), 0), (1, 0))
 
 
-def packed_bytes(count, width) -> torch.Tensor:
-    """Bytes of each row's packed fields: ceil(count b / 8)."""
-    cnt, b = _rows(count, width)
-    return (cnt * b + 7) // 8
-
-
 def _items(sizes: torch.Tensor):
     """(row of each item, its index within the row) of rows of `sizes`
     items, laid end to end."""

@@ -5,8 +5,9 @@ ragged rows (csrc/bitpack.cu), beside their plain versions
 No TPU kernel stands behind them: honours_tpu packs these fields on the
 host only (honours_tpu/kernels/bitpack.py pack_bits and unpack_bits).
 The wrappers route by device: CPU tensors take the plain versions, CUDA
-tensors launch the kernels, a thread an output byte (I) or a field (J)
-in a grid-stride loop over the rows' items.
+tensors launch the kernels in a grid-stride loop over the rows' items: I
+a thread a group of 8 fields (b whole bytes; a warp's groups of one row
+stored through shared memory as 16-byte words), J a thread a field.
 """
 
 from __future__ import annotations
@@ -17,7 +18,6 @@ from honours_tpu_torch._build import check, is_cpu, kernel, sm_count, stream_ptr
 from honours_tpu_torch.engine.bitpack import (
     exclusive,
     pack_msb_plain,
-    packed_bytes,
     unpack_msb_plain,
 )
 
@@ -60,9 +60,11 @@ def pack_msb(values, val_off, count, width, out, out_off):
     cnt = _i64(count, R, "count").clamp(min=0)
     width = _i64(width, R, "width")
     out_off = _i64(out_off, R, "out_off")
-    pk = exclusive(packed_bytes(cnt, width))
+    # the rows' groups of 8 fields (none at b <= 0), their prefix the only
+    # one the kernel takes; at most one group an output byte
+    groups = torch.where(width > 0, (cnt + 7) >> 3, 0)
     _PACK(values.data_ptr(), val_off.data_ptr(), cnt.data_ptr(),
-          width.data_ptr(), pk.data_ptr(), R, out.data_ptr(),
+          width.data_ptr(), exclusive(groups).data_ptr(), R, out.data_ptr(),
           out_off.data_ptr(), _blocks(O, out.device), stream_ptr(out.device))
     return out
 

@@ -5,7 +5,11 @@ No TPU kernel stands behind them: honours_tpu runs this coder on the
 host only (honours_tpu/kernels/rans.py rans_encode_static and
 rans_decode_static, numpy loops).  The wrappers route by device: CPU
 tensors take the plain versions, CUDA tensors launch the kernels: the
-encode a block of 160 threads a row, the decode a warp a row.
+encode a block of 160 threads a row, the decode a block of 256 threads a
+row (lanes 0-15 of warp 0 walking with 32-bit states, one slot lookup a
+step and their stream bytes staged in shared memory and registers).
+Both kernels write every byte of their outputs, so the wrappers allocate
+them with torch.empty.
 """
 
 from __future__ import annotations
@@ -73,7 +77,8 @@ def rccdf_decode(stream, off, count, freqs, N: int):
     check(freqs, "freqs", (torch.int32,), (B, 256))
     if N < 0:
         raise ValueError(f"N {N} is negative")
-    out = torch.zeros((B, N), dtype=torch.uint8, device=stream.device)
+    # the kernel writes every byte of out, zeros past count included
+    out = torch.empty((B, N), dtype=torch.uint8, device=stream.device)
     _DECODE(stream.data_ptr(), B, M, off.data_ptr(), count.data_ptr(), N,
             freqs.data_ptr(), out.data_ptr(), stream_ptr(stream.device))
     return out

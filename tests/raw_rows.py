@@ -167,3 +167,41 @@ def pad_rows(reads, L: int = None):
     for i, r in enumerate(reads):
         sig[i, : r.size] = r
     return sig, np.array([r.size for r in reads], np.int32)
+
+
+def caller_rows(shape: str, seed: int):
+    """(values int32 [V], val_off, count, width, out_off int64 [R], O) of
+    kernel I's rows as one of its callers lays them out: "uint" (one long
+    row a read, values at r L, bytes at 2 r L), "turbopfor" (blocks of 128
+    fields, a read's last short, widths 0-16, packed back to back with a
+    2-byte header before each), "flats" (a segment a row: 1-64 fields of
+    widths 0-12, some empty, a header byte before each) or "ragged"
+    (ragged_rows laid out with gaps)."""
+    rng = np.random.default_rng(seed)
+    if shape == "uint":
+        L = 6000
+        count = np.array([5999, 4096, 1], np.int64)
+        width = np.array([10, 13, 16], np.int64)
+        values = rng.integers(0, 1 << 16, 3 * L).astype(np.int32)
+        return (values, np.arange(3, dtype=np.int64) * L, count, width,
+                np.arange(3, dtype=np.int64) * 2 * L, 6 * L)
+    if shape == "ragged":
+        values, val_off, count, width = ragged_rows(seed)
+        out_off, O = layout((count * width + 7) // 8, seed)
+        return values, val_off, count, width, out_off, O
+    if shape == "turbopfor":
+        count = np.concatenate([np.full(40, 128), [77], np.full(20, 128),
+                                [3]])
+        width = rng.integers(0, 17, count.size)
+        width[[5, 6]] = 0
+        head = 2
+    else:
+        count = rng.integers(1, 65, 300)
+        count[::37] = 0
+        width = rng.integers(0, 13, count.size)
+        head = 1
+    count, width = count.astype(np.int64), width.astype(np.int64)
+    values = rng.integers(0, 1 << 16, int(count.sum())).astype(np.int32)
+    nb = (count * width + 7) // 8
+    return (values, np.cumsum(count) - count, count, width,
+            np.cumsum(nb + head) - nb, int((nb + head).sum()) + 8)

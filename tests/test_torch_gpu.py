@@ -1947,6 +1947,109 @@ def test_rccdf_encode_many_chunks(cuda):
     _rccdf_same(*_byte_rows(rows, 70_001, cuda))
 
 
+def _decode_both(st, off, cnt, freqs, N: int, cuda):
+    """Kernel G into memory that held 0xA5 bytes (a block of its output's
+    size filled and freed just before the call: the kernel writes every
+    byte of its rows, the zeros past count too) against its plain version
+    on the host."""
+    from honours_tpu_torch.engine import rccdf as R
+    from honours_tpu_torch.engine import rccdf_cuda as RC
+
+    st, off, cnt, freqs = (torch.as_tensor(a) for a in (st, off, cnt, freqs))
+    off, cnt, freqs = (a.to(torch.int32) for a in (off, cnt, freqs))
+    args = [a.to(cuda) for a in (st, off, cnt, freqs)]
+    bait = torch.full((st.shape[0], N), 0xA5, dtype=torch.uint8, device=cuda)
+    ptr = bait.data_ptr()
+    del bait
+    got = RC.rccdf_decode(*args, N)
+    assert got.numel() == 0 or got.data_ptr() == ptr
+    torch.cuda.synchronize()
+    _same(got, R.rccdf_decode_plain(st, off, cnt, freqs, N).to(cuda))
+    return got
+
+
+def test_rccdf_decode_kernel_edges(cuda):
+    """G on rows the encode never writes, over poisoned output memory:
+    states with bit 31 set (0xFFFFFFFF and random), a one-symbol table (f
+    = 4096), tables whose sum falls short of 4096 with f = 0 (and f != 0)
+    for symbol 255 past it, tables summing past 4096, lanes of very
+    unequal length (0, 1 and thousands of bytes, and lengths that put a
+    lane's start past the row), rows cut short of their lanes (bytes past
+    the row read 0), odd body offsets, and counts 0, 1, short of N and N
+    (the zeros past them written by the kernel)."""
+    from honours_tpu_torch.kernels.rans import M as M_SLOTS
+
+    rng = np.random.default_rng(59)
+    B, W, N = 8, 9000, 4000
+    st = rng.integers(0, 256, (B, W)).astype(np.uint8)
+    off = np.arange(B) % 5
+    for i in range(B):
+        lens = rng.integers(0, 400, 16)
+        if i % 2:
+            lens[[0, 3, 9]] = [0, 1, 6000]
+        if i == 7:
+            lens[4] = 0xFFFFFFFF
+        st[i, off[i] + 64: off[i] + 128] = lens.astype("<u4").view(np.uint8)
+    for i in range(3):
+        st[i, off[i]: off[i] + 64] = 0xFF
+    st[3, 3: 3 + 64] = np.where(np.arange(64) % 4 == 3, 0x80 | st[3, 3: 67],
+                                st[3, 3: 67])
+    good = np.zeros(256, np.int64)
+    good[:200] = rng.integers(1, 30, 200)
+    good[0] += M_SLOTS - good.sum()
+    tables = {
+        "fitted": np.tile(good, (B, 1)),
+        "one symbol": np.eye(256, dtype=np.int64)[[0, 42, 255, 7] * 2] *
+        M_SLOTS,
+        "f = 0 past the sum": np.where(np.arange(256) < 180,
+                                       rng.integers(0, 20, (B, 256)), 0),
+        "f past the sum": np.where(np.arange(256) < 100, rng.integers(
+            0, 30, (B, 256)), 0) + np.eye(256, dtype=np.int64)[255] * 9,
+        "sum past 4096": rng.integers(0, M_SLOTS + 1, (B, 256)),
+    }
+    for counts in ([N] * B, [0, 1, 17, 511, 512, 513, N - 1, N],
+                   [0] * B):
+        for name, freqs in tables.items():
+            for rows in (st, st[:, :100].copy()):
+                _decode_both(rows, off, counts, freqs, N, cuda)
+
+
+def test_rccdf_decode_kernel_one_row_of_2_22(cuda):
+    """F and G on rccdf_vbbe21_zd's residual bytes of one read of 2^22
+    samples (tens of thousands of lane steps, hundreds of ring fills a
+    lane) and of two of 2^21 + 3: G gives the rows back over poisoned
+    output memory, the plain decode's bytes on valid streams (held to it
+    on the host by tests/test_torch_rccdf_model.py)."""
+    from honours_tpu_torch.engine import rccdf as R
+    from honours_tpu_torch.engine import rccdf_cuda as RC
+    from honours_tpu_torch.engine.rc import vb_zd_parts
+    from honours_tpu_torch.synth import synthesize_corpus
+
+    flat = synthesize_corpus((1 << 22) + 9, seed=37)
+    for lens in ([1 << 22], [(1 << 21) + 3, (1 << 21) + 3]):
+        L = max(lens)
+        sig = torch.zeros((len(lens), L), dtype=torch.int16)
+        a = 0
+        for i, m in enumerate(lens):
+            sig[i, :m] = torch.from_numpy(flat[a: a + m])
+            a += m
+        n = torch.tensor(lens, dtype=torch.int32)
+        _, _, data, dlen = vb_zd_parts(sig.to(cuda), n.to(cuda), "vbbe21", L)
+        data, dlen = data.contiguous(), dlen.to(torch.int32).contiguous()
+        freqs = R.fit_freqs_batch(R.byte_histogram(data, dlen)).to(
+            torch.int32)
+        body, _ = RC.rccdf_encode(data, dlen, freqs,
+                                  R.cum_of(freqs).to(torch.int32))
+        assert int(dlen.max()) > 16 * 4 * 128
+        bait = torch.full(data.shape, 0xA5, dtype=torch.uint8, device=cuda)
+        ptr = bait.data_ptr()
+        del bait
+        back = RC.rccdf_decode(body, torch.zeros_like(dlen), dlen, freqs,
+                               data.shape[1])
+        assert back.data_ptr() == ptr
+        _same(back, data)
+
+
 def _build_poisoned(hist):
     """Kernel H into memory that held 0xA5 bytes: blocks of the outputs'
     sizes are filled and freed just before the call, so the caching
@@ -2258,6 +2361,25 @@ def test_bitpack_kernels_one_row_of_2_22(cuda, b):
         out = _unpack_both(packed.to(cuda), oo.to(cuda), nb.to(cuda),
                            c.to(cuda), w.to(cuda), V, vo.to(cuda), cuda)
         _same(out, v.to(cuda) & ((1 << b) - 1))
+
+
+@pytest.mark.parametrize("shape", ["turbopfor", "flats", "uint"])
+def test_bitpack_kernels_callers_rows(cuda, shape):
+    """I and J on rows shaped as each caller lays them out
+    (raw_rows.caller_rows: turbopfor's blocks of 128 fields, flats'
+    short segments with empty rows among them, uint's long rows), at
+    their output offsets and at those offsets + 1 (every row's bytes at an
+    odd address), over poisoned output memory."""
+    import raw_rows
+
+    values, val_off, count, width, out_off, O = raw_rows.caller_rows(shape, 3)
+    nbytes = (count * width + 7) // 8
+    v, vo, c, w = _t(values, val_off, count, width)
+    for shift in (0, 1):
+        oo = torch.from_numpy(out_off + shift)
+        packed = _pack_both(v, vo, c, w, O + 1, oo, cuda)
+        _unpack_both(packed, oo, torch.from_numpy(nbytes), c, w,
+                     values.size, vo, cuda)
 
 
 def _flats_same(reads, step, cuda, L=None):

@@ -4,8 +4,8 @@
 
 NAME is n4_decode, svb16_decode, svb16_decode_raw (zd off),
 svb16_encode, svb16_encode_raw (zd off), flac_decode, huffman_build,
-rccdf_encode, zsm_mean, or rc_encode_MODEL / rc_decode_MODEL (MODEL o0,
-o1 or cm).  Each VARIANT.cu is an edited copy
+rccdf_encode, rccdf_decode, zsm_mean, bitpack_msb, or rc_encode_MODEL /
+rc_decode_MODEL (MODEL o0, o1 or cm).  Each VARIANT.cu is an edited copy
 of the kernel's source (honours_tpu_torch/csrc/*.cu) whose C entries
 keep their signatures.  Each is built with the package's nvcc flags (all
 in parallel), and its entry stands in for the kernel's while it is
@@ -14,10 +14,13 @@ of [1, 262144], every variant is held against the plain version (max
 abs err printed) and timed from a CUDA-graph replay, twice: in the order
 given, then in reverse.  flac_decode (on flac's streams of the bucket)
 and huffman_build (on the histograms of its residual bytes) run at the
-bucket only, chip_smoke.py's cases of them; rccdf_encode at the bucket
-(rccdf_vbbe21_zd's residual bytes) and on chip_smoke.rc_rows' [24, 4096]
-edge rows; zsm_mean at the bucket, on chip_smoke.zsm_cases' edge and
-banded reads and on the bucket with every read flagged.  The range
+bucket only, chip_smoke.py's cases of them; rccdf_encode and
+rccdf_decode at the bucket (rccdf_vbbe21_zd's residual bytes) and on
+chip_smoke.rc_rows' [24, 4096] edge rows; zsm_mean at the bucket, on
+chip_smoke.zsm_cases' edge and banded reads and on the bucket with every
+read flagged; bitpack_msb on uint_zd's fields of the bucket and on the
+rows turbopfor's and flat_uint_submin's presses of it give the kernel.
+The range
 coder runs at the bucket only (chip_smoke.rc_bucket's rows), held
 against the tree's own kernel: its streams for rc_encode, the rows for
 rc_decode (the plain cm coder takes minutes a row there; chip_smoke.py
@@ -42,6 +45,7 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from honours_tpu_torch import _build  # noqa: E402
+from honours_tpu_torch.engine import bitpack_cuda  # noqa: E402,F401
 from honours_tpu_torch.engine import flac_cuda  # noqa: E402,F401
 from honours_tpu_torch.engine import huffman  # noqa: E402,F401
 from honours_tpu_torch.engine import rangecoder_cuda  # noqa: E402,F401
@@ -91,32 +95,28 @@ def cases(B: int, L: int) -> dict:
 
 
 #: kernels timed on chip_smoke.py's cases of them (phases 11-13)
-SMOKE_CASES = ("flac_decode", "huffman_build", "rccdf_encode", "zsm_mean")
+SMOKE_CASES = ("flac_decode", "huffman_build", "rccdf_encode",
+               "rccdf_decode", "zsm_mean", "bitpack_msb")
 
 
 def smoke_cases(name: str) -> list:
     """[(shape, kernel call, plain call)] of a SMOKE_CASES kernel: on the
     bucket [256, 65536] as chip_smoke.py's phases 13, 11 and 12 make
-    them, and for rccdf_encode and zsm_mean on chip_smoke.py's rows of
-    them."""
+    them (bitpack_msb also on turbopfor's and flats' rows of it, the
+    options of raw_cases), for rccdf_encode and rccdf_decode also on
+    chip_smoke.py's rc_rows (rccdf_row_cases) and for zsm_mean on its
+    rows of it (zsm_cases)."""
     sig, n = cs.make_bucket(0)
-    found = (cs.block_cases(sig, n)[0] if name == "flac_decode"
-             else cs.raw_cases(sig, n) if name == "zsm_mean"
-             else cs.entropy_cases(sig, n))
-    found = [("[256, 65536]", c) for c in found] + (
-        cs.zsm_cases(sig, n) if name == "zsm_mean" else [])
-    out = [(shape, c[1], c[2]) for shape, c in found if c[0] == name]
-    if name == "rccdf_encode":
-        from honours_tpu_torch.engine import rccdf as R
-
-        data, dlen = (torch.from_numpy(a).cuda() for a in cs.rc_rows(19))
-        freqs = R.fit_freqs_batch(R.byte_histogram(data, dlen)).to(
-            torch.int32)
-        cum = R.cum_of(freqs).to(torch.int32)
-        out.append(("[24, 4096] (rc_rows)",
-                    lambda: rccdf_cuda.rccdf_encode(data, dlen, freqs, cum),
-                    lambda: R.rccdf_encode_plain(data, dlen, freqs, cum)))
-    return out
+    bucket = (cs.block_cases(sig, n)[0] if name == "flac_decode"
+              else sum(cs.raw_cases(sig, n), []) if name in ("zsm_mean",
+                                                             "bitpack_msb")
+              else cs.entropy_cases(sig, n))
+    found = [("[256, 65536]" + c[0][len(name):], c) for c in bucket] + (
+        cs.zsm_cases(sig, n) if name == "zsm_mean"
+        else cs.rccdf_row_cases(sig.device) if name.startswith("rccdf")
+        else [])
+    return [(shape, c[1], c[2]) for shape, c in found
+            if c[0].split()[0] == name]
 
 
 def rc_cases() -> dict:

@@ -12,7 +12,10 @@ whose honours_tpu_torch is that tree's (its kernels built there) and
 which loads this repo's chip_smoke.py by path.  A turn holds each kernel
 of --kernels against its plain version and times it on chip_smoke.py's
 cases of it (time_case, log_case: the bucket [256, 65536] of phases 11
-and 12, and kernel L's rows of zsm_cases), then runs each codec of
+and 12 with their options, such as kernel I on turbopfor's and flats'
+rows, "bitpack_msb turbopfor", which the kernel's name selects too,
+kernel L's rows of zsm_cases and F's and G's of rccdf_row_cases), then
+runs each codec of
 --codecs over chip_smoke.read_set(0), the main path's 1,028 reads,
 --passes times (rc_path: every read back bit for bit, ratio, encode and
 decode MB/s).  Every line a turn prints starts with its tree and turn.
@@ -52,9 +55,10 @@ def turn(tag: str, kernels: list, codecs: list, passes: int) -> None:
     if kernels:
         sig, n = cs.make_bucket(0)
         found = [("[256, 65536]", c) for c in cs.entropy_cases(sig, n)
-                 + cs.raw_cases(sig, n)] + cs.zsm_cases(sig, n)
+                 + sum(cs.raw_cases(sig, n), [])] + cs.zsm_cases(sig, n) \
+            + cs.rccdf_row_cases(sig.device)
         for shape, case in found:
-            if case[0] in kernels:
+            if case[0] in kernels or case[0].split()[0] in kernels:
                 cs.log_case(f"{shape} ({smi})", cs.time_case(*case))
     if codecs:
         reads = cs.read_set(0)
