@@ -32,7 +32,9 @@
    phase 12's kernels I (bitpack_msb) on uint_zd's fields of
    the bucket (and, on log lines of their own, on turbopfor's and
    flat_uint_submin's rows of it; every output buffer made outside the
-   timed calls), J (bitunpack_msb) on I's packed rows, K (flats_partition)
+   timed calls), J (bitunpack_msb) on I's packed rows (and, on log lines
+   of their own, on the rows turbopfor's and flat_uint_submin's depresses
+   give it), K (flats_partition)
    on the samples at step 64 and L (zsm_mean) on the samples, K and L
    each beside its chain floor (FLATS_STEP_CYCLES; ZSM_STEP_CYCLES over
    the longest read L flags for its float64 chain, its flagged reads
@@ -626,16 +628,50 @@ def rccdf_row_cases(dev):
     ]
 
 
+def flats_scratch_cases(dev):
+    """(shape, case) of kernel K on the reads whose DP state passes its
+    shared memory (tests/test_torch_gpu.py
+    test_flats_kernel_state_in_scratch: a synthetic read of L samples and
+    one of 5,000, [2, 2^19] at step 16 and [2, 2^22] at step 64, m =
+    32,768 and 65,536 chunks): 2 B a sample read, the cuts written, 12
+    operations an (i, j) pair.  For the tools' parent-change turns;
+    chip_smoke.py's own run leaves them to that test."""
+    from honours_tpu_torch.engine import flats as Fl
+    from honours_tpu_torch.engine import flats_cuda as FC
+    from honours_tpu_torch.synth import synthesize_corpus
+
+    out = []
+    for L, step in ((1 << 19, 16), (1 << 22, 64)):
+        flat = synthesize_corpus(L + 5000, seed=23)
+        sig = torch.zeros((2, L), dtype=torch.int16)
+        sig[0] = torch.from_numpy(flat[:L])
+        sig[1, :5000] = torch.from_numpy(flat[L:])
+        sig = sig.to(dev)
+        n = torch.tensor([L, 5000], dtype=torch.int32, device=dev)
+        m = torch.tensor([L, 5000]) // step
+        out.append((f"[2, {L}] step {step} (scratch)", (
+            "flats_partition", lambda s=sig, k=n, t=step:
+            FC.flats_partition(s, k, t),
+            lambda s=sig, k=n, t=step: Fl.flats_partition_plain(s, k, t),
+            2 * (L + 5000) + 2 * (L // step + 1),
+            12 * int((m * (m + 1) // 2).sum()), None)))
+    return out
+
+
 #: dependent cycles a step in the chain-floor models of kernels K and L:
-#: K's step (csrc/flats.cu) is its thread's share of the (i, j) pairs
-#: (shared loads, min, max, clz, a multiply-add: about 20 cycles a pair,
-#: a few pairs a thread at the bucket's m), two 5-level butterflies of
-#: 64-bit minima (about 30 cycles a level) and a barrier (about 40); L's
+#: K (csrc/flats.cu, 128 threads a read at the bucket) runs its steps in
+#: rounds of 4, whose serial path is the round's chunk loads (about 30
+#: cycles), a warp's two dependent __reduce_min_sync (about 60), a shared
+#: store, the barrier and a shared load (about 80), the warps' pairs' two
+#: reductions (about 60), the tail's chain of an add and a compare a
+#: candidate (about 60) and the round's indices entering their slots
+#: (about 30): about 320 cycles a round, 80 a step; the slots' evaluations
+#: are off that path (they are what the kernel's time adds to it). L's
 #: (csrc/zsm.cu) a step of the float64 chain that only a flagged read
 #: walks (the others are settled from their exact sums): an fp64
 #: subtract and add (about 8 each) and a correctly rounded fp64 divide
 #: (about 50)
-FLATS_STEP_CYCLES = 400
+FLATS_STEP_CYCLES = 80
 ZSM_STEP_CYCLES = 66
 #: flat_uint_submin's step in phase 12's kernel case (the default)
 FLATS_STEP = 64
@@ -681,11 +717,55 @@ def pack_case(name: str, values, val_off, count, width, O: int, out_off):
             4 * fields + pbytes + 32 * val_off.numel(), 8 * fields, None)
 
 
+def unpack_args(module, depress, *args):
+    """The arguments depress(*args) gives kernel J through
+    module.unpack_msb (its stream, in_off, in_len, count, width and
+    out_off, and the size of its out), captured on the call."""
+    seen = []
+    real = module.unpack_msb
+
+    def record(stream, in_off, in_len, count, width, out, out_off):
+        seen.append((stream, in_off, in_len, count, width, out.numel(),
+                     out_off))
+        return real(stream, in_off, in_len, count, width, out, out_off)
+
+    module.unpack_msb = record
+    try:
+        depress(*args)
+    finally:
+        module.unpack_msb = real
+    return seen[0]
+
+
+def unpack_case(name: str, stream, in_off, in_len, count, width, O: int,
+                out_off):
+    """(name, kernel call, plain call, bytes, ops, library call) of kernel
+    J on its rows: the packed bytes read, 4 B a field written, 48 B a row
+    of offsets, lengths, count, width and the group prefix; 8 operations
+    a field.  The kernel and the plain version each write into an output
+    of O int32 made here, outside the timed calls."""
+    from honours_tpu_torch.engine import bitpack as BP
+    from honours_tpu_torch.engine import bitpack_cuda as BC
+
+    c, b = count.to(torch.int64).clamp(min=0), width.to(torch.int64)
+    fields = int(c.sum())
+    pbytes = int(((c * b.clamp(0, 16) + 7) // 8).sum())
+    mine, theirs = (torch.zeros(O, dtype=torch.int32, device=stream.device)
+                    for _ in range(2))
+    return (name,
+            lambda: BC.unpack_msb(stream, in_off, in_len, count, width, mine,
+                                  out_off),
+            lambda: BP.unpack_msb_plain(stream, in_off, in_len, count, width,
+                                        theirs, out_off),
+            pbytes + 4 * fields + 48 * in_off.numel(), 8 * fields, None)
+
+
 def raw_cases(sig, n):
     """(cases, options), each (name, kernel call, plain call, bytes, ops,
     library call[, chain floor ms]), of kernels I, J, K and L on the
     bucket [B, L]: I on uint_zd's fields (its zigzag deltas; pack_case),
-    J on I's rows (the packed bytes read, 4 B a field written), K on the
+    J on I's rows (unpack_case: the packed bytes read, 4 B a field
+    written), K on the
     samples at FLATS_STEP (2 B a sample read, the cuts written; 12
     operations an (i, j) pair; chain floor the longest read's chunks at
     FLATS_STEP_CYCLES), L on the samples (zsm_case: 2 B a sample read, 8
@@ -693,9 +773,10 @@ def raw_cases(sig, n):
     longest flagged read's samples at ZSM_STEP_CYCLES, 0 where none is
     flagged); the options I on the rows turbopfor's and flat_uint_submin's
     presses of the bucket give it (named "bitpack_msb turbopfor" and
-    "bitpack_msb flats").  Each output buffer is made outside the timed
-    calls.  Each plain version runs on the card."""
-    from honours_tpu_torch.engine import bitpack as BP
+    "bitpack_msb flats") and J on the rows their depresses give it
+    ("bitunpack_msb turbopfor", "bitunpack_msb flats"; unpack_case).
+    Each output buffer is made outside the timed calls.  Each plain
+    version runs on the card."""
     from honours_tpu_torch.engine import bitpack_cuda as BC
     from honours_tpu_torch.engine import flats as Fl
     from honours_tpu_torch.engine import flats_cuda as FC
@@ -720,21 +801,25 @@ def raw_cases(sig, n):
     callers = {"turbopfor": pack_args(pfor, pfor.press_pfor_batch, sig, n32),
                "flats": pack_args(Fl, Fl.press_flats_batch, sig, n32,
                                   FLATS_STEP)}
+    depressers = {
+        "turbopfor": unpack_args(pfor, pfor.depress_pfor_batch,
+                                 pfor.press_pfor_batch(sig, n32)[0], n32, L),
+        "flats": unpack_args(Fl, Fl.depress_flats_batch,
+                             Fl.press_flats_batch(sig, n32, FLATS_STEP)[0],
+                             n32, L)}
     log(f"phase 12 rows [{B}, {L}]: uint_zd {fields} fields of "
         f"{int(b.min())}-{int(b.max())} bits, {pbytes} packed bytes; flats "
         f"at step {FLATS_STEP}: up to {mmax} chunks a read, {pairs} (i, j) "
         f"pairs; zsm: up to {nmax} samples a read, "
         + zsm_flag_log(sig, n32) + "; I's rows from turbopfor and flats: "
         + ", ".join(f"{k} {a[2].numel()} rows, {int(a[2].sum())} fields"
-                    for k, a in callers.items()))
-    unpacked, theirs = (torch.zeros(B * L, dtype=torch.int32, device=dev)
-                        for _ in range(2))
+                    for k, a in callers.items())
+        + "; J's rows from their depresses: "
+        + ", ".join(f"{k} {a[3].numel()} rows, {int(a[3].sum())} fields"
+                    for k, a in depressers.items()))
     cases = [
         pack_case("bitpack_msb", vals, voff, cnt, b, 2 * B * L, ooff),
-        ("bitunpack_msb",
-         lambda: BC.unpack_msb(packed, ooff, nb, cnt, b, unpacked, voff),
-         lambda: BP.unpack_msb_plain(packed, ooff, nb, cnt, b, theirs, voff),
-         pbytes + 4 * fields + 40 * B, 8 * fields, None),
+        unpack_case("bitunpack_msb", packed, ooff, nb, cnt, b, B * L, voff),
         ("flats_partition", lambda: FC.flats_partition(sig, n32, FLATS_STEP),
          lambda: Fl.flats_partition_plain(sig, n32, FLATS_STEP),
          2 * nsum + B * (-(-L // FLATS_STEP) + 1), 12 * pairs, None,
@@ -742,6 +827,8 @@ def raw_cases(sig, n):
         zsm_case("zsm_mean", sig, n32),
     ]
     options = [pack_case(f"bitpack_msb {k}", *a) for k, a in callers.items()]
+    options += [unpack_case(f"bitunpack_msb {k}", *a)
+                for k, a in depressers.items()]
     return cases, options
 
 

@@ -5,9 +5,11 @@ ragged rows (csrc/bitpack.cu), beside their plain versions
 No TPU kernel stands behind them: honours_tpu packs these fields on the
 host only (honours_tpu/kernels/bitpack.py pack_bits and unpack_bits).
 The wrappers route by device: CPU tensors take the plain versions, CUDA
-tensors launch the kernels in a grid-stride loop over the rows' items: I
-a thread a group of 8 fields (b whole bytes; a warp's groups of one row
-stored through shared memory as 16-byte words), J a thread a field.
+tensors launch the kernels in a grid-stride loop over the rows' groups of
+8 fields (b whole bytes), a thread a group: I stores a warp's groups of
+one row through shared memory as 16-byte words, J loads each group's
+bytes as aligned words and stores its fields as two 16-byte words where
+aligned.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from honours_tpu_torch.engine.bitpack import (
 
 _PACK = kernel("bitpack_msb", "bitpack.cu", "htt_bitpack_msb", "ppppplpplp")
 _UNPACK = kernel("bitunpack_msb", "bitpack.cu", "htt_bitunpack_msb",
-                 "plpppplpplp")
+                 "plppppplpplp")
 
 
 def _flat(t, name: str, dtypes):
@@ -85,9 +87,12 @@ def unpack_msb(stream, in_off, in_len, count, width, out, out_off):
     cnt = _i64(count, R, "count").clamp(min=0)
     width = _i64(width, R, "width")
     out_off = _i64(out_off, R, "out_off")
-    cnt_off = exclusive(cnt)
+    # the rows' groups of 8 fields (b = 0 too: its fields are written as
+    # 0), their prefix the only one the kernel takes; at most O / 8 + R
+    grp_off = exclusive((cnt + 7) >> 3)
     _UNPACK(stream.data_ptr(), S, in_off.data_ptr(), in_len.data_ptr(),
-            width.data_ptr(), cnt_off.data_ptr(), R, out.data_ptr(),
-            out_off.data_ptr(), _blocks(O, out.device),
+            cnt.data_ptr(), width.data_ptr(), grp_off.data_ptr(), R,
+            out.data_ptr(), out_off.data_ptr(), _blocks(-(-O // 8) + R,
+                                                        out.device),
             stream_ptr(out.device))
     return out

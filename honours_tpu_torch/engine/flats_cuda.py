@@ -5,8 +5,9 @@ flats_partition_plain).
 No TPU kernel stands behind it: honours_tpu partitions on the host only
 (honours_tpu/codecs/flats.py partition_flats).  The wrapper routes by
 device: CPU tensors take the plain version, CUDA tensors launch the
-kernel, one block a read, its DP state in shared memory where it fits
-(SMEM_MAX) and in scratch the wrapper allocates otherwise.
+kernel, one block a read sized by the tensor's chunks (design), each
+index's DP state in registers, in shared memory where it fits
+(SMEM_MAX) or in scratch the wrapper allocates.
 """
 
 from __future__ import annotations
@@ -17,23 +18,42 @@ from honours_tpu_torch._build import check, is_cpu, kernel, stream_ptr
 from honours_tpu_torch.engine.flats import chunks, flats_partition_plain
 
 _PARTITION = kernel("flats_partition", "flats.cu", "htt_flats_partition",
-                    "pllpllpppppllp")
+                    "pllpllppllllp")
 
 #: csrc/flats.cu SMEM_MAX: the shared memory a block's DP state may take
 SMEM_MAX = 200 * 1024
 
 
+def design(m: int) -> tuple[int, int, int]:
+    """(threads, register slots a thread, steps a round) of the block for
+    reads of up to m chunks, one of csrc/flats.cu's designs: up to 1,024
+    chunks 128 threads holding 8 indices each in registers, up to 4,096
+    1,024 threads holding 4, above that 1,024 threads with the state in
+    memory (slots 0)."""
+    if m <= 1024:
+        return 128, 8, 4
+    return (1024, 4, 2) if m <= 4096 else (1024, 0, 4)
+
+
 def threads(m: int) -> int:
-    """Threads a block for reads of up to m chunks: a wider block where
-    a step has more (i, j) pairs than its reduction costs."""
-    return 1024 if m > 8192 else 256
+    """Threads a block for reads of up to m chunks."""
+    return design(m)[0]
 
 
 def state_bytes(m: int) -> int:
-    """Shared memory for a read of m chunks (best int64 [m + 1], ranges
-    u32 [m]), or 0 where it exceeds SMEM_MAX (scratch instead)."""
-    b = 8 * (m + 1) + 4 * m
+    """Shared memory for a read of m chunks (4 B an index: the chunks'
+    (min, max) and prev, with the walk's jumps in a register design, with
+    the ranges and best + 3 in the memory design), or 0 where it exceeds
+    SMEM_MAX (scratch instead)."""
+    b = 12 * (m + 1) if design(m)[1] else 8 * (2 * m + 1)
     return b if b <= SMEM_MAX else 0
+
+
+def cost_fits_u32(L: int, step: int) -> bool:
+    """Whether the kernel's 32-bit costs hold every read of an L-wide
+    row at step: a cost is at most 2 n + 6 bytes, and the bound kept is
+    2 L + 3 (m + 1) < 2^32."""
+    return 2 * L + 3 * (chunks(L, step) + 1) < 1 << 32
 
 
 def flats_partition(sig, n, step: int):
@@ -46,19 +66,17 @@ def flats_partition(sig, n, step: int):
         raise ValueError(f"sig: shape {tuple(sig.shape)} is not [B, L]")
     B, L = sig.shape
     check(n, "n", (torch.int32,), (B,))
+    if step < 1 or not cost_fits_u32(L, step):
+        raise ValueError(f"step {step} at L = {L}: 2 L + 3 (m + 1) must be "
+                         "below 2^32 with m = ceil(L / step) chunks")
     m = chunks(L, step)
-    if step < 1 or m >= 1 << 24:
-        raise ValueError(f"step {step} at L = {L}: m = {m} chunks is out of "
-                         "range")
     dev = sig.device
+    T, K, D = design(m)
     smem = state_bytes(m)
-    cut = torch.zeros((B, m + 1), dtype=torch.uint8, device=dev)
-    cmnx = torch.empty((B, max(m, 1)), dtype=torch.int32, device=dev)
-    prev = torch.empty((B, m + 1), dtype=torch.int32, device=dev)
-    g = 0 if smem else B  # the rows of global scratch
-    smnx = torch.empty((g, max(m, 1)), dtype=torch.int32, device=dev)
-    best = torch.empty((g, m + 1), dtype=torch.int64, device=dev)
-    _PARTITION(sig.data_ptr(), B, L, n.data_ptr(), step, m, cmnx.data_ptr(),
-               smnx.data_ptr(), best.data_ptr(), prev.data_ptr(),
-               cut.data_ptr(), threads(m), smem, stream_ptr(dev))
+    cut = torch.empty((B, m + 1), dtype=torch.uint8, device=dev)
+    scratch = torch.empty((0 if smem else B, 4 * m + 2), dtype=torch.int32,
+                          device=dev)
+    _PARTITION(sig.data_ptr(), B, L, n.data_ptr(), min(step, max(L, 1)), m,
+               scratch.data_ptr(), cut.data_ptr(), T, K, D, smem,
+               stream_ptr(dev))
     return cut

@@ -2427,6 +2427,188 @@ def test_flats_kernel_state_in_scratch(cuda, L, step):
     assert flats_cuda.state_bytes(m) == 0 and flats_cuda.threads(m) == 1024
     flat = synthesize_corpus(L + 5000, seed=23)
     _flats_same([flat[:L], flat[L: L + 5000]], step, cuda, L)
+    # the time of the long read alone, for the log (no target)
+    sig = torch.from_numpy(flat[:L])[None].to(cuda)
+    n = torch.tensor([L], dtype=torch.int32, device=cuda)
+    flats_cuda.flats_partition(sig, n, step)
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    flats_cuda.flats_partition(sig, n, step)
+    t1.record()
+    torch.cuda.synchronize()
+    print(f"kernel K [1, {L}] step {step} (m = {m}): "
+          f"{t0.elapsed_time(t1):.3f} ms on {torch.cuda.get_device_name()}")
+
+
+def _unpack_rows(seed, count, width, S, gap=3, shift=0, cut=None,
+                 out_gap=0):
+    """J's rows over random stream bytes: each row's bytes at a random
+    gap of 0..gap after the one before it (from byte shift on), its
+    fields at a gap of 0..out_gap elements after the row before it in out
+    (from element shift on), in_len its bytes (or cut[r] of them)."""
+    rng = np.random.default_rng(seed)
+    count = np.asarray(count, np.int64)
+    width = np.asarray(width, np.int64)
+    nb = (count * width + 7) // 8
+    in_off = shift + np.cumsum(nb + rng.integers(0, gap + 1, count.size)) - nb
+    in_len = nb if cut is None else np.asarray(cut, np.int64)
+    S = max(S, int((in_off + nb).max(initial=0)))
+    stream = rng.integers(0, 256, S).astype(np.uint8)
+    out_off = shift + np.cumsum(count + rng.integers(0, out_gap + 1,
+                                                     count.size)) - count
+    return _t(stream, in_off, in_len, count, width) + [
+        int(out_off[-1] + count[-1]) + 5, torch.from_numpy(out_off)]
+
+
+def test_unpack_kernel_width_0_rows(cuda):
+    """J on rows of width 0 (each still writes its count zeros over the
+    -7 fill) beside rows of widths 1-16, counts 0-17, 63-65 and 1,000."""
+    counts = [*range(18), 63, 64, 65, 1000] * 2
+    widths = [0] * 22 + [1 + k % 16 for k in range(22)]
+    stream, in_off, in_len, c, w, O, out_off = _unpack_rows(1, counts,
+                                                            widths, 64)
+    out = _unpack_both(stream, in_off, in_len, c, w, O, out_off, cuda)
+    for r in range(22):
+        k, o = counts[r], int(out_off[r])
+        assert (out[o: o + k] == 0).all(), r
+
+
+def test_unpack_kernel_rows_cut_by_in_len(cuda):
+    """J on rows whose in_len cuts their bytes (0, 1, half, all but one
+    and past the end): the bytes at or past in_len read as 0."""
+    rng = np.random.default_rng(2)
+    count = rng.integers(1, 400, 60)
+    width = rng.integers(0, 17, 60)
+    nb = (count * width + 7) // 8
+    cut = np.stack([np.zeros_like(nb), np.minimum(nb, 1), nb // 2,
+                    np.maximum(nb - 1, 0), nb + 9]).T.reshape(-1)[:60]
+    _unpack_both(*_unpack_rows(3, count, width, 0, cut=cut), cuda)
+
+
+@pytest.mark.parametrize("b", [1, 7, 13, 16])
+def test_unpack_kernel_row_ending_at_s(cuda, b):
+    """J on rows whose bytes end at the stream's last byte S (a word load
+    there would pass it), one long and several short, on a stream cut to
+    exactly their bytes, and on one cut 5 bytes short (the rest read 0)."""
+    count = [3, 9, 1000, 17, 8 * 37 + 5]
+    stream, in_off, in_len, c, w, O, out_off = _unpack_rows(
+        b, count, [b] * len(count), 0, gap=0)
+    end = int(in_off[-1] + in_len[-1])
+    for S in (end, end - 5):
+        _unpack_both(stream[:S].clone(), in_off, in_len, c, w, O, out_off,
+                     cuda)
+
+
+@pytest.mark.parametrize("shift", range(16))
+def test_unpack_kernel_every_offset_mod_16(cuda, shift):
+    """J with in_off and out_off at every address mod 16 (stream and out
+    views shifted by `shift` bytes and elements), on uint-like long rows
+    and flats-like short ones."""
+    for seed, count in ((shift, [5999, 4096, 1, 8]),
+                        (shift + 20, np.arange(1, 70))):
+        width = np.random.default_rng(seed).integers(0, 17, len(count))
+        args = _unpack_rows(seed, count, width, 0, shift=shift, out_gap=1)
+        _unpack_both(*args, cuda)
+        # a stream view whose data pointer sits at that offset too
+        stream, in_off, in_len, c, w, O, out_off = args
+        big = torch.zeros(stream.numel() + shift, dtype=torch.uint8,
+                          device=cuda)
+        big[shift:] = stream.to(cuda)
+        _unpack_both(big[shift:], *[a.to(cuda) for a in (in_off, in_len, c,
+                                                          w)],
+                     O, out_off.to(cuda), cuda)
+
+
+def test_unpack_kernel_straddling_warps(cuda):
+    """J on 20,000 short rows (counts 0-24, so a warp's 32 groups span
+    many rows), widths 0-16, gaps 0-3 bytes, their outputs end to end
+    (the warp's fields one run) and 0-2 elements apart; a flats-like and
+    a turbopfor-like stream."""
+    rng = np.random.default_rng(9)
+    count = rng.integers(0, 25, 20000)
+    width = rng.integers(0, 17, 20000)
+    _unpack_both(*_unpack_rows(10, count, width, 0), cuda)
+    _unpack_both(*_unpack_rows(12, count, width, 0, out_gap=2), cuda)
+    count = np.full(3000, 128)
+    count[::7] = 77
+    _unpack_both(*_unpack_rows(11, count, rng.integers(0, 17, 3000), 0,
+                               gap=2), cuda)
+
+
+@pytest.mark.parametrize("b", [0, 5, 16])
+def test_unpack_kernel_one_row_of_2_22(cuda, b):
+    """J alone on one row of 2^22 fields over random bytes, at an odd
+    in_off and an out_off 1 mod 4, against its plain version."""
+    args = _unpack_rows(b + 40, [1 << 22], [b], 0, shift=1)
+    stream, in_off, in_len, c, w, O, out_off = args
+    _unpack_both(stream.to(cuda), in_off.to(cuda), in_len.to(cuda),
+                 c.to(cuda), w.to(cuda), O, out_off.to(cuda), cuda)
+
+
+def _flats_designs():
+    """csrc/flats.cu's designs (threads, register slots, steps a round;
+    slots 0: memory)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(__file__).resolve().parent.parent / "honours_tpu_torch"
+           / "csrc" / "flats.cu").read_text()
+    return [tuple(map(int, d)) for d in
+            re.findall(r"HTT_FLATS_DESIGN\((\d+), (\d+), (\d+)\)\n",
+                       src)]
+
+
+@pytest.mark.parametrize("L,step", [(65536, 64), (4096, 8), (65536, 16),
+                                    (1 << 18, 32)])
+def test_flats_kernel_every_block_size(cuda, L, step):
+    """K at each design the wrapper picks (m = 1,024 and 512: 128
+    threads of register slots; 4,096: 1,024 threads of register slots;
+    8,192: the memory design in shared memory) on synthetic reads of L
+    samples and shorter, against its plain version on the card."""
+    from honours_tpu_torch.engine import flats_cuda
+    from honours_tpu_torch.synth import synthesize_corpus
+
+    m = -(-L // step)
+    assert flats_cuda.design(m) in _flats_designs()
+    assert flats_cuda.state_bytes(m) > 0
+    flat = synthesize_corpus(2 * L, seed=m)
+    _flats_same([flat[:L], flat[L: L + L // 3], flat[5: 5 + L - 7]], step,
+                cuda, L)
+
+
+@pytest.mark.parametrize("design", _flats_designs())
+def test_flats_kernel_each_design(cuda, monkeypatch, design):
+    """Every design csrc/flats.cu can launch (128 and 1,024 threads of
+    register slots and the memory design, each with its steps a round),
+    forced through the wrapper, on raw_rows.flats_reads at steps 64 and 8
+    and a walk of m = 1,000 chunks, against the plain version on the
+    card."""
+    import raw_rows
+    from honours_tpu_torch.engine import flats_cuda
+    from honours_tpu_torch.synth import synthesize_corpus
+
+    monkeypatch.setattr(flats_cuda, "design", lambda m: design)
+    walk = synthesize_corpus(64_000, seed=5)
+    for step, reads in ((64, raw_rows.flats_reads(1) + [walk]),
+                        (8, raw_rows.flats_reads(2))):
+        _flats_same(reads, step, cuda)
+
+
+def test_flats_kernel_u32_limit(cuda):
+    """The wrapper raises ValueError where 2 L + 3 (m + 1) >= 2^32 (the
+    kernel's 32-bit costs: here L = 858,993,459 at step 1), before any
+    launch; one sample less fits."""
+    from honours_tpu_torch.engine import flats_cuda
+
+    L = -(-((1 << 32) - 3) // 5)  # 2 L + 3 (L + 1) >= 2^32 at step 1
+    assert not flats_cuda.cost_fits_u32(L, 1)
+    assert flats_cuda.cost_fits_u32(L - 1, 1)
+    sig = torch.zeros((1, L), dtype=torch.int16, device=cuda)
+    n = torch.tensor([5], dtype=torch.int32, device=cuda)
+    before = flats_cuda._PARTITION.launches
+    with pytest.raises(ValueError, match="2\\^32"):
+        flats_cuda.flats_partition(sig, n, 1)
+    assert flats_cuda._PARTITION.launches == before
 
 
 def test_zsm_kernel_matches_plain(cuda):

@@ -4,7 +4,8 @@
 
 NAME is n4_decode, svb16_decode, svb16_decode_raw (zd off),
 svb16_encode, svb16_encode_raw (zd off), flac_decode, huffman_build,
-rccdf_encode, rccdf_decode, zsm_mean, bitpack_msb, or rc_encode_MODEL /
+rccdf_encode, rccdf_decode, zsm_mean, bitpack_msb, bitunpack_msb,
+flats_partition, or rc_encode_MODEL /
 rc_decode_MODEL (MODEL o0, o1 or cm).  Each VARIANT.cu is an edited copy
 of the kernel's source (honours_tpu_torch/csrc/*.cu) whose C entries
 keep their signatures.  Each is built with the package's nvcc flags (all
@@ -19,7 +20,10 @@ rccdf_decode at the bucket (rccdf_vbbe21_zd's residual bytes) and on
 chip_smoke.rc_rows' [24, 4096] edge rows; zsm_mean at the bucket, on
 chip_smoke.zsm_cases' edge and banded reads and on the bucket with every
 read flagged; bitpack_msb on uint_zd's fields of the bucket and on the
-rows turbopfor's and flat_uint_submin's presses of it give the kernel.
+rows turbopfor's and flat_uint_submin's presses of it give the kernel,
+bitunpack_msb on its packed rows and on the rows their depresses give
+it; flats_partition on the bucket at step 64 and on
+chip_smoke.flats_scratch_cases' reads (m = 32,768 and 65,536).
 The range
 coder runs at the bucket only (chip_smoke.rc_bucket's rows), held
 against the tree's own kernel: its streams for rc_encode, the rows for
@@ -47,6 +51,7 @@ import chip_smoke as cs  # noqa: E402
 from honours_tpu_torch import _build  # noqa: E402
 from honours_tpu_torch.engine import bitpack_cuda  # noqa: E402,F401
 from honours_tpu_torch.engine import flac_cuda  # noqa: E402,F401
+from honours_tpu_torch.engine import flats_cuda  # noqa: E402,F401
 from honours_tpu_torch.engine import huffman  # noqa: E402,F401
 from honours_tpu_torch.engine import rangecoder_cuda  # noqa: E402,F401
 from honours_tpu_torch.engine import rans_n4_cuda  # noqa: E402,F401
@@ -96,24 +101,28 @@ def cases(B: int, L: int) -> dict:
 
 #: kernels timed on chip_smoke.py's cases of them (phases 11-13)
 SMOKE_CASES = ("flac_decode", "huffman_build", "rccdf_encode",
-               "rccdf_decode", "zsm_mean", "bitpack_msb")
+               "rccdf_decode", "zsm_mean", "bitpack_msb", "bitunpack_msb",
+               "flats_partition")
+#: the kernels of chip_smoke.raw_cases
+RAW = ("zsm_mean", "bitpack_msb", "bitunpack_msb", "flats_partition")
 
 
 def smoke_cases(name: str) -> list:
     """[(shape, kernel call, plain call)] of a SMOKE_CASES kernel: on the
     bucket [256, 65536] as chip_smoke.py's phases 13, 11 and 12 make
-    them (bitpack_msb also on turbopfor's and flats' rows of it, the
-    options of raw_cases), for rccdf_encode and rccdf_decode also on
-    chip_smoke.py's rc_rows (rccdf_row_cases) and for zsm_mean on its
-    rows of it (zsm_cases)."""
+    them (bitpack_msb and bitunpack_msb also on turbopfor's and flats'
+    rows of it, the options of raw_cases), for rccdf_encode and
+    rccdf_decode also on chip_smoke.py's rc_rows (rccdf_row_cases), for
+    zsm_mean on its rows of it (zsm_cases) and for flats_partition on
+    the reads of flats_scratch_cases."""
     sig, n = cs.make_bucket(0)
     bucket = (cs.block_cases(sig, n)[0] if name == "flac_decode"
-              else sum(cs.raw_cases(sig, n), []) if name in ("zsm_mean",
-                                                             "bitpack_msb")
+              else sum(cs.raw_cases(sig, n), []) if name in RAW
               else cs.entropy_cases(sig, n))
     found = [("[256, 65536]" + c[0][len(name):], c) for c in bucket] + (
         cs.zsm_cases(sig, n) if name == "zsm_mean"
         else cs.rccdf_row_cases(sig.device) if name.startswith("rccdf")
+        else cs.flats_scratch_cases(sig.device) if name == "flats_partition"
         else [])
     return [(shape, c[1], c[2]) for shape, c in found
             if c[0].split()[0] == name]
