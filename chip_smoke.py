@@ -658,6 +658,40 @@ def flats_scratch_cases(dev):
     return out
 
 
+def flats_bucket_cases(dev):
+    """(shape, case) of kernel K at FLATS_STEP on the main path's buckets
+    wider than phase 12's: read_set(0)'s lengths that bucket to L =
+    131,072 and 262,144 (175 and 162 reads, m = 2,048 and 4,096 chunks),
+    each read a window of one synthetic corpus, and one read of 262,145
+    samples at L = 524,288 (long_set's part e, m = 8,192): 2 B a sample
+    read, the cuts written, 12 operations an (i, j) pair.  For the tools'
+    turns over K's designs."""
+    from honours_tpu_torch.engine import flats as Fl
+    from honours_tpu_torch.engine import flats_cuda as FC
+    from honours_tpu_torch.io.batching import bucket_reads
+    from honours_tpu_torch.synth import synthesize_corpus
+
+    lens = read_lengths(np.random.default_rng(1))
+    flat = synthesize_corpus(1 << 20, seed=29)
+    at = np.random.default_rng(31).integers(0, flat.size - lens.max(),
+                                            lens.size)
+    reads = [flat[a: a + k] for a, k in zip(at, lens) if k > 1 << 16]
+    reads.append(synthesize_corpus(262_145, seed=37))
+    out = []
+    for b in bucket_reads(reads):
+        sig = torch.from_numpy(b.sig).to(dev)
+        n = torch.from_numpy(b.n).to(dev)
+        k = b.n.astype(np.int64)
+        m = (k + FLATS_STEP - 1) // FLATS_STEP
+        out.append((f"[{b.n.size}, {b.L}] step {FLATS_STEP}", (
+            "flats_partition",
+            lambda s=sig, c=n: FC.flats_partition(s, c, FLATS_STEP),
+            lambda s=sig, c=n: Fl.flats_partition_plain(s, c, FLATS_STEP),
+            2 * int(k.sum()) + b.n.size * (b.L // FLATS_STEP + 1),
+            12 * int((m * (m + 1) // 2).sum()), None)))
+    return out
+
+
 #: dependent cycles a step in the chain-floor models of kernels K and L:
 #: K (csrc/flats.cu, 128 threads a read at the bucket) runs its steps in
 #: rounds of 4, whose serial path is the round's chunk loads (about 30
@@ -740,9 +774,10 @@ def unpack_args(module, depress, *args):
 def unpack_case(name: str, stream, in_off, in_len, count, width, O: int,
                 out_off):
     """(name, kernel call, plain call, bytes, ops, library call) of kernel
-    J on its rows: the packed bytes read, 4 B a field written, 48 B a row
-    of offsets, lengths, count, width and the group prefix; 8 operations
-    a field.  The kernel and the plain version each write into an output
+    J on its rows: the packed bytes read, 4 B a field written, 40 B a row
+    of in_off, in_len, count, width and out_off (the group prefix the
+    wrapper builds is the design's, not the function's); 8 operations a
+    field.  The kernel and the plain version each write into an output
     of O int32 made here, outside the timed calls."""
     from honours_tpu_torch.engine import bitpack as BP
     from honours_tpu_torch.engine import bitpack_cuda as BC
@@ -757,7 +792,7 @@ def unpack_case(name: str, stream, in_off, in_len, count, width, O: int,
                                   out_off),
             lambda: BP.unpack_msb_plain(stream, in_off, in_len, count, width,
                                         theirs, out_off),
-            pbytes + 4 * fields + 48 * in_off.numel(), 8 * fields, None)
+            pbytes + 4 * fields + 40 * in_off.numel(), 8 * fields, None)
 
 
 def raw_cases(sig, n):
@@ -1707,12 +1742,17 @@ def check_kernels(seed: int) -> dict:
     return results
 
 
+def read_lengths(rng):
+    """read_set's 1,024 read lengths, log-uniform in [4,000, 250,000]."""
+    return np.exp(rng.uniform(np.log(4000), np.log(250000),
+                              1024)).astype(np.int64)
+
+
 def read_set(seed: int):
     from honours_tpu_torch.synth import synthesize_corpus
 
     rng = np.random.default_rng(seed + 1)
-    lens = np.exp(rng.uniform(np.log(4000), np.log(250000), 1024))
-    lens = lens.astype(np.int64)
+    lens = read_lengths(rng)
     flat = synthesize_corpus(int(lens.sum()), seed=seed + 2)
     reads, off = [], 0
     for m in lens:

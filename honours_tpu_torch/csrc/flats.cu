@@ -42,14 +42,17 @@
 // width, take one 64-bit multiply-add.  Thread 0 stores prev in shared memory
 // (or scratch); at the end the block computes the jumps prev^2 and prev^4
 // side by side and thread 0 walks the chain from m four cuts a load, writing
-// the 1s of cut.  The wrapper sizes the block by m (flats_cuda.design): at the bucket's
-// m <= 1,024, 128 threads of 8 register slots and rounds of 4 steps, the
-// fastest of 32, 64, 128 and 256 threads and of 2-8 steps a round (PERF.md);
-// 1,024 threads of 4 register slots and rounds of 2 up to m = 4,096, and the
-// memory design above it.  Ablations (PERF.md): a step a round, one warp a
-// read, and (cost, i) packed into one 32-bit key where it fits (one reduction)
-// were slower; the tail's segments computed on its chain cost 0.019 ms at the
-// bucket.
+// the 1s of cut.  The entry picks the design from m (htt_flats_partition):
+// at the bucket's m <= 1,024, 128 threads of 8 register slots and rounds of
+// 4 steps, the fastest of 32, 64, 128 and 256 threads and of 2-8 steps a
+// round; up to m = 8,192 the memory design at 256 threads, and above it at
+// 1,024 (PERF.md: at m = 4,096 and 8,192, 256 threads beat 128, 512 and
+// 1,024, at m = 2,048 128 were 1% faster; at m = 2,048 and 4,096 register
+// designs of 256 x 16, 512 x 8 and 1,024 x 4 slots were slower; in scratch at
+// m = 32,768, 1,024 threads beat 512, 256 and 128).  Ablations
+// (PERF.md): a step a round, one warp a read, and (cost, i) packed into one
+// 32-bit key where it fits (one reduction) were slower; the tail's segments
+// computed on its chain cost 0.019 ms at the bucket.
 //
 // Output ownership: each block writes only its own row of cut (every byte
 // of it: 0, then a 1 at each chosen boundary index 0..m) and its own row
@@ -366,11 +369,16 @@ __global__ void __launch_bounds__(T)
 template <int T, int K, int D>
 int launch(const void* sig, long long B, long long L, const void* n,
            long long step, long long mmax, void* scratch, void* cut,
-           long long smem_bytes, void* cuda_stream) {
+           void* cuda_stream) {
+  // a register design's state (the chunks, prev and the walk's jumps)
+  // always fits; the memory design's (also the ranges and best + 3) goes
+  // to scratch past SMEM_MAX
+  const long long want = K > 0 ? 12 * (mmax + 1) : 8 * (2 * mmax + 1);
+  const long long smem_bytes = want <= SMEM_MAX ? want : 0;
+  if (smem_bytes == 0 && (K > 0 || scratch == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   static bool smem_set[64];
-  if (smem_bytes > 0)
-    htt_smem_limit_once(flats_partition_kernel<T, K, D>, SMEM_MAX,
-                        smem_set);
+  htt_smem_limit_once(flats_partition_kernel<T, K, D>, SMEM_MAX, smem_set);
   flats_partition_kernel<T, K, D><<<static_cast<unsigned>(B), T,
                                     static_cast<size_t>(smem_bytes),
                                     static_cast<cudaStream_t>(cuda_stream)>>>(
@@ -383,24 +391,19 @@ int launch(const void* sig, long long B, long long L, const void* n,
 
 }  // namespace
 
-// threads, slots and steps a round: one of the designs below
-// (flats_cuda.design); slots 0 keeps the state in shared memory
-// (smem_bytes > 0) or in scratch [B, 4 mmax + 2] u32
+// The design (threads, register slots a thread, steps a round) is picked
+// here from mmax, the rows' chunks, and nowhere else; slots 0 keeps the
+// state in shared memory or, past SMEM_MAX, in scratch [B, 4 mmax + 2]
+// u32, which the caller allocates where 8 (2 mmax + 1) > SMEM_MAX (else
+// it may pass null)
 HTT_EXPORT int htt_flats_partition(const void* sig, long long B, long long L,
                                    const void* n, long long step,
                                    long long mmax, void* scratch, void* cut,
-                                   long long threads, long long slots,
-                                   long long steps, long long smem_bytes,
                                    void* cuda_stream) {
   if (B <= 0) return static_cast<int>(cudaGetLastError());
-  if (smem_bytes > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
-#define HTT_FLATS_DESIGN(T, K, D)                                        \
-  if (threads == T && slots == K && steps == D)                          \
-    return launch<T, K, D>(sig, B, L, n, step, mmax, scratch, cut,       \
-                           smem_bytes, cuda_stream);
-  HTT_FLATS_DESIGN(128, 8, 4)
-  HTT_FLATS_DESIGN(1024, 4, 2)
-  HTT_FLATS_DESIGN(1024, 0, 4)
-#undef HTT_FLATS_DESIGN
-  return static_cast<int>(cudaErrorInvalidValue);
+#define HTT_FLATS_ARGS sig, B, L, n, step, mmax, scratch, cut, cuda_stream
+  if (mmax <= 1024) return launch<128, 8, 4>(HTT_FLATS_ARGS);
+  if (mmax <= 8192) return launch<256, 0, 4>(HTT_FLATS_ARGS);
+  return launch<1024, 0, 4>(HTT_FLATS_ARGS);
+#undef HTT_FLATS_ARGS
 }

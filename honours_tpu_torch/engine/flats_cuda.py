@@ -5,9 +5,10 @@ flats_partition_plain).
 No TPU kernel stands behind it: honours_tpu partitions on the host only
 (honours_tpu/codecs/flats.py partition_flats).  The wrapper routes by
 device: CPU tensors take the plain version, CUDA tensors launch the
-kernel, one block a read sized by the tensor's chunks (design), each
-index's DP state in registers, in shared memory where it fits
-(SMEM_MAX) or in scratch the wrapper allocates.
+kernel, one block a read, whose entry picks the block's design from the
+tensor's chunks: each index's DP state in registers, in shared memory
+where it fits (SMEM_MAX) or in scratch the wrapper allocates
+(in_scratch).
 """
 
 from __future__ import annotations
@@ -18,35 +19,19 @@ from honours_tpu_torch._build import check, is_cpu, kernel, stream_ptr
 from honours_tpu_torch.engine.flats import chunks, flats_partition_plain
 
 _PARTITION = kernel("flats_partition", "flats.cu", "htt_flats_partition",
-                    "pllpllppllllp")
+                    "pllpllppp")
 
 #: csrc/flats.cu SMEM_MAX: the shared memory a block's DP state may take
 SMEM_MAX = 200 * 1024
 
 
-def design(m: int) -> tuple[int, int, int]:
-    """(threads, register slots a thread, steps a round) of the block for
-    reads of up to m chunks, one of csrc/flats.cu's designs: up to 1,024
-    chunks 128 threads holding 8 indices each in registers, up to 4,096
-    1,024 threads holding 4, above that 1,024 threads with the state in
-    memory (slots 0)."""
-    if m <= 1024:
-        return 128, 8, 4
-    return (1024, 4, 2) if m <= 4096 else (1024, 0, 4)
-
-
-def threads(m: int) -> int:
-    """Threads a block for reads of up to m chunks."""
-    return design(m)[0]
-
-
-def state_bytes(m: int) -> int:
-    """Shared memory for a read of m chunks (4 B an index: the chunks'
-    (min, max) and prev, with the walk's jumps in a register design, with
-    the ranges and best + 3 in the memory design), or 0 where it exceeds
-    SMEM_MAX (scratch instead)."""
-    b = 12 * (m + 1) if design(m)[1] else 8 * (2 * m + 1)
-    return b if b <= SMEM_MAX else 0
+def in_scratch(m: int) -> bool:
+    """Whether reads of up to m chunks keep kernel K's DP state in scratch
+    the wrapper allocates: where the memory design's (4 B an index of the
+    chunks, prev, the ranges and best + 3) passes SMEM_MAX.  The kernel's
+    entry picks its design from m, and a register design's state (m <=
+    1,024) always fits."""
+    return 8 * (2 * m + 1) > SMEM_MAX
 
 
 def cost_fits_u32(L: int, step: int) -> bool:
@@ -71,12 +56,10 @@ def flats_partition(sig, n, step: int):
                          "below 2^32 with m = ceil(L / step) chunks")
     m = chunks(L, step)
     dev = sig.device
-    T, K, D = design(m)
-    smem = state_bytes(m)
     cut = torch.empty((B, m + 1), dtype=torch.uint8, device=dev)
-    scratch = torch.empty((0 if smem else B, 4 * m + 2), dtype=torch.int32,
-                          device=dev)
+    scratch = torch.empty((B if in_scratch(m) else 0, 4 * m + 2),
+                          dtype=torch.int32, device=dev)
     _PARTITION(sig.data_ptr(), B, L, n.data_ptr(), min(step, max(L, 1)), m,
-               scratch.data_ptr(), cut.data_ptr(), T, K, D, smem,
+               scratch.data_ptr() if scratch.numel() else 0, cut.data_ptr(),
                stream_ptr(dev))
     return cut

@@ -3,7 +3,9 @@ and L (uint_zsm's running mean, and a model of its settled rule), shared
 by the CPU tests, the GPU tests and chip_smoke.py: numpy only, made from
 seeds."""
 
+import re
 from fractions import Fraction
+from pathlib import Path
 
 import numpy as np
 
@@ -139,6 +141,27 @@ def tie_read():
     costs ((3 + 0) + (3 + 8 * 1 / 8) = 7); the least i wins, so it
     stays one segment."""
     return np.array([0] * 8 + [2, 3] * 4, np.int16), 8
+
+
+def flats_designs():
+    """Kernel K's designs in the order its entry (csrc/flats.cu
+    htt_flats_partition) tries them: (the most chunks it takes, None for
+    the last; threads; register slots a thread, 0 for the memory design;
+    steps a round)."""
+    src = (Path(__file__).resolve().parent.parent / "honours_tpu_torch"
+           / "csrc" / "flats.cu").read_text()
+    return [(int(most) if most else None, int(t), int(k), int(d))
+            for most, t, k, d in re.findall(
+                r"(?:if \(mmax <= (\d+)\) )?return launch<(\d+), (\d+), "
+                r"(\d+)>", src)]
+
+
+def flats_design(m: int):
+    """(threads, register slots, steps a round) of the design K's entry
+    picks for rows of m chunks."""
+    for most, *design in flats_designs():
+        if most is None or m <= most:
+            return tuple(design)
 
 
 def flats_reads(seed: int):

@@ -78,8 +78,8 @@ def test_flats_smem_limit_matches_source():
     text = (_build.CSRC / "flats.cu").read_text()
     (kib,) = re.findall(r"constexpr int SMEM_MAX = (\d+) \* 1024;", text)
     assert int(kib) * 1024 == flats_cuda.SMEM_MAX
-    assert flats_cuda.state_bytes(12_799) > 0  # 16 B an index
-    assert flats_cuda.state_bytes(12_800) == 0
+    assert not flats_cuda.in_scratch(12_799)  # 16 B an index
+    assert flats_cuda.in_scratch(12_800)
 
 
 def test_library_names_follow_sources():

@@ -14,13 +14,11 @@ then enter their owners' slots; 32-bit costs, a segment's bytes from a
 gives the cuts of the
 plain version (engine/flats.py flats_partition_plain) and of the JAX
 package's host partition (honours_tpu/codecs/flats.py partition_flats),
-at every design the kernel can launch (read from its source) and at the
-one the wrapper picks. Reads: raw_rows.flats_reads at steps 64, 8 and
-17, the tie read and reads of many ties. Also the wrapper's designs and
-its u32 bound (flats_cuda.cost_fits_u32). No JAX is imported."""
-
-import re
-from pathlib import Path
+at every design the kernel can launch (read from its entry) and at the
+one the entry picks. Reads: raw_rows.flats_reads at steps 64, 8 and
+17, the tie read and reads of many ties. Also the entry's designs, the
+wrapper's scratch (flats_cuda.in_scratch) and its u32 bound
+(flats_cuda.cost_fits_u32). No JAX is imported."""
 
 import numpy as np
 import pytest
@@ -32,11 +30,9 @@ from honours_tpu_torch.engine import flats_cuda
 from honours_tpu_torch.engine.flats import chunks, flats_partition_plain
 from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
-SRC = Path(flats_cuda.__file__).resolve().parent.parent / "csrc" / "flats.cu"
 #: (threads, register slots, steps a round) of every launch (slots 0:
 #: the memory design)
-DESIGNS = [tuple(map(int, d)) for d in re.findall(
-    r"HTT_FLATS_DESIGN\((\d+), (\d+), (\d+)\)\n", SRC.read_text())]
+DESIGNS = [tuple(d[1:]) for d in raw_rows.flats_designs()]
 NONE = (1 << 32) - 1  # no candidate
 WARP = 32
 BITS = np.array([x.bit_length() for x in range(1 << 16)], np.int64)
@@ -180,7 +176,7 @@ def _check(reads, step: int, designs=None):
     cut = flats_partition_plain(torch.from_numpy(sig), torch.from_numpy(n),
                                 step)
     stats = {}
-    picked = flats_cuda.design(chunks(L, step))
+    picked = raw_rows.flats_design(chunks(L, step))
     for r, read in enumerate(reads):
         u = read.view(np.uint16)
         m = -(-read.size // step)
@@ -232,20 +228,26 @@ def test_model_on_reads_of_many_ties(seed):
 
 
 def test_designs_and_state_bytes():
-    """design(m) is one of the source's designs for every m, a register
-    design holds its read (m <= threads x slots), and state_bytes is 4 B
-    an index of the chunks, prev and the walk's jumps (register designs)
-    or of the chunks, prev, the ranges and best + 3 (the memory design)
-    below SMEM_MAX, else 0 (scratch)."""
+    """The entry tries its designs by ascending chunks, the last taking
+    every m; the design it picks for every m holds its read where it keeps
+    it in registers (m <= threads x slots); a register design's state (4
+    B an index of the chunks, prev and the walk's jumps) fits SMEM_MAX,
+    and the wrapper allocates scratch exactly where the memory design's
+    (the chunks, prev, the ranges and best + 3) passes it."""
+    table = raw_rows.flats_designs()
+    limits = [most for most, *_ in table]
+    assert limits[-1] is None and table[-1][2] == 0
+    assert limits[:-1] == sorted(limits[:-1])
     for m in [0, 1, 31, 32, 33, 1023, 1024, 1025, 4095, 4096, 4097, 12799,
               12800, 65536]:
-        T, K, D = flats_cuda.design(m)
+        T, K, D = raw_rows.flats_design(m)
         assert (T, K, D) in DESIGNS and T % WARP == 0 and D <= T
-        assert K == 0 or m <= T * K
-        want = 12 * (m + 1) if K else 8 * (2 * m + 1)
-        assert flats_cuda.state_bytes(m) == (
-            want if want <= flats_cuda.SMEM_MAX else 0)
-    assert flats_cuda.design(1024)[1] and not flats_cuda.design(4097)[1]
+        if K:
+            assert m <= T * K and 12 * (m + 1) <= flats_cuda.SMEM_MAX
+        assert flats_cuda.in_scratch(m) == (
+            8 * (2 * m + 1) > flats_cuda.SMEM_MAX)
+    assert raw_rows.flats_design(1024)[1]
+    assert not flats_cuda.in_scratch(12799) and flats_cuda.in_scratch(12800)
 
 
 def test_cost_fits_u32():

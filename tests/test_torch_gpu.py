@@ -2417,14 +2417,15 @@ def test_flats_kernel_tie_takes_the_least_i(cuda):
 @pytest.mark.parametrize("L,step", [(1 << 19, 16), (1 << 22, 64)])
 def test_flats_kernel_state_in_scratch(cuda, L, step):
     """K where a read's DP state passes the shared memory (m = 32,768 and
-    65,536 chunks: scratch in device memory, 1,024 threads a block): a
+    65,536 chunks: the memory design, its state in scratch): a
     read of L samples and a shorter one, against the plain version on
     the card."""
+    import raw_rows
     from honours_tpu_torch.engine import flats_cuda
     from honours_tpu_torch.synth import synthesize_corpus
 
     m = L // step
-    assert flats_cuda.state_bytes(m) == 0 and flats_cuda.threads(m) == 1024
+    assert flats_cuda.in_scratch(m) and raw_rows.flats_design(m)[1] == 0
     flat = synthesize_corpus(L + 5000, seed=23)
     _flats_same([flat[:L], flat[L: L + 5000]], step, cuda, L)
     # the time of the long read alone, for the log (no target)
@@ -2545,53 +2546,50 @@ def test_unpack_kernel_one_row_of_2_22(cuda, b):
                  c.to(cuda), w.to(cuda), O, out_off.to(cuda), cuda)
 
 
-def _flats_designs():
-    """csrc/flats.cu's designs (threads, register slots, steps a round;
-    slots 0: memory)."""
-    import re
-    from pathlib import Path
-
-    src = (Path(__file__).resolve().parent.parent / "honours_tpu_torch"
-           / "csrc" / "flats.cu").read_text()
-    return [tuple(map(int, d)) for d in
-            re.findall(r"HTT_FLATS_DESIGN\((\d+), (\d+), (\d+)\)\n",
-                       src)]
-
-
 @pytest.mark.parametrize("L,step", [(65536, 64), (4096, 8), (65536, 16),
                                     (1 << 18, 32)])
 def test_flats_kernel_every_block_size(cuda, L, step):
-    """K at each design the wrapper picks (m = 1,024 and 512: 128
-    threads of register slots; 4,096: 1,024 threads of register slots;
-    8,192: the memory design in shared memory) on synthetic reads of L
-    samples and shorter, against its plain version on the card."""
+    """K at the designs the entry picks at m = 1,024, 512, 4,096 and
+    8,192 chunks (the last two the memory design in shared memory), on
+    synthetic reads of L samples and shorter, against its plain version
+    on the card."""
+    import raw_rows
     from honours_tpu_torch.engine import flats_cuda
     from honours_tpu_torch.synth import synthesize_corpus
 
     m = -(-L // step)
-    assert flats_cuda.design(m) in _flats_designs()
-    assert flats_cuda.state_bytes(m) > 0
+    assert raw_rows.flats_design(m) in [d[1:] for d in
+                                        raw_rows.flats_designs()]
+    assert not flats_cuda.in_scratch(m)
     flat = synthesize_corpus(2 * L, seed=m)
     _flats_same([flat[:L], flat[L: L + L // 3], flat[5: 5 + L - 7]], step,
                 cuda, L)
 
 
-@pytest.mark.parametrize("design", _flats_designs())
-def test_flats_kernel_each_design(cuda, monkeypatch, design):
-    """Every design csrc/flats.cu can launch (128 and 1,024 threads of
-    register slots and the memory design, each with its steps a round),
-    forced through the wrapper, on raw_rows.flats_reads at steps 64 and 8
-    and a walk of m = 1,000 chunks, against the plain version on the
-    card."""
+def _flats_widths():
+    """(design, the most chunks of rows the entry gives it): each design
+    of csrc/flats.cu at the widest rows it takes (the last one past the
+    one before it)."""
     import raw_rows
-    from honours_tpu_torch.engine import flats_cuda
+
+    table = raw_rows.flats_designs()
+    return [(tuple(d[1:]), d[0] or table[i - 1][0] + 1)
+            for i, d in enumerate(table)]
+
+
+@pytest.mark.parametrize("design,m", _flats_widths())
+def test_flats_kernel_each_design(cuda, design, m):
+    """Every design csrc/flats.cu can launch, each in rows of m chunks
+    (which the entry gives it), on raw_rows.flats_reads at steps 64 and 8
+    and a walk of 1,000 chunks, against the plain version on the card."""
+    import raw_rows
     from honours_tpu_torch.synth import synthesize_corpus
 
-    monkeypatch.setattr(flats_cuda, "design", lambda m: design)
+    assert raw_rows.flats_design(m) == design
     walk = synthesize_corpus(64_000, seed=5)
     for step, reads in ((64, raw_rows.flats_reads(1) + [walk]),
                         (8, raw_rows.flats_reads(2))):
-        _flats_same(reads, step, cuda)
+        _flats_same(reads, step, cuda, m * step)
 
 
 def test_flats_kernel_u32_limit(cuda):

@@ -22,8 +22,10 @@ chip_smoke.zsm_cases' edge and banded reads and on the bucket with every
 read flagged; bitpack_msb on uint_zd's fields of the bucket and on the
 rows turbopfor's and flat_uint_submin's presses of it give the kernel,
 bitunpack_msb on its packed rows and on the rows their depresses give
-it; flats_partition on the bucket at step 64 and on
-chip_smoke.flats_scratch_cases' reads (m = 32,768 and 65,536).
+it; flats_partition on the bucket at step 64, on
+chip_smoke.flats_bucket_cases' wider buckets (m = 2,048, 4,096 and
+8,192) and on chip_smoke.flats_scratch_cases' reads (m = 32,768 and
+65,536).
 The range
 coder runs at the bucket only (chip_smoke.rc_bucket's rows), held
 against the tree's own kernel: its streams for rc_encode, the rows for
@@ -114,7 +116,8 @@ def smoke_cases(name: str) -> list:
     rows of it, the options of raw_cases), for rccdf_encode and
     rccdf_decode also on chip_smoke.py's rc_rows (rccdf_row_cases), for
     zsm_mean on its rows of it (zsm_cases) and for flats_partition on
-    the reads of flats_scratch_cases."""
+    the wider buckets of flats_bucket_cases and the reads of
+    flats_scratch_cases."""
     sig, n = cs.make_bucket(0)
     bucket = (cs.block_cases(sig, n)[0] if name == "flac_decode"
               else sum(cs.raw_cases(sig, n), []) if name in RAW
@@ -122,7 +125,8 @@ def smoke_cases(name: str) -> list:
     found = [("[256, 65536]" + c[0][len(name):], c) for c in bucket] + (
         cs.zsm_cases(sig, n) if name == "zsm_mean"
         else cs.rccdf_row_cases(sig.device) if name.startswith("rccdf")
-        else cs.flats_scratch_cases(sig.device) if name == "flats_partition"
+        else cs.flats_bucket_cases(sig.device)
+        + cs.flats_scratch_cases(sig.device) if name == "flats_partition"
         else [])
     return [(shape, c[1], c[2]) for shape, c in found
             if c[0].split()[0] == name]

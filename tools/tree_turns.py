@@ -15,7 +15,8 @@ cases of it (time_case, log_case: the bucket [256, 65536] of phases 11
 and 12 with their options, such as kernel I on turbopfor's and flats'
 rows, "bitpack_msb turbopfor", which the kernel's name selects too,
 kernel L's rows of zsm_cases, F's and G's of rccdf_row_cases and, for
-flats_partition, K's reads of flats_scratch_cases), then
+flats_partition, K's wider buckets of flats_bucket_cases and reads of
+flats_scratch_cases), then
 runs each codec of
 --codecs over chip_smoke.read_set(0), the main path's 1,028 reads,
 --passes times (rc_path: every read back bit for bit, ratio, encode and
@@ -59,7 +60,8 @@ def turn(tag: str, kernels: list, codecs: list, passes: int) -> None:
                  + sum(cs.raw_cases(sig, n), [])] + cs.zsm_cases(sig, n) \
             + cs.rccdf_row_cases(sig.device)
         if "flats_partition" in kernels:
-            found += cs.flats_scratch_cases(sig.device)
+            found += cs.flats_bucket_cases(sig.device) \
+                + cs.flats_scratch_cases(sig.device)
         for shape, case in found:
             if case[0] in kernels or case[0].split()[0] in kernels:
                 cs.log_case(f"{shape} ({smi})", cs.time_case(*case))
